@@ -8,7 +8,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     from ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
     together) and print the build seconds;
  2. each kernel against its plain PyTorch version on the card, at the
-    main path's shapes and at ragged ones, synchronizing after every
+    main path's shapes ((1 048 576, 64), (4096, 64) and (1, 64) rows
+    against (8, 64) centers) and at ragged ones, synchronizing after every
     launch: ``pairwise_sqdist`` within rtol 1e-5 and atol
     1e-4 * (||a||^2 + ||b||^2); ``kmeans_assign`` labels equal on every
     row whose two nearest distances differ by more than 1e-5 relative
@@ -20,10 +21,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     labels, parameters within rtol 1e-5;
  4. the main path at full size: ``simulate`` of the ODCL-KM one-shot
     round over 1 048 576 ridge clients (dim 16, 64 samples each, JL
-    sketch 64, k = 8, kmeans++ + Lloyd, cluster mean) with 4096 routed
-    requests and 3 finalizes, with every kernel's launch count set to 0
-    just before and read just after; purity must be 1.0 and every kernel
-    must have launched;
+    sketch 64, k = 8, kmeans++ + Lloyd, cluster mean), 10 warm finalizes
+    after the first, and 4096 never-seen clients routed one request at a
+    time and as one batch, with every kernel's launch count set to 0 just
+    before and read just after; purity and route purity must be 1.0, the
+    one-by-one routes must give the batch's labels, and every kernel must
+    have launched;
  5. one JSON line ``{"kernels": [...]}``: per kernel its launches in
     phase 4, its largest error against the plain version, its time, the
     plain version's and one PyTorch call's (where one computes the same
@@ -53,6 +56,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
 MAIN_M, MAIN_K, MAIN_D = 1_048_576, 8, 64
 ROUTE_M = 4096
+FINALIZES = 11                     # the first, then 10 warm repeats
 
 
 def fail(msg: str):
@@ -144,10 +148,11 @@ def compare_assign(kmeans_assign, pairwise_l2, pts, cts) -> tuple:
 
 
 def phase_kernels(pairwise_l2, kmeans_assign) -> dict:
-    # the main path's two shapes, then ragged m in {1, 7, 4097},
-    # k in {1, 8, 257}, d in {16, 64, 200}
+    # the main path's three shapes (Lloyd over all rows, a batch of
+    # routes, one route), then ragged m in {1, 7, 4097}, k in {1, 8, 257},
+    # d in {16, 64, 200}
     shapes = [(MAIN_M, MAIN_K, MAIN_D), (ROUTE_M, MAIN_K, MAIN_D),
-              (1, 1, 16), (7, 257, 200), (4097, 8, 200), (4097, 1, 64),
+              (1, MAIN_K, MAIN_D), (1, 1, 16), (7, 257, 200), (4097, 8, 200), (4097, 1, 64),
               (7, 8, 16), (1, 257, 64), (4097, 257, 16), (4097, 257, 200)]
     errs = {}
     for i, (m, k, d) in enumerate(shapes):
@@ -302,12 +307,17 @@ def main() -> None:
     summary = simulate(clients=MAIN_M, clusters=8, dim=16, samples=64,
                        sketch_dim=64, wave=65_536, algorithm="kmeans-device",
                        init="kmeans++", route_probes=ROUTE_M,
-                       finalize_repeats=3, device="cuda")
+                       finalize_repeats=FINALIZES, device="cuda")
     launches = ops.launch_counts()
     sv = summary["serving"]
     check(summary["purity"] == 1.0, f"purity {summary['purity']} != 1.0")
     check(sv["route_purity"] == 1.0,
           f"route purity {sv['route_purity']} != 1.0")
+    check(sv["route_single_purity"] == 1.0,
+          f"single-route purity {sv['route_single_purity']} != 1.0")
+    check(sv["route_single_vs_batch"] == 1.0,
+          "routes one by one disagree with the batch on "
+          f"{1.0 - sv['route_single_vs_batch']:.3g} of the clients")
     check(summary["n_clusters_recovered"] == 8, "did not recover 8 clusters")
     check(np.isfinite(summary["mse"]) and summary["mse"] < 1e-2,
           f"served models off their optima: mse {summary['mse']}")
@@ -316,9 +326,15 @@ def main() -> None:
     print(json.dumps({"main_path": {
         "clients": summary["clients"], "clusters": summary["clusters"],
         "sketch_dim": summary["sketch_dim"], "purity": summary["purity"],
-        "route_purity": sv["route_purity"], "mse": summary["mse"],
+        "route_purity": sv["route_purity"],
+        "route_single_purity": sv["route_single_purity"],
+        "route_single_vs_batch": sv["route_single_vs_batch"],
+        "mse": summary["mse"],
         "n_iter": summary["meta"]["n_iter"], "phases": summary["phases"],
+        "finalize_first_ms": sv["finalize_first_ms"],
+        "finalize_warm_count": sv["finalize_warm_count"],
         "finalize_p50_ms": sv["finalize_p50_ms"],
+        "finalize_p99_ms": sv["finalize_p99_ms"],
         "route_p50_ms": sv["route_p50_ms"], "route_p99_ms": sv["route_p99_ms"],
         "routes_per_s": sv["routes_per_s"],
         "route_batch_ms": sv["route_batch_ms"],

@@ -183,8 +183,7 @@ def one_shot_aggregate_device(state: FederatedState, *,
             aggregator)
         return new_params, res, sketches
 
-    with obs.span("engine.one_shot", clients=state.n_clients,
-                  algorithm=getattr(algo, "name", str(algo))):
+    with obs.span("engine.one_shot"):
         new_params, res, sketches = _Program("engine.round", round_fn)(params)
     new_state, labels, info, _, _ = materialize_round(new_params, res, state)
     if return_sketches:

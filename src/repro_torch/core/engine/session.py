@@ -91,18 +91,14 @@ class AggregationSession:
         builds a fresh key).
       projection: an explicit (n, sketch_dim) projection in place of the
         one drawn from ``seed`` (how tests carry the reference's across).
-      staleness: only ``"none"`` so far.
       device: where the buffers live; CUDA unless ``"cpu"`` is asked for.
     """
 
     def __init__(self, capacity: int, *, sketch_dim: int = 256,
                  seed: int = 0, cluster_seed: Optional[int] = None,
-                 projection=None, staleness="none", device=None):
+                 projection=None, device=None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
-        if staleness not in (None, "none"):
-            raise NotImplementedError(
-                f"staleness {staleness!r} is not ported yet; only 'none'")
         self.device = resolve_device(device)
         self.capacity = int(capacity)
         self.sketch_dim = int(sketch_dim)
@@ -252,8 +248,7 @@ class AggregationSession:
                                       dtype=l.dtype, device=self.device),
                 wave)
         offset = int(rows[0])
-        with obs.span("session.ingest", wave=w, offset=offset,
-                      mode="params"):
+        with obs.span("session.ingest"):
             self._write_rows(self._sketches, rows,
                              sketch_stacked(wave, projection))
             for buf, l in zip(tree_leaves(self._params), leaves):
@@ -279,8 +274,7 @@ class AggregationSession:
         rows = self._alloc_rows(w, client_ids)
         self._mode = "sketches"
         offset = int(rows[0])
-        with obs.span("session.ingest", wave=w, offset=offset,
-                      mode="sketches"):
+        with obs.span("session.ingest"):
             self._write_rows(self._sketches, rows, sketches)
             self._sync()
         obs.count("session.ingest.clients", w)
@@ -303,13 +297,13 @@ class AggregationSession:
                                params=params, count=high, clock=self._clock)
 
     def finalize(self, *, algorithm="kmeans-device", k: Optional[int] = None,
-                 algo_options: Optional[dict] = None, engine: str = "device",
-                 aggregator="mean"):
-        """Steps 2-4 over the live rows.  Returns ``(new_state, labels,
-        info)`` (``new_state is None`` for sketch-only sessions)."""
+                 algo_options: Optional[dict] = None, aggregator="mean"):
+        """Steps 2-4 over the live rows on the device.  Returns
+        ``(new_state, labels, info)`` (``new_state is None`` for
+        sketch-only sessions)."""
         return self.finalize_snapshot(
             self.snapshot(), algorithm=algorithm, k=k,
-            algo_options=algo_options, engine=engine, aggregator=aggregator)
+            algo_options=algo_options, aggregator=aggregator)
 
     def finalize_snapshot(self, snap: SessionSnapshot, **kwargs):
         out, served = self.compute_round(snap, **kwargs)
@@ -318,19 +312,14 @@ class AggregationSession:
     def compute_round(self, snap: SessionSnapshot, *,
                       algorithm="kmeans-device", k: Optional[int] = None,
                       algo_options: Optional[dict] = None,
-                      engine: str = "device", aggregator="mean"):
+                      aggregator="mean"):
         """Steps 2-4 over a snapshot without touching the serving state.
         Returns ``(out, served)`` for ``install_round``."""
-        if engine not in ("auto", "device"):
-            raise ValueError(f"engine must be auto|device (the host engine "
-                             f"is not ported yet), got {engine!r}")
         algorithm, algo_options = resolve_device_request(algorithm,
                                                          algo_options)
         algo = get_algorithm(algorithm)
         k_eff = k if algo.requires_k else None
-        with obs.span("session.finalize", count=snap.count,
-                      algorithm=getattr(algo, "name", str(algo)),
-                      engine="device"):
+        with obs.span("session.finalize"):
             generator = make_generator(self.cluster_seed, self.device)
             res = _cluster_program(algo, k_eff, algo_options)(
                 generator, snap.sketches)
@@ -403,7 +392,7 @@ class AggregationSession:
         if n == 0:
             raise ValueError("route() needs at least one probe "
                              "(got an empty batch)")
-        with obs.span("session.route", n=n):
+        with obs.span("session.route"):
             out, batch_d2 = _route_program()(pts, served.centers)
         obs.count("session.route.requests", n)
         self._routed_d2_sum += batch_d2

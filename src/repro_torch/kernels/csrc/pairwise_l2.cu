@@ -9,16 +9,16 @@
 // and writes 34 MB of output, about 4 flop per byte, so the floor is
 // about 90 us at 3.35 TB/s while the fp32 FMA work is a few us.
 //
-// Design: one block computes a (BM x BK) output tile with 256 threads,
+// Design: one block computes a (kBM x kBK) output tile with 256 threads,
 // each holding a 4x4 register micro-tile.  The TPU's sequential third
 // grid axis (the d reduction) becomes a loop inside the block over d in
 // chunks of BD, with the a- and b-chunks staged transposed in shared
 // memory by cp.async.  ||a||^2, ||b||^2 and a.b are accumulated over the whole of d
 // and combined once, with the same clamp as the reference, so near-zero
 // distances clamp as there.  Ragged edges of m, k and d are masked in
-// the kernel (zeros are staged), so no padded copy is ever made.  Two
-// tile shapes: 256 x 16 for k <= 16 (the kmeans++ seeding shape, where a
-// 64-wide column tile would waste most of its work) and 64 x 64 above.
+// the kernel (zeros are staged), so no padded copy is ever made.  One
+// tile shape, 256 x 16, sized for the kmeans++ seeding shape (k = 8);
+// larger k takes more column tiles through grid.y.
 // A batched entry point (a leading window axis, for windowed neighbour
 // searches) would add blockIdx.z and three batch strides to the same
 // kernel.
@@ -28,25 +28,26 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBM = 256;
+constexpr int kBK = 16;
 constexpr int kBD = 16;
 constexpr int kTM = 4;
 constexpr int kTN = 4;
 
-template <int BM, int BK>
 __global__ void __launch_bounds__(kThreads)
 pairwise_sqdist_kernel(const float* __restrict__ a, const float* __restrict__ b,
                        float* __restrict__ out, int m, int k, int d) {
-  static_assert((BM / kTM) * (BK / kTN) == kThreads, "tile / thread mismatch");
-  constexpr int kRowThreads = BM / kTM;   // threads along m
-  constexpr int kColThreads = BK / kTN;   // threads along k
-  __shared__ float as[kBD][BM + 1];   // +1: the transposed store is conflict-free
-  __shared__ float bs[kBD][BK + 1];
+  static_assert((kBM / kTM) * (kBK / kTN) == kThreads, "tile / thread mismatch");
+  constexpr int kRowThreads = kBM / kTM;   // threads along m
+  constexpr int kColThreads = kBK / kTN;   // threads along k
+  __shared__ float as[kBD][kBM + 1];   // +1: the transposed store is conflict-free
+  __shared__ float bs[kBD][kBK + 1];
 
   const int tid = threadIdx.x;
   const int tx = tid % kColThreads;
   const int ty = tid / kColThreads;
-  const long row0 = static_cast<long>(blockIdx.x) * BM;
-  const int col0 = blockIdx.y * BK;
+  const long row0 = static_cast<long>(blockIdx.x) * kBM;
+  const int col0 = blockIdx.y * kBK;
 
   float ab[kTM][kTN];
   float a2[kTM];
@@ -63,7 +64,7 @@ pairwise_sqdist_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int d0 = 0; d0 < d; d0 += kBD) {
     // cp.async copies straight into shared memory, so a thread issues
     // all its loads back to back instead of stalling on each one
-    for (int idx = tid; idx < BM * kBD; idx += kThreads) {
+    for (int idx = tid; idx < kBM * kBD; idx += kThreads) {
       const int r = idx / kBD, c = idx % kBD;
       const long gr = row0 + r;
       const int gc = d0 + c;
@@ -72,7 +73,7 @@ pairwise_sqdist_kernel(const float* __restrict__ a, const float* __restrict__ b,
       else
         as[c][r] = 0.f;
     }
-    for (int idx = tid; idx < BK * kBD; idx += kThreads) {
+    for (int idx = tid; idx < kBK * kBD; idx += kThreads) {
       const int r = idx / kBD, c = idx % kBD;
       const int gr = col0 + r;
       const int gc = d0 + c;
@@ -117,15 +118,6 @@ pairwise_sqdist_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-template <int BM, int BK>
-cudaError_t launch(const float* a, const float* b, float* out, int m, int k,
-                   int d, cudaStream_t stream) {
-  const dim3 grid((m + BM - 1) / BM, (k + BK - 1) / BK);
-  pairwise_sqdist_kernel<BM, BK><<<grid, kThreads, 0, stream>>>(a, b, out, m,
-                                                                 k, d);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // a (m,d), b (k,d), out (m,k): contiguous fp32 device pointers.
@@ -137,7 +129,8 @@ extern "C" int pairwise_sqdist_f32(const void* a, const void* b, void* out,
   const auto* pb = static_cast<const float*>(b);
   auto* po = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if ((k + 63) / 64 > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (k <= 16) return static_cast<int>(launch<256, 16>(pa, pb, po, m, k, d, s));
-  return static_cast<int>(launch<64, 64>(pa, pb, po, m, k, d, s));
+  if ((k + kBK - 1) / kBK > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((m + kBM - 1) / kBM, (k + kBK - 1) / kBK);
+  pairwise_sqdist_kernel<<<grid, kThreads, 0, s>>>(pa, pb, po, m, k, d);
+  return static_cast<int>(cudaGetLastError());
 }

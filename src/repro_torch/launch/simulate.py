@@ -6,10 +6,12 @@ clients' covariates and responses from their cluster's ridge model,
 solves every closed-form local ERM in one batched solve, and ingests the
 wave into an ``AggregationSession`` (JL sketch on the device).  The
 server round is ``session.finalize()`` (kmeans++ seeding, Lloyd,
-per-cluster parameter mean).  ``route_probes`` then routes fresh,
-never-seen clients one request at a time (latency percentiles) and as
-one batch (throughput), and ``finalize_repeats`` re-runs the finalize
-for its latency percentiles.
+per-cluster parameter mean).  ``finalize_repeats`` counts the finalizes
+in all: the first is reported alone (``finalize_first_ms``), the warm
+repeats give the finalize percentiles.  ``route_probes`` then routes
+fresh, never-seen clients one request at a time (latency percentiles
+over those calls only) and as one batch (throughput); the two must give
+the same labels.
 
   python -m repro_torch.launch.simulate --clients 4096 --clusters 8
   python -m repro_torch.launch.simulate --clients 4096 --device cpu
@@ -20,6 +22,7 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import obs
@@ -109,20 +112,37 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
 
     serving = None
     if route_probes > 0 or finalize_repeats > 1:
+        # warm finalizes only: the first one above also pays first-call
+        # set-up (allocator growth, kernel loading)
+        h_fin = obs.Histogram()
         for _ in range(max(0, finalize_repeats - 1)):
+            tf = time.perf_counter()
             session.finalize(algorithm=algorithm, k=clusters,
                              algo_options=algo_options)
-        routes_per_s = route_batch_ms = batched_routes_per_s = None
-        route_purity = None
+            _sync(dev)
+            h_fin.observe((time.perf_counter() - tf) * 1e3)
+        serving = {"finalize_first_ms": t_agg * 1e3,
+                   "finalize_repeats": finalize_repeats,
+                   "finalize_warm_count": h_fin.count,
+                   "finalize_p50_ms": (h_fin.percentile(50.0)
+                                       if h_fin.count else None),
+                   "finalize_p99_ms": (h_fin.percentile(99.0)
+                                       if h_fin.count else None),
+                   "route_probes": route_probes}
         if route_probes > 0:
             # fresh never-seen clients from the same population
             probe_truth = torch.arange(route_probes, device=dev) % clusters
             theta_p = wave_ridge_erm(gen, optima, probe_truth, n=samples)
             _sync(dev)
             session.route(params={"theta": theta_p[0]})        # warmup
+            # one client per request: each call's latency, and its label
+            h_route = obs.Histogram()
+            single = np.empty(route_probes, np.int64)
             tr = time.perf_counter()
             for i in range(route_probes):
-                session.route(params={"theta": theta_p[i]})
+                t0 = time.perf_counter()
+                single[i] = session.route(params={"theta": theta_p[i]})
+                h_route.observe((time.perf_counter() - t0) * 1e3)
             routes_per_s = route_probes / (time.perf_counter() - tr)
             # the batched path: one program per request batch
             sk_p = session.sketch_params({"theta": theta_p})
@@ -132,26 +152,20 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
             for _ in range(reps):
                 session.route(sk_p)
             batch_s = (time.perf_counter() - tb) / reps
-            route_batch_ms = batch_s * 1e3
-            batched_routes_per_s = route_probes / batch_s
-            route_purity = cluster_agreement(routed,
-                                             probe_truth.cpu().numpy())
-        hists = obs.snapshot()["histograms"]
-        h_route = hists.get("session.route.ms", {})
-        h_fin = hists.get("session.finalize.ms", {})
-        serving = {
-            "route_probes": route_probes,
-            "route_p50_ms": h_route.get("p50"),
-            "route_p99_ms": h_route.get("p99"),
-            "routes_per_s": routes_per_s,
-            "route_batch_ms": route_batch_ms,
-            "batched_routes_per_s": batched_routes_per_s,
-            "route_purity": route_purity,
-            "finalize_repeats": finalize_repeats,
-            "finalize_p50_ms": h_fin.get("p50"),
-            "finalize_p99_ms": h_fin.get("p99"),
-            "drift": session.drift,
-        }
+            probe_truth = probe_truth.cpu().numpy()
+            serving.update({
+                "route_p50_ms": h_route.percentile(50.0),
+                "route_p99_ms": h_route.percentile(99.0),
+                "routes_per_s": routes_per_s,
+                "route_single_purity": cluster_agreement(single,
+                                                         probe_truth),
+                # the same clients routed one by one and as one batch
+                "route_single_vs_batch": float(np.mean(single == routed)),
+                "route_batch_ms": batch_s * 1e3,
+                "batched_routes_per_s": route_probes / batch_s,
+                "route_purity": cluster_agreement(routed, probe_truth),
+            })
+        serving["drift"] = session.drift
 
     return {
         "clients": clients, "clusters": clusters, "dim": dim,
@@ -216,7 +230,11 @@ def main(argv=None):
           f"purity={summary['purity']:.3f} mse={summary['mse']:.3g} "
           f"n_iter={summary['meta']['n_iter']}")
     sv = summary["serving"]
-    if sv is not None and sv["route_p50_ms"] is not None:
+    if sv is not None and sv["finalize_p50_ms"] is not None:
+        print(f"[simulate] finalize: first {sv['finalize_first_ms']:.3f}ms, "
+              f"warm p50={sv['finalize_p50_ms']:.3f}ms over "
+              f"{sv['finalize_warm_count']}")
+    if sv is not None and sv.get("route_p50_ms") is not None:
         print(f"[simulate] serving: route p50={sv['route_p50_ms']:.3f}ms "
               f"p99={sv['route_p99_ms']:.3f}ms "
               f"({sv['routes_per_s']:.0f}/s), batch of {sv['route_probes']} "

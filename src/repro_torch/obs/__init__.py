@@ -1,35 +1,24 @@
-"""repro_torch.obs — the dependency-free telemetry spine (spans / counters /
-gauges / histograms + pluggable sinks).  See ``obs/core.py``."""
+"""repro_torch.obs: the dependency-free telemetry spine (spans, counters,
+gauges, histograms).  See ``obs/core.py``."""
 from repro_torch.obs.core import (
     GLOBAL,
     Histogram,
     Registry,
-    add_sink,
     count,
-    event,
     gauge,
     observe,
-    remove_sink,
     reset,
     snapshot,
     span,
 )
-from repro_torch.obs.sinks import ConsoleSink, JsonlSink, ListSink, read_jsonl
 
 __all__ = [
     "GLOBAL",
     "Histogram",
     "Registry",
-    "ConsoleSink",
-    "JsonlSink",
-    "ListSink",
-    "add_sink",
     "count",
-    "event",
     "gauge",
     "observe",
-    "read_jsonl",
-    "remove_sink",
     "reset",
     "snapshot",
     "span",

@@ -1,28 +1,22 @@
 """Dependency-free telemetry core: spans, counters, gauges, histograms.
 
-The port's copy of ``repro/obs/core.py``, so its spans and counters keep
-the reference's names.  Everything here is plain stdlib — no torch, no
-numpy — so the instrumented hot paths (``core/engine/session.py``,
-``core/engine/aggregate.py``) pay dict-update + ``perf_counter`` cost
-and nothing else.
+The port's copy of the parts of ``repro/obs/core.py`` that its engine
+uses, so its spans and counters keep the reference's names.  Everything
+here is plain stdlib (no torch, no numpy), so the instrumented hot paths
+(``core/engine/session.py``, ``core/engine/aggregate.py``) pay a dict
+update and a ``perf_counter`` call and nothing else.
 
-  * ``Registry`` — counters (monotonic sums), gauges (last-write
-    scalars), histograms (raw-value series with numpy-convention
-    percentiles), plus a thread-local span stack for nested timing.
-  * ``Registry.span(name)`` — context manager: on exit the duration
-    lands in the ``"<name>.ms"`` histogram AND a ``"span"`` event
-    (with ``parent``/``depth`` from the nesting stack) goes to every
-    attached sink.  The yielded dict carries the measured ``ms`` after
-    the block, so callers can reuse the number without re-timing.
-  * sinks (``obs/sinks.py``) — anything with ``emit(event: dict)``;
-    ``JsonlSink`` appends events as JSON lines, ``ConsoleSink`` prints
-    a summary table on close, and ``Registry.snapshot()`` is the dict
-    sink the benchmarks embed into their schema-versioned JSON.
+  * ``Registry``: counters (monotonic sums), gauges (last-write
+    scalars) and histograms (raw-value series with numpy-convention
+    percentiles).
+  * ``Registry.span(name)``: context manager; on exit the duration
+    lands in the ``"<name>.ms"`` histogram.
+  * ``Registry.snapshot()``: the aggregates as one dict, which
+    ``launch/simulate.py`` returns in its summary.
 
-A process-global registry backs the module-level convenience functions
-(``span`` / ``count`` / ``gauge`` / ``observe`` / ``event`` /
-``snapshot`` / ``reset`` / ``add_sink``), which is what the engine
-modules call; tests construct private ``Registry`` instances.
+A process-global registry backs the module-level functions (``span`` /
+``count`` / ``gauge`` / ``observe`` / ``snapshot`` / ``reset``), which
+is what the engine modules call.
 """
 from __future__ import annotations
 
@@ -30,13 +24,13 @@ import contextlib
 import math
 import threading
 import time
-from typing import Any, Iterable, Optional
+from typing import Iterable, Optional
 
 
 class Histogram:
     """A value series with numpy-default (linear interpolation)
-    percentiles — ``percentile(p)`` matches ``numpy.percentile`` on the
-    same values, which ``tests/test_obs.py`` pins."""
+    percentiles: ``percentile(p)`` matches ``numpy.percentile`` on the
+    same values."""
 
     __slots__ = ("values",)
 
@@ -45,9 +39,6 @@ class Histogram:
 
     def observe(self, value: float) -> None:
         self.values.append(float(value))
-
-    def merge(self, other: "Histogram") -> None:
-        self.values.extend(other.values)
 
     @property
     def count(self) -> int:
@@ -82,22 +73,15 @@ class Histogram:
 
 
 class Registry:
-    """Counters + gauges + histograms + sinks + a span stack.
-
-    Mutations are guarded by a lock (the engine is single-threaded
-    today, but sinks/serving loops need not be); the span *stack* is
-    thread-local so nesting is per-thread.  ``reset()`` clears the
-    aggregates but keeps attached sinks — a driver that attached a
-    JSONL trace keeps receiving events across ``simulate()`` runs.
-    """
+    """Counters + gauges + histograms.  Mutations are guarded by a lock
+    (the engine is single-threaded today, but a serving loop need not
+    be)."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._local = threading.local()
         self.counters: dict[str, float] = {}
         self.gauges: dict[str, float] = {}
         self.histograms: dict[str, Histogram] = {}
-        self._sinks: list[Any] = []
 
     # ----------------------------------------------------------- metrics
 
@@ -118,69 +102,19 @@ class Registry:
 
     # ------------------------------------------------------------- spans
 
-    def _stack(self) -> list:
-        stack = getattr(self._local, "stack", None)
-        if stack is None:
-            stack = self._local.stack = []
-        return stack
-
     @contextlib.contextmanager
-    def span(self, name: str, **fields: Any):
-        """Time a block: duration -> ``"<name>.ms"`` histogram + a
-        ``"span"`` event carrying nesting (``parent``/``depth``).  The
-        yielded dict gains ``"ms"`` on exit."""
-        stack = self._stack()
-        info = {"name": name, **fields}
-        if stack:
-            info["parent"] = stack[-1]
-        info["depth"] = len(stack)
-        stack.append(name)
+    def span(self, name: str):
+        """Time a block: its duration lands in ``"<name>.ms"``."""
         t0 = time.perf_counter()
         try:
-            yield info
+            yield
         finally:
-            ms = (time.perf_counter() - t0) * 1e3
-            stack.pop()
-            info["ms"] = ms
-            self.observe(f"{name}.ms", ms)
-            self.event("span", **info)
-
-    # ------------------------------------------------------------- sinks
-
-    def add_sink(self, sink: Any) -> Any:
-        """Attach anything with ``emit(event: dict)`` (and optionally
-        ``close()``).  Returns the sink."""
-        with self._lock:
-            self._sinks.append(sink)
-        return sink
-
-    def remove_sink(self, sink: Any) -> None:
-        with self._lock:
-            if sink in self._sinks:
-                self._sinks.remove(sink)
-
-    def event(self, kind: str, **fields: Any) -> dict:
-        """Emit one structured event to every sink. Returns the event."""
-        evt = {"event": kind, "ts": time.time(), **fields}
-        with self._lock:
-            sinks = list(self._sinks)
-        for sink in sinks:
-            sink.emit(evt)
-        return evt
-
-    def close_sinks(self) -> None:
-        with self._lock:
-            sinks, self._sinks = list(self._sinks), []
-        for sink in sinks:
-            close = getattr(sink, "close", None)
-            if callable(close):
-                close()
+            self.observe(f"{name}.ms", (time.perf_counter() - t0) * 1e3)
 
     # ---------------------------------------------------------- snapshot
 
     def snapshot(self) -> dict:
-        """The dict sink: aggregates only (no raw event stream) — what
-        the benchmarks embed per row into their schema-versioned JSON."""
+        """The aggregates as one dict."""
         with self._lock:
             return {
                 "counters": dict(self.counters),
@@ -189,23 +123,8 @@ class Registry:
                                for n, h in self.histograms.items()},
             }
 
-    def merge(self, other: "Registry") -> None:
-        """Fold another registry's aggregates in.  Counter sums and
-        histogram value multisets are order-independent under merge
-        (the hypothesis property in ``tests/test_obs.py``); gauges are
-        last-write-wins by definition."""
-        with self._lock:
-            for name, v in other.counters.items():
-                self.counters[name] = self.counters.get(name, 0.0) + v
-            self.gauges.update(other.gauges)
-            for name, h in other.histograms.items():
-                mine = self.histograms.get(name)
-                if mine is None:
-                    mine = self.histograms[name] = Histogram()
-                mine.merge(h)
-
     def reset(self) -> None:
-        """Drop all aggregates; attached sinks stay attached."""
+        """Drop all aggregates."""
         with self._lock:
             self.counters.clear()
             self.gauges.clear()
@@ -217,8 +136,8 @@ class Registry:
 GLOBAL = Registry()
 
 
-def span(name: str, **fields: Any):
-    return GLOBAL.span(name, **fields)
+def span(name: str):
+    return GLOBAL.span(name)
 
 
 def count(name: str, value: float = 1.0) -> None:
@@ -231,18 +150,6 @@ def gauge(name: str, value: float) -> None:
 
 def observe(name: str, value: float) -> None:
     GLOBAL.observe(name, value)
-
-
-def event(kind: str, **fields: Any) -> dict:
-    return GLOBAL.event(kind, **fields)
-
-
-def add_sink(sink: Any) -> Any:
-    return GLOBAL.add_sink(sink)
-
-
-def remove_sink(sink: Any) -> None:
-    GLOBAL.remove_sink(sink)
 
 
 def snapshot() -> dict:

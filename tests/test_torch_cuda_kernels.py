@@ -20,8 +20,8 @@ from repro_torch.kernels import pairwise_l2 as tpairwise
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(1, 1, 16), (7, 8, 64), (4097, 257, 16), (4096, 8, 64),
-          (4097, 8, 200), (65536, 8, 64)]
+SHAPES = [(1, 1, 16), (1, 8, 64), (7, 8, 64), (4097, 257, 16),
+          (4096, 8, 64), (4097, 8, 200), (65536, 8, 64)]
 
 
 @pytest.fixture

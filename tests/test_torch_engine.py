@@ -331,8 +331,6 @@ def test_sketch_only_session_and_guard_rails():
         sess.ingest(sketches=thetas[:1])
     with pytest.raises(ValueError, match="empty batch"):
         sess.route(np.zeros((0, DIM), np.float32))
-    with pytest.raises(ValueError, match="engine"):
-        sess.finalize(k=K, engine="host")
 
 
 def test_keyed_waves_validate_before_changing_anything():
@@ -375,7 +373,11 @@ def test_simulate_recovers_staggered_clusters_with_own_randomness():
     out = simulate(clients=1024, clusters=8, wave=400, route_probes=32,
                    finalize_repeats=2, device=CPU)
     assert out["purity"] == 1.0 and out["n_clusters_recovered"] == 8
-    assert out["serving"]["route_purity"] == 1.0
+    sv = out["serving"]
+    assert sv["route_purity"] == 1.0 and sv["route_single_purity"] == 1.0
+    assert sv["route_single_vs_batch"] == 1.0
+    # the first finalize is reported alone; the warm repeat is the p50
+    assert sv["finalize_warm_count"] == 1 and sv["finalize_first_ms"] > 0
     assert out["mse"] < 1e-2 and out["meta"]["n_iter"] >= 1
     hists = out["obs"]["histograms"]
     for span in ("session.ingest.ms", "session.finalize.ms",
