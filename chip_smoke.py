@@ -4,38 +4,68 @@
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
- 1. the card's name and power limit; build every kernel of the main path
+ 1. the card's name and power limit; build every kernel of the main paths
     from ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
     together) and print the build seconds;
  2. each kernel against its plain PyTorch version on the card, at the
-    main path's shapes ((1 048 576, 64), (4096, 64) and (1, 64) rows
-    against (8, 64) centers) and at ragged ones, synchronizing after every
-    launch: ``pairwise_sqdist`` within rtol 1e-5 and atol
-    1e-4 * (||a||^2 + ||b||^2); ``kmeans_assign`` labels equal on every
-    row whose two nearest distances differ by more than 1e-5 relative
-    (the count of rows left out is printed), sums within rtol 1e-5 /
-    atol 1e-4 and counts equal where the labels are, and a repeat run
-    bit-identical;
- 3. a small round on the card against the same round on the CPU (the
-    plain versions), with the same inputs: identical partitions and route
-    labels, parameters within rtol 1e-5;
+    main paths' shapes and at ragged ones, synchronizing after every
+    launch:
+    * ``pairwise_sqdist`` ((1 048 576, 64), (4096, 64) and (1, 64) rows
+      against (8, 64) centers; (4096, 32) and (1, 32) rows against
+      (8, 32) centers; the kNN tiles (1024, 32) x (16 384, 32), the
+      fusion tests (4096, 32) x (4096, 32) and (1024, 32) x (1024, 32);
+      the LSH windows (256, 64, 32) x (256, 192, 32) as one batch) within
+      rtol 1e-5 and atol 1e-4 * (||a||^2 + ||b||^2); ``kmeans_assign``,
+      at the same shapes but the kNN, fusion and LSH ones, labels equal on every
+      row whose two nearest distances differ by more than 1e-5 relative
+      (the count of rows left out is printed), sums within rtol 1e-5 /
+      atol 1e-4 and counts equal where the labels are;
+    * ``group_ball_proj_batched`` at (1, 131 072, 32), (10, 131 072, 32)
+      and (1, 8 386 560, 32), each with a radius per slot and with one
+      per rung broadcast over the edges, and ``group_ball_proj`` at
+      (523 776, 32)
+      with a scalar and a per-row radius, then ragged e in {1, 7, 1031},
+      d in {1, 16, 32, 200}, b in {1, 3}, with zero rows, rows on the
+      sphere and inert (r = 0) slots, within rtol 1e-6 / atol
+      1e-7 * ||v||; e = 0 must not launch;
+    and every kernel's repeat run bit-identical;
+ 3. small rounds on the card against the same rounds on the CPU (the
+    plain versions), with the same inputs: the ODCL-KM round (identical
+    partitions and route labels, parameters within rtol 1e-5) and four
+    ODCL-CC rounds (``convex-device`` on the complete graph at m = 256
+    and on the kNN graph at m = 512, ``clusterpath-device`` on the LSH
+    kNN graph at m = 2048, host ``convex_clustering`` at m = 256):
+    identical partitions and route labels, u within
+    atol 1e-5 * (1 + max|a|), the same AMA ``n_iter`` unless the last
+    dual step lies within 1e-6 relative of the stop threshold (then
+    both are printed); two card solves give bit-identical u;
  4. the main path at full size: ``simulate`` of the ODCL-KM one-shot
     round over 1 048 576 ridge clients (dim 16, 64 samples each, JL
     sketch 64, k = 8, kmeans++ + Lloyd, cluster mean), 10 warm finalizes
     after the first, and 4096 never-seen clients routed one request at a
-    time and as one batch, with every kernel's launch count set to 0 just
-    before and read just after; purity and route purity must be 1.0, the
-    one-by-one routes must give the batch's labels, and every kernel must
-    have launched;
- 5. one JSON line ``{"kernels": [...]}``: per kernel its launches in
-    phase 4, its largest error against the plain version, its time, the
-    plain version's and one PyTorch call's (where one computes the same
-    function) at the main path's shape, and the least time the card could
-    take (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s);
+    time and as one batch; purity and route purity must be 1.0, the
+    one-by-one routes must give the batch's labels;
+ 4b. the convex paths at full size (dim 16, 64 samples, sketch 32, 8
+    clusters, 200 AMA iterations at most, 3 finalizes, 4096 never-seen
+    clients routed): ``convex-device`` on the kNN graph (k = 8) at
+    C = 16 384, on the complete graph at C = 4096 (8 386 560 edges), and
+    ``clusterpath-device`` on the LSH kNN graph at C = 16 384; then host
+    ``convex_clustering`` of 1024 sketches at the exact lambda of the
+    recovery interval (17), its clusters routing 4096 new clients; each
+    must give purity 1.0, route purity 1.0 and K' = 8;
+    for every path of phases 4 and 4b every kernel's launch count is set
+    to 0 just before and read just after, and every kernel that the path
+    runs must have launched;
+ 5. one JSON line ``{"kernels": [...]}``: per kernel its launches on the
+    main paths, its largest error against the plain version, its time,
+    the plain version's and one PyTorch call's (where one computes the
+    same function) at the main path's shape, and the least time the card
+    could take (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s);
  6. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds, after phase 4, a second run of the main path under
+``--profile`` adds, after phase 4, a second run of the main path and one
+finalize of the convex path on the complete graph at C = 4096 under
 ``torch.profiler``: device time by kernel and the device's busy share.
 
 The port imports no JAX; neither does this script.
@@ -57,6 +87,15 @@ FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
 MAIN_M, MAIN_K, MAIN_D = 1_048_576, 8, 64
 ROUTE_M = 4096
 FINALIZES = 11                     # the first, then 10 warm repeats
+# group prox: the AMA dual at C = 16 384 (kNN, k = 8), its 10-rung ladder,
+# and the complete graph at C = 4096; the host AMA at m = 1024.  The last
+# flag: one radius per rung, broadcast over the edges (uniform weights)
+PROX_MAIN = [(1, 131_072, 32, False), (10, 131_072, 32, False),
+             (1, 8_386_560, 32, True)]
+HOST_M = 1024
+PAIRWISE_CONVEX = [(1024, 16_384, 32), (4096, 4096, 32), (HOST_M, HOST_M, 32)]
+HOST_E = HOST_M * (HOST_M - 1) // 2
+CONVEX_FINALIZES = 3
 
 
 def fail(msg: str):
@@ -151,9 +190,12 @@ def phase_kernels(pairwise_l2, kmeans_assign) -> dict:
     # the main path's three shapes (Lloyd over all rows, a batch of
     # routes, one route), then ragged m in {1, 7, 4097}, k in {1, 8, 257},
     # d in {16, 64, 200}
+    # d in {16, 64, 200}; then the convex paths' routes against the K'
+    # centers in the sketch space of 32, a batch of 4096 and one
     shapes = [(MAIN_M, MAIN_K, MAIN_D), (ROUTE_M, MAIN_K, MAIN_D),
               (1, MAIN_K, MAIN_D), (1, 1, 16), (7, 257, 200), (4097, 8, 200), (4097, 1, 64),
-              (7, 8, 16), (1, 257, 64), (4097, 257, 16), (4097, 257, 200)]
+              (7, 8, 16), (1, 257, 64), (4097, 257, 16), (4097, 257, 200),
+              (ROUTE_M, 8, 32), (1, 8, 32)]
     errs = {}
     for i, (m, k, d) in enumerate(shapes):
         a, b = draw(100 + i, (m, d), (k, d))
@@ -167,6 +209,99 @@ def phase_kernels(pairwise_l2, kmeans_assign) -> dict:
               flush=True)
         if (m, k, d) == (MAIN_M, MAIN_K, MAIN_D):
             errs = {"pairwise_sqdist": pe, "kmeans_assign": ae}
+    # pairwise_sqdist alone at the convex paths' other shapes: the kNN
+    # tiles at C = 16 384, the complete graph's fusion at C = 4096 and the
+    # host solver's fusion at m = 1024
+    for i, (m, k, d) in enumerate(PAIRWISE_CONVEX):
+        a, b = draw(150 + i, (m, d), (k, d))
+        pe = compare_pairwise(pairwise_l2, a, b)
+        print(f"[chip_smoke] pairwise_sqdist at ({m},{d})x({k},{d}): max abs "
+              f"err {pe:.3g}", flush=True)
+    return errs
+
+
+def prox_rows(seed: int, b: int, e: int, d: int):
+    """Rows of v and radii that put some rows inside the ball and some
+    outside, some exactly on its sphere, zero rows and inert (r = 0)
+    slots."""
+    v, r = draw(seed, (b, e, d), (b, e))
+    norms = torch.sqrt((v * v).sum(-1))
+    r = r.abs() * norms
+    r[:, ::5] = norms[:, ::5]
+    r[:, 1::7] = 0.0
+    v[:, 2::11] = 0.0
+    return v, r
+
+
+def compare_prox(fn, plain, v, r) -> float:
+    got = fn(v, r)
+    torch.cuda.synchronize()
+    want = plain(v, r)
+    err = (got - want).abs()
+    tol = 1e-6 * want.abs() + 1e-7 * torch.sqrt((v * v).sum(-1, keepdim=True))
+    check(bool((err <= tol).all()),
+          f"{fn.__name__} disagrees at {tuple(v.shape)}: max err "
+          f"{float(err.max())}")
+    again = fn(v, r)
+    torch.cuda.synchronize()
+    check(torch.equal(again, got), f"{fn.__name__} is not repeatable")
+    return float(err.max())
+
+
+def phase_prox_kernels(group_prox, pairwise_l2, ops) -> dict:
+    """Phase 2 for the convex path's kernels: both group-prox kernels and
+    the batched ``pairwise_sqdist``."""
+    errs = {"group_ball_proj_batched": 0.0, "group_ball_proj": 0.0}
+    for i, (b, e, d, _) in enumerate(PROX_MAIN):
+        v, r = prox_rows(200 + i, b, e, d)
+        # a radius per slot (the kNN graphs) and one per rung, broadcast
+        # through strides (the complete graph)
+        for name, radius in (("per-slot", r), ("per-rung", r[:, :1])):
+            err = compare_prox(group_prox.group_ball_proj_batched,
+                               group_prox.group_ball_proj_batched_ref, v,
+                               radius)
+            errs["group_ball_proj_batched"] = max(
+                errs["group_ball_proj_batched"], err)
+            print(f"[chip_smoke] group_ball_proj_batched at ({b},{e},{d}), "
+                  f"{name} radius: max abs err {err:.3g}", flush=True)
+        del v, r
+    v, r = prox_rows(210, 1, HOST_E, 32)
+    for name, radius in (("scalar", 0.75), ("per-row", r[0])):
+        err = compare_prox(group_prox.group_ball_proj,
+                           group_prox.group_ball_proj_ref, v[0], radius)
+        errs["group_ball_proj"] = max(errs["group_ball_proj"], err)
+        print(f"[chip_smoke] group_ball_proj at ({HOST_E},32), {name} "
+              f"radius: max abs err {err:.3g}", flush=True)
+    for b in (1, 3):
+        for e in (1, 7, 1031):
+            for d in (1, 16, 32, 200):
+                v, r = prox_rows(b * 10000 + e * 10 + d, b, e, d)
+                compare_prox(group_prox.group_ball_proj_batched,
+                             group_prox.group_ball_proj_batched_ref, v, r)
+                for radius in (r[0], 0.75):
+                    compare_prox(group_prox.group_ball_proj,
+                                 group_prox.group_ball_proj_ref, v[0], radius)
+    ops.reset_launch_counts()
+    empty = group_prox.group_ball_proj_batched(
+        torch.zeros((3, 0, 32), device="cuda"),
+        torch.zeros((3, 0), device="cuda"))
+    check(empty.shape == (3, 0, 32) and
+          ops.launch_counts()["group_ball_proj_batched"] == 0,
+          "group_ball_proj_batched launched at e = 0")
+    print("[chip_smoke] group prox: ragged shapes, zero rows, rows on the "
+          "sphere, inert slots and e = 0 agree", flush=True)
+    a, b = draw(220, (256, 64, 32), (256, 192, 32))
+    got = pairwise_l2.pairwise_sqdist(a, b)
+    torch.cuda.synchronize()
+    want = pairwise_l2.pairwise_sqdist_ref(a, b)
+    scale = (a * a).sum(2)[:, :, None] + (b * b).sum(2)[:, None, :]
+    excess = (got - want).abs() - (1e-5 * want.abs() + 1e-4 * scale)
+    check(float(excess.max()) <= 0.0,
+          f"batched pairwise_sqdist disagrees: excess {float(excess.max())}")
+    check(torch.equal(pairwise_l2.pairwise_sqdist(a, b), got),
+          "batched pairwise_sqdist is not repeatable")
+    print(f"[chip_smoke] batched pairwise_sqdist at (256,64,32)x(256,192,32):"
+          f" max abs err {float((got - want).abs().max()):.3g}", flush=True)
     return errs
 
 
@@ -208,11 +343,103 @@ def phase_small_round() -> None:
           f"route labels, n_iter {gn})", flush=True)
 
 
+def clustered_thetas(seed: int, m: int, k: int, n_probes: int = 64):
+    rng = np.random.default_rng(seed)
+    optima = rng.normal(size=(k, 16)) * 20.0
+    truth = np.arange(m) % k
+    thetas = (optima[truth] + 0.3 * rng.normal(size=(m, 16))).astype(
+        np.float32)
+    probes = (optima[truth[:n_probes]]
+              + 0.3 * rng.normal(size=(n_probes, 16))).astype(np.float32)
+    proj = rng.normal(size=(16, 32)).astype(np.float32) / np.sqrt(32.0)
+    return thetas, truth, probes, proj
+
+
+def check_u(name, cpu, gpu, a_max) -> None:
+    """u within atol 1e-5 * (1 + max|a|); n_iter equal unless the last dual
+    step lies within 1e-6 relative of the stop threshold."""
+    err = float(np.abs(cpu.u.cpu().numpy() - gpu.u.cpu().numpy()).max())
+    check(err <= 1e-5 * (1.0 + a_max),
+          f"{name}: u differs by {err} (atol {1e-5 * (1.0 + a_max)})")
+    n_cpu, n_gpu = getattr(cpu, "n_iter", None), getattr(gpu, "n_iter", None)
+    if n_cpu != n_gpu:
+        near = [abs(r.moved - r.thresh) <= 1e-6 * r.thresh for r in (cpu, gpu)]
+        print(f"[chip_smoke] {name}: n_iter {n_cpu} (CPU) vs {n_gpu} (card);"
+              f" last moved {cpu.moved!r} / {gpu.moved!r}, thresh "
+              f"{cpu.thresh!r} / {gpu.thresh!r}", flush=True)
+        check(any(near), f"{name}: AMA iteration counts differ away from "
+              "the stop threshold")
+
+
+def phase_convex_rounds() -> None:
+    from repro_torch.core.clustering.convex import (
+        convex_clustering, lambda_interval)
+    from repro_torch.core.engine.device_convex import (
+        device_clusterpath, device_convex_cluster)
+    from repro_torch.core.engine.session import AggregationSession
+
+    cases = [("convex-device complete", 256, "convex-device",
+              device_convex_cluster, {"iters": 200, "edges": "complete"}),
+             ("convex-device knn", 512, "convex-device",
+              device_convex_cluster, {"iters": 200, "edges": "knn",
+                                      "knn_k": 8}),
+             ("clusterpath-device knn-approx", 2048, "clusterpath-device",
+              device_clusterpath, {"iters": 200, "edges": "knn-approx",
+                                   "knn_k": 8})]
+    for name, m, algorithm, solve, options in cases:
+        thetas, truth, probes, proj = clustered_thetas(m, m, 8)
+        options = dict(options)
+        if algorithm == "convex-device":
+            lo, hi = lambda_interval(thetas, truth)
+            options["lam"] = 0.5 * (lo + hi) if lo < hi else lo
+        out = {}
+        for dev in ("cpu", "cuda"):
+            sess = AggregationSession(m, sketch_dim=32,
+                                      projection=torch.from_numpy(proj),
+                                      device=dev)
+            sess.ingest({"theta": torch.from_numpy(thetas)})
+            _, labels, info = sess.finalize(algorithm=algorithm,
+                                            algo_options=options)
+            routed = sess.route(sess.sketch_params(
+                {"theta": torch.from_numpy(probes)}))
+            out[dev] = (labels, routed, info,
+                        solve(None, sess.sketches, **options), sess.sketches)
+        (cl, cr, ci, cres, ska), (gl, gr, _, gres, _) = (out["cpu"],
+                                                          out["cuda"])
+        check(np.array_equal(cl, gl), f"{name}: partitions differ")
+        check(np.array_equal(cr, gr), f"{name}: route labels differ")
+        check(ci["meta"]["n_iter"] == cres.n_iter, f"{name}: the session "
+              "and the direct solve ran different iteration counts")
+        check_u(name, cres, gres, float(ska.abs().max()))
+        print(f"[chip_smoke] {name} at m={m}: card == CPU (partition of "
+              f"{ci['n_clusters']} clusters, {len(gr)} route labels, n_iter "
+              f"{gres.n_iter})", flush=True)
+        if name == "convex-device knn":
+            again = solve(None, sess.sketches, **options)
+            check(torch.equal(again.u, gres.u),
+                  "two card solves give different u")
+            print("[chip_smoke] two card solves give bit-identical u",
+                  flush=True)
+    thetas, truth, _, proj = clustered_thetas(256, 256, 8)
+    sk = thetas @ proj
+    lo, hi = lambda_interval(sk, truth)
+    lam = 0.5 * (lo + hi) if lo < hi else lo
+    res = {dev: convex_clustering(torch.from_numpy(sk).to(dev), lam,
+                                  iters=300) for dev in ("cpu", "cuda")}
+    check(np.array_equal(res["cpu"].labels, res["cuda"].labels),
+          "host convex_clustering: partitions differ")
+    check_u("host convex_clustering", res["cpu"], res["cuda"],
+            float(np.abs(sk).max()))
+    print(f"[chip_smoke] host convex_clustering at m=256: card == CPU "
+          f"({res['cuda'].n_clusters} clusters)", flush=True)
+
+
 # --------------------------------------------------- --profile only
 
-def phase_profile(simulate) -> dict:
-    """A second, traced run of the main path (fewer routes): device time
-    by kernel and the device's busy share of the traced wall clock."""
+def phase_profile(simulate, **run) -> dict:
+    """A second, traced run of a path (``run``: simulate's arguments):
+    device time by kernel and the device's busy share of the traced wall
+    clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -220,10 +447,7 @@ def phase_profile(simulate) -> dict:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        simulate(clients=MAIN_M, clusters=8, dim=16, samples=64,
-                 sketch_dim=64, wave=65_536, algorithm="kmeans-device",
-                 init="kmeans++", route_probes=256, finalize_repeats=3,
-                 device="cuda")
+        simulate(**run)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -231,14 +455,226 @@ def phase_profile(simulate) -> dict:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:15]
-    return {"traced_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {"run": run, "traced_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "top_kernels": [{"name": e.key[:90], "calls": e.count,
                              "ms": e.self_device_time_total / 1e3}
                             for e in top]}
 
 
+# ----------------------------------------------------------- phase 4b
+
+CONVEX_PATHS = [
+    ("convex-device knn", {"clients": 16_384, "algorithm": "convex-device",
+                           "edges": "knn"}),
+    ("convex-device complete", {"clients": 4096, "algorithm": "convex-device",
+                                "edges": "complete"}),
+    ("clusterpath-device knn-approx", {"clients": 16_384,
+                                       "algorithm": "clusterpath-device",
+                                       "edges": "knn-approx"}),
+]
+
+
+def path_fields(summary: dict, launches: dict, card: str) -> dict:
+    """The fields one path run prints (phase 4's ``main_path`` line and
+    phase 4b's ``convex_path`` lines)."""
+    sv = summary["serving"]
+    return {
+        "clients": summary["clients"], "clusters": summary["clusters"],
+        "sketch_dim": summary["sketch_dim"], "purity": summary["purity"],
+        "route_purity": sv["route_purity"],
+        "route_single_purity": sv["route_single_purity"],
+        "route_single_vs_batch": sv["route_single_vs_batch"],
+        "mse": summary["mse"],
+        "n_iter": summary["meta"]["n_iter"], "phases": summary["phases"],
+        "finalize_first_ms": sv["finalize_first_ms"],
+        "finalize_warm_count": sv["finalize_warm_count"],
+        "finalize_p50_ms": sv["finalize_p50_ms"],
+        "finalize_p99_ms": sv["finalize_p99_ms"],
+        "route_p50_ms": sv["route_p50_ms"], "route_p99_ms": sv["route_p99_ms"],
+        "routes_per_s": sv["routes_per_s"],
+        "route_batch_ms": sv["route_batch_ms"],
+        "batched_routes_per_s": sv["batched_routes_per_s"],
+        "spans_p50_ms": {
+            name[:-3]: h["p50"]
+            for name, h in summary["obs"]["histograms"].items()
+            if h.get("count")},
+        "launches": launches, "device": summary["device_name"],
+        "card": card}
+
+
+def check_path(name: str, summary: dict, launches: dict, kernels) -> None:
+    sv = summary["serving"]
+    check(summary["purity"] == 1.0,
+          f"{name}: purity {summary['purity']} != 1.0")
+    check(sv["route_purity"] == 1.0,
+          f"{name}: route purity {sv['route_purity']} != 1.0")
+    check(sv["route_single_purity"] == 1.0,
+          f"{name}: single-route purity {sv['route_single_purity']} != 1.0")
+    check(sv["route_single_vs_batch"] == 1.0,
+          f"{name}: routes one by one disagree with the batch on "
+          f"{1.0 - sv['route_single_vs_batch']:.3g} of the clients")
+    check(summary["n_clusters_recovered"] == 8,
+          f"{name}: recovered {summary['n_clusters_recovered']} clusters, "
+          "not 8")
+    check(np.isfinite(summary["mse"]) and summary["mse"] < 1e-2,
+          f"{name}: served models off their optima: mse {summary['mse']}")
+    for kernel in kernels:
+        check(launches[kernel] > 0, f"{name}: launched no {kernel} kernel")
+
+
+def phase_convex_paths(simulate, ops, card: str) -> dict:
+    """The convex paths at full size, each with the launch counts set to 0
+    just before and read just after.  Returns the launches by path."""
+    by_path = {}
+    for name, kw in CONVEX_PATHS:
+        ops.reset_launch_counts()
+        summary = simulate(clusters=8, dim=16, samples=64, sketch_dim=32,
+                           knn_k=8, cc_iters=200, route_probes=ROUTE_M,
+                           finalize_repeats=CONVEX_FINALIZES, device="cuda",
+                           **kw)
+        launches = ops.launch_counts()
+        check_path(name, summary, launches, ("group_ball_proj_batched",
+                                             "pairwise_sqdist",
+                                             "kmeans_assign"))
+        counters = summary["obs"]["counters"]
+        c = summary["clients"]
+        print(json.dumps({"convex_path": {
+            "name": name, "algorithm": summary["algorithm"],
+            "edges": summary["edges"], "knn_k": summary["knn_k"],
+            "lam": summary["lam"],
+            "n_clusters": summary["n_clusters_recovered"],
+            # per finalize: one read per AMA iteration, one per label
+            # propagation step (every rung's, on the ladder)
+            "ama_iterations_per_finalize":
+                counters.get("convex.ama.iterations", 0) / CONVEX_FINALIZES,
+            "propagation_steps_per_finalize":
+                counters.get("convex.components.steps", 0) / CONVEX_FINALIZES,
+            # the mean stage's one-hot over root-indexed centers is (C, C)
+            "mean_onehot_bytes": 4 * c * c,
+            **path_fields(summary, launches, card)}}), flush=True)
+        by_path[name] = launches
+    return by_path
+
+
+def phase_host_convex(ops, card: str) -> dict:
+    """Host ``convex_clustering`` (the unbatched kernel's path) over the
+    sketches of 1024 ridge clients at the exact lambda of (17), then 4096
+    never-seen clients routed to its clusters."""
+    from repro_torch.core.clustering.convex import (
+        convex_clustering, lambda_interval)
+    from repro_torch.core.engine.session import AggregationSession
+    from repro_torch.core.federated import cluster_agreement
+    from repro_torch.core.sketch import make_generator
+    from repro_torch.launch.simulate import staggered_optima, wave_ridge_erm
+
+    gen = make_generator(0, torch.device("cuda"))
+    optima = staggered_optima(gen, 8, 16)
+    truth = torch.arange(HOST_M, device="cuda") % 8
+    probe_truth = torch.arange(ROUTE_M, device="cuda") % 8
+    thetas = wave_ridge_erm(gen, optima, truth, n=64)
+    probes = wave_ridge_erm(gen, optima, probe_truth, n=64)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess = AggregationSession(HOST_M, sketch_dim=32, device="cuda")
+    sess.ingest({"theta": thetas})
+    lo, hi = lambda_interval(sess.sketches, truth.cpu().numpy())
+    lam = 0.5 * (lo + hi) if lo < hi else lo
+    t1 = time.perf_counter()
+    res = convex_clustering(sess.sketches, lam, iters=300)
+    t2 = time.perf_counter()
+    centers = torch.from_numpy(res.centers).cuda()
+    routed, _, _ = ops.kmeans_assign(sess.sketch_params({"theta": probes}),
+                                     centers)
+    routed = routed.cpu().numpy()
+    t3 = time.perf_counter()
+    launches = ops.launch_counts()
+    purity = cluster_agreement(res.labels, truth.cpu().numpy())
+    route_purity = cluster_agreement(routed, probe_truth.cpu().numpy())
+    check(purity == 1.0, f"host convex: purity {purity} != 1.0")
+    check(route_purity == 1.0, f"host convex: route purity {route_purity}")
+    check(res.n_clusters == 8, f"host convex: {res.n_clusters} clusters")
+    for kernel in ("group_ball_proj", "pairwise_sqdist", "kmeans_assign"):
+        check(launches[kernel] > 0, f"host convex: launched no {kernel}")
+    print(json.dumps({"convex_path": {
+        "name": "host convex_clustering", "clients": HOST_M, "clusters": 8,
+        "sketch_dim": 32, "edges": "complete", "n_edges": HOST_E,
+        "lam": lam, "iters": 300, "n_clusters": res.n_clusters,
+        "purity": purity, "route_purity": route_purity,
+        "phases": {"ingest_and_lambda_s": t1 - t0, "cluster_s": t2 - t1,
+                   "route_batch_s": t3 - t2},
+        "launches": launches, "device": torch.cuda.get_device_name(0),
+        "card": card}}), flush=True)
+    return launches
+
+
 # ------------------------------------------------------------ phase 5
+
+def prox_kernel_rows(group_prox, launches, errs) -> list:
+    """Phase 5 rows of the two group-prox kernels: the batched one at the
+    convex paths' three dual shapes (the row's own numbers at the first,
+    the kNN graph at C = 16 384), the unbatched one at the host AMA's
+    (523 776, 32) with a scalar radius (and a per-row one beside it)."""
+    def bound(nbytes, nops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / FP32_FLOP_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    def timed(fn, plain, v, r, radius_bytes, library=None):
+        rows = v.numel() // v.shape[-1]
+        b_ms, b_by = bound(4.0 * 2 * v.numel() + radius_bytes,
+                           (3.0 * v.shape[-1] + 3) * rows)
+        return {"shape": str(tuple(v.shape)),
+                "ms": cuda_time_ms(lambda: fn(v, r)),
+                "plain_ms": cuda_time_ms(lambda: plain(v, r)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": (cuda_time_ms(library) if library is not None
+                               else None)}
+
+    at = []
+    for i, (b, e, d, per_rung) in enumerate(PROX_MAIN):
+        v, r = prox_rows(230 + i, b, e, d)
+        # the radius the main path passes at this shape
+        if per_rung:
+            r = r[:, :1]
+        at.append(timed(group_prox.group_ball_proj_batched,
+                        group_prox.group_ball_proj_batched_ref, v, r,
+                        4.0 * r.numel()))
+        del v, r
+    v, r = prox_rows(233, 1, HOST_E, 32)
+    v, r = v[0], r[0]
+    # the host AMA passes lambda as a 0-d tensor on the card
+    scalar = torch.tensor(0.75, device="cuda")
+    renorm_diff = float((torch.renorm(v, 2, 0, 0.75)
+                         - group_prox.group_ball_proj_ref(v, scalar))
+                        .abs().max())
+    host = timed(group_prox.group_ball_proj, group_prox.group_ball_proj_ref,
+                 v, scalar, 4.0, library=lambda: torch.renorm(v, 2, 0, 0.75))
+    host_rows = timed(group_prox.group_ball_proj,
+                      group_prox.group_ball_proj_ref, v, r, 4.0 * HOST_E)
+    rows = []
+    for name, main, extra, replaces in (
+            ("group_ball_proj_batched", at[0], {"at_shapes": at},
+             "src/repro/kernels/group_prox.py:71"),
+            ("group_ball_proj", host,
+             {"per_row_radius": host_rows,
+              # torch.renorm floors the norm with + 1e-7
+              "library_max_abs_diff": renorm_diff,
+              "library": "torch.renorm(v, 2, 0, r)"},
+             "src/repro/kernels/group_prox.py:39")):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/group_prox.cu",
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": errs[name], "ms": main["ms"],
+                     "plain_ms": main["plain_ms"],
+                     "bound_ms": main["bound_ms"],
+                     "bound_by": main["bound_by"],
+                     "library_ms": main["library_ms"],
+                     "shape": main["shape"], **extra})
+    return rows
+
 
 def kernel_rows(pairwise_l2, kmeans_assign, launches, errs) -> list:
     m, k, d = MAIN_M, MAIN_K, MAIN_D
@@ -290,7 +726,7 @@ def main() -> None:
         sys.exit(2)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels import kmeans_assign, ops, pairwise_l2
+    from repro_torch.kernels import group_prox, kmeans_assign, ops, pairwise_l2
     from repro_torch.launch.simulate import simulate
 
     card = card_line()
@@ -301,7 +737,9 @@ def main() -> None:
           f"({json.dumps(built)})", flush=True)
 
     errs = phase_kernels(pairwise_l2, kmeans_assign)
+    errs.update(phase_prox_kernels(group_prox, pairwise_l2, ops))
     phase_small_round()
+    phase_convex_rounds()
 
     ops.reset_launch_counts()
     summary = simulate(clients=MAIN_M, clusters=8, dim=16, samples=64,
@@ -309,47 +747,33 @@ def main() -> None:
                        init="kmeans++", route_probes=ROUTE_M,
                        finalize_repeats=FINALIZES, device="cuda")
     launches = ops.launch_counts()
-    sv = summary["serving"]
-    check(summary["purity"] == 1.0, f"purity {summary['purity']} != 1.0")
-    check(sv["route_purity"] == 1.0,
-          f"route purity {sv['route_purity']} != 1.0")
-    check(sv["route_single_purity"] == 1.0,
-          f"single-route purity {sv['route_single_purity']} != 1.0")
-    check(sv["route_single_vs_batch"] == 1.0,
-          "routes one by one disagree with the batch on "
-          f"{1.0 - sv['route_single_vs_batch']:.3g} of the clients")
-    check(summary["n_clusters_recovered"] == 8, "did not recover 8 clusters")
-    check(np.isfinite(summary["mse"]) and summary["mse"] < 1e-2,
-          f"served models off their optima: mse {summary['mse']}")
-    for name, n in launches.items():
-        check(n > 0, f"the main path launched no {name} kernel")
-    print(json.dumps({"main_path": {
-        "clients": summary["clients"], "clusters": summary["clusters"],
-        "sketch_dim": summary["sketch_dim"], "purity": summary["purity"],
-        "route_purity": sv["route_purity"],
-        "route_single_purity": sv["route_single_purity"],
-        "route_single_vs_batch": sv["route_single_vs_batch"],
-        "mse": summary["mse"],
-        "n_iter": summary["meta"]["n_iter"], "phases": summary["phases"],
-        "finalize_first_ms": sv["finalize_first_ms"],
-        "finalize_warm_count": sv["finalize_warm_count"],
-        "finalize_p50_ms": sv["finalize_p50_ms"],
-        "finalize_p99_ms": sv["finalize_p99_ms"],
-        "route_p50_ms": sv["route_p50_ms"], "route_p99_ms": sv["route_p99_ms"],
-        "routes_per_s": sv["routes_per_s"],
-        "route_batch_ms": sv["route_batch_ms"],
-        "batched_routes_per_s": sv["batched_routes_per_s"],
-        "spans_p50_ms": {
-            name[:-3]: h["p50"]
-            for name, h in summary["obs"]["histograms"].items()
-            if h.get("count")},
-        "launches": launches, "device": summary["device_name"],
-        "card": card}}), flush=True)
+    check_path("main path", summary, launches,
+               ("pairwise_sqdist", "kmeans_assign"))
+    print(json.dumps({"main_path": path_fields(summary, launches, card)}),
+          flush=True)
+    by_path = {"kmeans-device": launches}
 
     if args.profile:
-        print(json.dumps({"profile": phase_profile(simulate)}), flush=True)
-    print(json.dumps({"kernels": kernel_rows(pairwise_l2, kmeans_assign,
-                                             launches, errs)}), flush=True)
+        print(json.dumps({"profile": phase_profile(
+            simulate, clients=MAIN_M, clusters=8, dim=16, samples=64,
+            sketch_dim=64, wave=65_536, algorithm="kmeans-device",
+            init="kmeans++", route_probes=256, finalize_repeats=3,
+            device="cuda")}), flush=True)
+        # one finalize of the complete fusion graph (8 386 560 edges)
+        print(json.dumps({"profile": phase_profile(
+            simulate, clients=4096, clusters=8, dim=16, samples=64,
+            sketch_dim=32, algorithm="convex-device", edges="complete",
+            cc_iters=200, device="cuda")}), flush=True)
+    by_path.update(phase_convex_paths(simulate, ops, card))
+    by_path["host convex_clustering"] = phase_host_convex(ops, card)
+    total = {name: sum(p[name] for p in by_path.values())
+             for name in ops.WRAPPERS}
+    rows = (kernel_rows(pairwise_l2, kmeans_assign, total, errs)
+            + prox_kernel_rows(group_prox, total, errs))
+    for row in rows:
+        row["launches_by_path"] = {p: n[row["name"]]
+                                   for p, n in by_path.items()}
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

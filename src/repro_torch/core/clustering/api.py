@@ -1,17 +1,39 @@
-"""Device clustering registry (the port's subset of
-``repro/core/clustering/api.py``): the device result type, the uniform
-meta contract, the ``kmeans-device`` Lloyd family with its warm-start
-protocol, and the Lloyd-name mapping of ``resolve_device_request``.
-The host families, spectral seeding and the convex family come later.
+"""Clustering registry (the port's subset of
+``repro/core/clustering/api.py``): the host and device result types, the
+uniform meta contract, the ``kmeans-device`` Lloyd family with its
+warm-start protocol, the convex family (``convex-device``,
+``clusterpath-device`` and their host twins ``convex``, ``clusterpath``),
+``device_twin`` and the name mapping of ``resolve_device_request``.  The
+host Lloyd families, spectral seeding, ``gradient`` and the
+admissibility constants come later.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core.clustering.convex import (
+    clusterpath,
+    convex_clustering,
+    lambda_interval,
+)
+from repro_torch.core.engine.device_convex import (
+    device_clusterpath,
+    device_convex_cluster,
+)
 from repro_torch.core.engine.device_kmeans import _check_options, device_kmeans
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusteringResult:
+    """Host output of a clustering algorithm's ``__call__``."""
+    labels: np.ndarray        # (m,) int cluster id per point (host)
+    centers: np.ndarray       # (K, d) cluster representatives (host)
+    n_clusters: int           # number of distinct recovered clusters
+    meta: dict                # algorithm-specific diagnostics
 
 
 class DeviceClusteringResult(NamedTuple):
@@ -109,6 +131,134 @@ class DeviceLloydFamily:
                                 **options)
 
 
+def _as_result(labels, centers, meta) -> ClusteringResult:
+    # compact label ids (root ids, empty clusters) so n_clusters counts
+    # only the recovered clusters
+    uniq, labels = np.unique(np.asarray(labels), return_inverse=True)
+    centers = np.asarray(centers)
+    if centers.shape[0] > len(uniq):
+        centers = centers[uniq]
+    return ClusteringResult(labels=labels.astype(np.int32), centers=centers,
+                            n_clusters=len(uniq), meta=dict(meta))
+
+
+def _device_convex_result(points, res) -> DeviceClusteringResult:
+    # inertia against the root-indexed fusion centers puts the convex
+    # family on the Lloyd family's quality scalar; n_iter is the AMA's
+    # iterations to converge
+    inertia = torch.sum((points - res.centers[res.labels.long()]) ** 2)
+    return DeviceClusteringResult(
+        labels=res.labels, centers=res.centers,
+        meta=device_meta(inertia=inertia, n_iter=res.n_iter,
+                         n_clusters=res.n_clusters, lam=res.lam,
+                         device=points.device),
+        aux=res.nu)
+
+
+def _host_view(res: DeviceClusteringResult) -> ClusteringResult:
+    return _as_result(res.labels.cpu().numpy(), res.centers.cpu().numpy(),
+                      meta_to_host(res.meta))
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceConvexClustering:
+    """Device twin of ``"convex"`` (``engine.device_convex``): the AMA
+    fixed point, fusion-graph components and root-indexed cluster means,
+    all on the points' device.  ``edges`` names the fusion graph
+    (``complete`` | ``knn`` | ``knn-approx``, ``knn_k`` neighbours)."""
+    name: str = "convex-device"
+    requires_k: bool = False
+    # the warm state is the AMA dual, one row per edge slot: valid only
+    # while the point count (hence the slot layout) is unchanged
+    warm_requires_same_count: bool = True
+
+    def device_call(self, generator, points, *, k: Optional[int] = None,
+                    lam: Optional[float] = None, iters: int = 400,
+                    weights=None, merge_tol=None, edges="complete",
+                    knn_k: int = 8, warm_nu=None,
+                    **_: Any) -> DeviceClusteringResult:
+        del k
+        return _device_convex_result(points, device_convex_cluster(
+            generator, points, lam=lam, iters=iters, weights=weights,
+            merge_tol=merge_tol, edges=edges, knn_k=knn_k, warm_nu=warm_nu))
+
+    def warm_state(self, res: DeviceClusteringResult):
+        return res.aux
+
+    def device_warm_call(self, generator, points, warm, *,
+                         k: Optional[int] = None,
+                         **options: Any) -> DeviceClusteringResult:
+        return self.device_call(generator, points, k=k, warm_nu=warm,
+                                **options)
+
+    def __call__(self, generator, points, *, k: Optional[int] = None,
+                 **options: Any) -> ClusteringResult:
+        return _host_view(self.device_call(
+            generator, torch.as_tensor(points).to(torch.float32), k=k,
+            **options))
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceClusterpath:
+    """Device twin of ``"clusterpath"``: the lambda ladder advances as one
+    batched AMA solve (the batched group-prox kernel) and the plurality
+    plateau picks the clustering; K-free.  ``edges``/``knn_k`` as for
+    ``"convex-device"``."""
+    name: str = "clusterpath-device"
+    requires_k: bool = False
+
+    def device_call(self, generator, points, *, k: Optional[int] = None,
+                    n_lambdas: int = 10, iters: int = 300, merge_tol=None,
+                    edges="complete", knn_k: int = 8,
+                    **_: Any) -> DeviceClusteringResult:
+        del k
+        return _device_convex_result(points, device_clusterpath(
+            generator, points, n_lambdas=n_lambdas, iters=iters,
+            merge_tol=merge_tol, edges=edges, knn_k=knn_k))
+
+    def __call__(self, generator, points, *, k: Optional[int] = None,
+                 **options: Any) -> ClusteringResult:
+        return _host_view(self.device_call(
+            generator, torch.as_tensor(points).to(torch.float32), k=k,
+            **options))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvexClustering:
+    """Sum-of-norms clustering at a fixed lambda with host cluster
+    extraction (ODCL-CC).  ``lam=None`` takes the upper recovery bound of
+    the all-singletons clustering (paper E.1).  Runs on the points'
+    device (a tensor), else on CUDA."""
+    name: str = "convex"
+    requires_k: bool = False
+
+    def __call__(self, generator, points, *, k: Optional[int] = None,
+                 lam: Optional[float] = None, iters: int = 400,
+                 weights=None, **_: Any) -> ClusteringResult:
+        if lam is None:
+            m = points.shape[0]
+            lo, hi = lambda_interval(points, np.arange(m))
+            lam = hi if np.isfinite(hi) else lo + 1e-3
+        res = convex_clustering(points, float(lam), iters=iters,
+                                weights=weights)
+        return _as_result(res.labels, res.centers,
+                          {"lam": res.lam, "n_clusters": res.n_clusters})
+
+
+@dataclasses.dataclass(frozen=True)
+class Clusterpath:
+    """Lambda-sweep convex clustering (Appendix B.3/E.3), no k needed."""
+    name: str = "clusterpath"
+    requires_k: bool = False
+
+    def __call__(self, generator, points, *, k: Optional[int] = None,
+                 n_lambdas: int = 10, iters: int = 400,
+                 **_: Any) -> ClusteringResult:
+        best, _ = clusterpath(points, n_lambdas=n_lambdas, iters=iters)
+        return _as_result(best.labels, best.centers,
+                          {"lam": best.lam, "n_clusters": best.n_clusters})
+
+
 # ------------------------------------------------------------- registry
 
 _REGISTRY: dict = {}
@@ -147,18 +297,33 @@ def list_algorithms() -> tuple:
 LLOYD_DEVICE_INIT = {"kmeans": "random", "kmeans++": "kmeans++"}
 
 
+def device_twin(algo):
+    """The registered ``"<name>-device"`` twin of a host algorithm (the
+    session runs ``"convex"`` as ``"convex-device"``), or ``None``."""
+    name = getattr(algo, "name", None)
+    if not isinstance(name, str) or name.endswith("-device"):
+        return None
+    twin = _REGISTRY.get(f"{name}-device")
+    return twin if twin is not None and is_device_algorithm(twin) else None
+
+
 def resolve_device_request(algorithm, options: Optional[dict] = None):
-    """Map a request onto a device algorithm: device names pass through,
-    the Lloyd-family names map onto ``kmeans-device`` with their init.
-    Returns ``(algorithm, options)``; anything else raises."""
+    """Map a request onto something the device engine runs: device names
+    and names with a registered ``"-device"`` twin pass through (the
+    caller upgrades a twin), the Lloyd-family names map onto
+    ``kmeans-device`` with their init.  Returns ``(algorithm, options)``;
+    anything else raises."""
     if isinstance(algorithm, str) and algorithm in LLOYD_DEVICE_INIT:
         return "kmeans-device", {"init": LLOYD_DEVICE_INIT[algorithm],
                                  **(options or {})}
     algo = get_algorithm(algorithm)
-    if not is_device_algorithm(algo):
+    if not (is_device_algorithm(algo) or device_twin(algo) is not None):
         raise ValueError(f"{getattr(algo, 'name', algo)!r} is not a device "
-                         "clustering algorithm")
+                         "clustering algorithm and has no '-device' twin")
     return algorithm, options
 
 
-register_algorithm(DeviceLloydFamily())
+for _algo in (DeviceLloydFamily(), DeviceConvexClustering(),
+              DeviceClusterpath(), ConvexClustering(), Clusterpath()):
+    register_algorithm(_algo)
+del _algo

@@ -29,7 +29,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.clustering.api import (
+    device_twin,
     get_algorithm,
+    is_device_algorithm,
     meta_to_host,
     resolve_device_request,
 )
@@ -318,6 +320,8 @@ class AggregationSession:
         algorithm, algo_options = resolve_device_request(algorithm,
                                                          algo_options)
         algo = get_algorithm(algorithm)
+        if not is_device_algorithm(algo):
+            algo = device_twin(algo)     # "convex" runs as "convex-device"
         k_eff = k if algo.requires_k else None
         with obs.span("session.finalize"):
             generator = make_generator(self.cluster_seed, self.device)

@@ -3,7 +3,8 @@
 The reference (JAX) and the port (PyTorch) draw different numbers from
 the same seed, so a parity test hands the reference's values across as
 numpy arrays: the stacked client parameters, the (n, sketch_dim) JL
-projection, and (k, d) init centers.  Both packages then compute the
+projection, (k, d) init centers, and the (n_tables, d) LSH directions
+of the approximate kNN fusion graph.  Both packages then compute the
 same round.  Nothing here imports the reference.
 """
 from __future__ import annotations
@@ -52,3 +53,14 @@ def centers_from_numpy(centers, device=None) -> torch.Tensor:
     if c.ndim != 2:
         raise ValueError(f"centers must be (k, d), got {tuple(c.shape)}")
     return c
+
+
+def directions_from_numpy(directions, device=None) -> torch.Tensor:
+    """The reference's LSH projection directions (one ``(d,)`` normal
+    draw per table, stacked to (n_tables, d)) as the ``directions=``
+    option of the ``knn-approx`` edge set."""
+    dirs = tensor_from_numpy(directions, device, torch.float32)
+    if dirs.ndim != 2:
+        raise ValueError(f"directions must be (n_tables, d), got "
+                         f"{tuple(dirs.shape)}")
+    return dirs

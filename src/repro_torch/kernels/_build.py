@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("pairwise_l2", "kmeans_assign")
+KERNELS = ("pairwise_l2", "kmeans_assign", "group_prox")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -30,6 +30,9 @@ _SIGNATURES = {
     "pairwise_l2": {
         # a, b, out, m, k, d, stream
         "pairwise_sqdist_f32": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
+        # a, b, out, nb, m, k, d, stream
+        "pairwise_sqdist_batched_f32": [_VP, _VP, _VP, _INT, _INT, _INT,
+                                        _INT, _VP],
     },
     "kmeans_assign": {
         # k, d, *br, *smem_bytes, *max_grid
@@ -39,6 +42,13 @@ _SIGNATURES = {
         # m, k, d, br, smem_bytes, grid, stream
         "kmeans_assign_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _INT,
                               _INT, _INT, _LL, _INT, _VP],
+    },
+    "group_prox": {
+        # v, radius, out, e, d, radius stride, stream
+        "group_ball_proj_f32": [_VP, _VP, _VP, _LL, _INT, _LL, _VP],
+        # v, radius, out, b, e, d, radius strides (b, e), stream
+        "group_ball_proj_batched_f32": [_VP, _VP, _VP, _LL, _LL, _INT, _LL,
+                                        _LL, _VP],
     },
 }
 

@@ -19,9 +19,10 @@
 // the kernel (zeros are staged), so no padded copy is ever made.  One
 // tile shape, 256 x 16, sized for the kmeans++ seeding shape (k = 8);
 // larger k takes more column tiles through grid.y.
-// A batched entry point (a leading window axis, for windowed neighbour
-// searches) would add blockIdx.z and three batch strides to the same
-// kernel.
+// The batched entry point (a leading window axis: the LSH bucket windows
+// of the approximate kNN fusion graph, (nb, B, d) x (nb, 3B, d)) runs the
+// same kernel with one window per blockIdx.z, each offset by its batch
+// stride; the 2-D entry point is the batch of one.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -36,13 +37,17 @@ constexpr int kTN = 4;
 
 __global__ void __launch_bounds__(kThreads)
 pairwise_sqdist_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                       float* __restrict__ out, int m, int k, int d) {
+                       float* __restrict__ out, int m, int k, int d,
+                       long long sa, long long sb, long long so) {
   static_assert((kBM / kTM) * (kBK / kTN) == kThreads, "tile / thread mismatch");
   constexpr int kRowThreads = kBM / kTM;   // threads along m
   constexpr int kColThreads = kBK / kTN;   // threads along k
   __shared__ float as[kBD][kBM + 1];   // +1: the transposed store is conflict-free
   __shared__ float bs[kBD][kBK + 1];
 
+  a += blockIdx.z * sa;
+  b += blockIdx.z * sb;
+  out += blockIdx.z * so;
   const int tid = threadIdx.x;
   const int tx = tid % kColThreads;
   const int ty = tid / kColThreads;
@@ -131,6 +136,25 @@ extern "C" int pairwise_sqdist_f32(const void* a, const void* b, void* out,
   auto s = static_cast<cudaStream_t>(stream);
   if ((k + kBK - 1) / kBK > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((m + kBM - 1) / kBM, (k + kBK - 1) / kBK);
-  pairwise_sqdist_kernel<<<grid, kThreads, 0, s>>>(pa, pb, po, m, k, d);
+  pairwise_sqdist_kernel<<<grid, kThreads, 0, s>>>(pa, pb, po, m, k, d, 0, 0, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a (nb,m,d), b (nb,k,d), out (nb,m,k): contiguous fp32 device pointers,
+// at most 65535 windows (grid.z).  Returns the launch's cudaError_t.
+extern "C" int pairwise_sqdist_batched_f32(const void* a, const void* b,
+                                           void* out, int nb, int m, int k,
+                                           int d, void* stream) {
+  if (nb <= 0 || m <= 0 || k <= 0) return 0;
+  if (nb > 65535 || (k + kBK - 1) / kBK > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* pa = static_cast<const float*>(a);
+  const auto* pb = static_cast<const float*>(b);
+  auto* po = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((m + kBM - 1) / kBM, (k + kBK - 1) / kBK, nb);
+  pairwise_sqdist_kernel<<<grid, kThreads, 0, s>>>(
+      pa, pb, po, m, k, d, static_cast<long long>(m) * d,
+      static_cast<long long>(k) * d, static_cast<long long>(m) * k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,11 +10,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import group_prox as _prox
 from repro_torch.kernels import kmeans_assign as _assign
 from repro_torch.kernels import pairwise_l2 as _pairwise
 
 WRAPPERS = {"pairwise_sqdist": _pairwise.pairwise_sqdist,
-            "kmeans_assign": _assign.kmeans_assign}
+            "kmeans_assign": _assign.kmeans_assign,
+            "group_ball_proj": _prox.group_ball_proj,
+            "group_ball_proj_batched": _prox.group_ball_proj_batched}
 
 
 def _fp32(t: torch.Tensor) -> torch.Tensor:
@@ -22,7 +25,8 @@ def _fp32(t: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(m,d) x (k,d) -> (m,k) squared Euclidean distances, fp32."""
+    """(m,d) x (k,d) -> (m,k) squared Euclidean distances, fp32; batches
+    of windows (nb,m,d) x (nb,k,d) -> (nb,m,k)."""
     if a.device.type == "cuda":
         return _pairwise.pairwise_sqdist(_fp32(a), _fp32(b))
     if a.device.type == "cpu":
@@ -37,6 +41,26 @@ def kmeans_assign(points: torch.Tensor, centers: torch.Tensor):
     if points.device.type == "cpu":
         return _assign.kmeans_assign_ref(points, centers)
     raise ValueError(f"kmeans_assign: no kernel for device {points.device}")
+
+
+def group_ball_proj(v: torch.Tensor, radius) -> torch.Tensor:
+    """Row-wise L2-ball projection of v (e,d); radius scalar or (e,)."""
+    if v.device.type == "cuda":
+        return _prox.group_ball_proj(_fp32(v), radius)
+    if v.device.type == "cpu":
+        return _prox.group_ball_proj_ref(v, radius)
+    raise ValueError(f"group_ball_proj: no kernel for device {v.device}")
+
+
+def group_ball_proj_batched(v: torch.Tensor, radius) -> torch.Tensor:
+    """Batched row-wise L2-ball projection of v (b,e,d); radius
+    broadcastable to (b,e)."""
+    if v.device.type == "cuda":
+        return _prox.group_ball_proj_batched(_fp32(v), radius)
+    if v.device.type == "cpu":
+        return _prox.group_ball_proj_batched_ref(v, radius)
+    raise ValueError(f"group_ball_proj_batched: no kernel for device "
+                     f"{v.device}")
 
 
 def launch_counts() -> dict:

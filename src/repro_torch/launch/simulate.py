@@ -1,20 +1,25 @@
-"""Large-C client simulation of the one-shot ODCL-KM round (the port of
+"""Large-C client simulation of the one-shot ODCL round (the port of
 ``repro/launch/simulate.py``'s ``odcl`` path).
 
-Clients are drawn and solved in waves: each wave draws ``wave``
-clients' covariates and responses from their cluster's ridge model,
-solves every closed-form local ERM in one batched solve, and ingests the
-wave into an ``AggregationSession`` (JL sketch on the device).  The
-server round is ``session.finalize()`` (kmeans++ seeding, Lloyd,
-per-cluster parameter mean).  ``finalize_repeats`` counts the finalizes
-in all: the first is reported alone (``finalize_first_ms``), the warm
-repeats give the finalize percentiles.  ``route_probes`` then routes
-fresh, never-seen clients one request at a time (latency percentiles
-over those calls only) and as one batch (throughput); the two must give
-the same labels.
+Clients are drawn and solved in waves: each wave draws ``wave`` clients'
+covariates and responses from their cluster's ridge model, solves every
+closed-form local ERM in one batched solve, and ingests the wave into an
+``AggregationSession`` (JL sketch on the device). The server round is
+``session.finalize()``: ODCL-KM (``kmeans-device``: kmeans++ seeding,
+Lloyd) or ODCL-CC (``convex-device`` at the paper's E.1 exact lambda,
+the midpoint of the recovery interval (17) of the true clustering;
+``clusterpath-device``, K-free; ``--edges`` picks the fusion graph),
+then the per-cluster parameter mean. ``finalize_repeats`` counts the
+finalizes in all: the first is reported alone (``finalize_first_ms``),
+the warm repeats give the finalize percentiles. ``route_probes`` then
+routes fresh, never-seen clients one request at a time (latency
+percentiles over those calls only) and as one batch (throughput); the
+two must give the same labels.
 
   python -m repro_torch.launch.simulate --clients 4096 --clusters 8
   python -m repro_torch.launch.simulate --clients 4096 --device cpu
+  python -m repro_torch.launch.simulate --algorithm convex-device \
+      --edges knn --clients 512 --device cpu
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.clustering.api import LLOYD_DEVICE_INIT, list_algorithms
+from repro_torch.core.clustering.convex import lambda_interval
+from repro_torch.core.engine.edges import list_edge_sets
 from repro_torch.core.engine.session import AggregationSession
 from repro_torch.core.erm import batched_ridge_erm
 from repro_torch.core.federated import (
@@ -71,8 +78,9 @@ def _sync(dev: torch.device) -> None:
 def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
              wave: int = 4096, sketch_dim: int = 64,
              algorithm: str = "kmeans-device", init: str = "kmeans++",
-             kmeans_iters: int = 50, restarts: int = 1, seed: int = 0,
-             route_probes: int = 0, finalize_repeats: int = 1,
+             kmeans_iters: int = 50, restarts: int = 1,
+             cc_iters: int = 300, edges: str = "complete", knn_k: int = 8,
+             seed: int = 0, route_probes: int = 0, finalize_repeats: int = 1,
              device=None) -> dict:
     """Stream a K-cluster federation of ``clients`` ridge clients into an
     ``AggregationSession``, run the one-shot round, and return a summary
@@ -98,7 +106,21 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
         t_erm += t1 - t0
         t_ingest += time.perf_counter() - t1
 
-    algo_options = {"init": init, "iters": kmeans_iters, "restarts": restarts}
+    convex_family = algorithm.startswith(("convex", "clusterpath"))
+    if algorithm.startswith("convex"):
+        # paper E.1 exact lambda: the recovery interval (17) of the true
+        # clustering of the client models (the JL sketch is near-isometric)
+        lo, hi = lambda_interval(session.state().params["theta"],
+                                 true_labels.cpu().numpy())
+        algo_options = {"lam": 0.5 * (lo + hi) if lo < hi else lo,
+                        "iters": cc_iters}
+    elif algorithm.startswith("clusterpath"):
+        algo_options = {"iters": cc_iters}
+    else:
+        algo_options = {"init": init, "iters": kmeans_iters,
+                        "restarts": restarts}
+    if convex_family:
+        algo_options.update({"edges": edges, "knn_k": knn_k})
     t1 = time.perf_counter()
     new_state, labels, info = session.finalize(
         algorithm=algorithm, k=clusters, algo_options=algo_options)
@@ -172,6 +194,9 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
         "samples": samples, "wave": wave, "task": "ridge",
         "sketch_dim": sketch_dim, "seed": seed, "method": "odcl",
         "algorithm": algorithm, "init": init, "restarts": restarts,
+        "lam": info["meta"]["lam"],
+        "edges": edges if convex_family else None,
+        "knn_k": knn_k if convex_family else None,
         "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
@@ -206,6 +231,15 @@ def main(argv=None):
                     default="kmeans++")
     ap.add_argument("--kmeans-iters", type=int, default=50)
     ap.add_argument("--restarts", type=int, default=1)
+    ap.add_argument("--cc-iters", type=int, default=300,
+                    help="max AMA iterations for the convex family")
+    ap.add_argument("--edges", default="complete",
+                    choices=list(list_edge_sets()),
+                    help="fusion graph of the convex family: 'complete' "
+                         "(the paper's, E = C(C-1)/2), 'knn' (mutual kNN, "
+                         "E = C*k) or 'knn-approx' (LSH candidates)")
+    ap.add_argument("--knn-k", type=int, default=8,
+                    help="neighbours per client for the kNN fusion graphs")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--route-probes", type=int, default=0)
     ap.add_argument("--finalize-repeats", type=int, default=1)
@@ -218,17 +252,18 @@ def main(argv=None):
         samples=args.samples, wave=args.wave, sketch_dim=args.sketch_dim,
         algorithm=args.algorithm, init=args.init,
         kmeans_iters=args.kmeans_iters, restarts=args.restarts,
+        cc_iters=args.cc_iters, edges=args.edges, knn_k=args.knn_k,
         seed=args.seed, route_probes=args.route_probes,
         finalize_repeats=args.finalize_repeats, device=args.device)
     ph = summary["phases"]
     print(f"[simulate] C={summary['clients']} K={summary['clusters']} "
           f"wave={summary['wave']} algo={summary['algorithm']} "
-          f"device={summary['device_name']}")
+          f"edges={summary['edges'] or '-'} device={summary['device_name']}")
     print(f"[simulate] local ERMs {ph['local_erm_s']:.3f}s  ingest "
           f"{ph['ingest_s']:.3f}s  server round {ph['aggregate_s']:.3f}s")
     print(f"[simulate] recovered K'={summary['n_clusters_recovered']} "
           f"purity={summary['purity']:.3f} mse={summary['mse']:.3g} "
-          f"n_iter={summary['meta']['n_iter']}")
+          f"n_iter={summary['meta']['n_iter']} lam={summary['lam']}")
     sv = summary["serving"]
     if sv is not None and sv["finalize_p50_ms"] is not None:
         print(f"[simulate] finalize: first {sv['finalize_first_ms']:.3f}ms, "

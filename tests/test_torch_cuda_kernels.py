@@ -5,15 +5,18 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances are chip_smoke.py's: distances within rtol 1e-5 and
-atol 1e-4 * (||a||^2 + ||b||^2); labels equal on every row whose two
-nearest distances differ by more than 1e-5 relative (the kernel's FMA
-order and cuBLAS's differ in the last bits); sums within rtol 1e-5 /
-atol 1e-4, counts exactly; a repeat run bit-identical.
+atol 1e-4 * (||a||^2 + ||b||^2), also for batches of windows; labels
+equal on every row whose two nearest distances differ by more than 1e-5
+relative (the kernel's FMA order and cuBLAS's differ in the last bits);
+sums within rtol 1e-5 / atol 1e-4, counts exactly; group-prox rows
+within rtol 1e-6 / atol 1e-7 * ||v|| (the row norm summed in another
+order); a repeat run bit-identical.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import group_prox as tprox
 from repro_torch.kernels import kmeans_assign as tassign
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_l2 as tpairwise
@@ -75,7 +78,98 @@ def test_launch_counters_count_kernel_launches(cuda_device):
     ops.pairwise_sqdist(a, b)
     ops.kmeans_assign(a, b)
     ops.kmeans_assign(a, b)
-    assert ops.launch_counts() == {"pairwise_sqdist": 1, "kmeans_assign": 2}
+    ops.group_ball_proj(a, 0.5)
+    ops.group_ball_proj_batched(a[None], 0.5)
+    ops.group_ball_proj_batched(a[None, :0], 0.5)        # e = 0: no launch
+    assert ops.launch_counts() == {"pairwise_sqdist": 1, "kmeans_assign": 2,
+                                   "group_ball_proj": 1,
+                                   "group_ball_proj_batched": 1}
+
+
+@pytest.mark.parametrize("nb,m,k,d", [(256, 64, 192, 32), (3, 7, 21, 5),
+                                      (2, 300, 40, 200), (1, 1, 1, 1)])
+def test_batched_pairwise_kernel_matches_plain(cuda_device, nb, m, k, d):
+    a, b = _draw(nb + m + k + d, cuda_device, (nb, m, d), (nb, k, d))
+    got = tpairwise.pairwise_sqdist(a, b)
+    torch.cuda.synchronize()
+    want = tpairwise.pairwise_sqdist_ref(a, b)
+    scale = (a * a).sum(2)[:, :, None] + (b * b).sum(2)[:, None, :]
+    excess = (got - want).abs() - (1e-5 * want.abs() + 1e-4 * scale)
+    assert float(excess.max()) <= 0.0
+    # each window equals the 2-D kernel on that window, bit for bit
+    for z in (0, nb - 1):
+        assert torch.equal(got[z], tpairwise.pairwise_sqdist(a[z], b[z]))
+
+
+def _prox_rows(seed, device, b, e, d):
+    """Rows of v with radii that put some rows inside the ball, some
+    outside, some exactly on it, zero rows and inert (r = 0) slots."""
+    v, r = _draw(seed, device, (b, e, d), (b, e))
+    r = r.abs() * torch.sqrt((v * v).sum(-1))
+    norms = torch.sqrt((v * v).sum(-1))
+    r[:, ::5] = norms[:, ::5]                  # on the sphere
+    r[:, 1::7] = 0.0                           # inert slots
+    v[:, 2::11] = 0.0                          # zero rows
+    return v, r
+
+
+def _assert_prox_close(got, want, v):
+    tol = 1e-6 * want.abs() + 1e-7 * torch.sqrt((v * v).sum(-1, keepdim=True))
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("e", [1, 7, 1031])
+@pytest.mark.parametrize("d", [1, 16, 32, 200])
+def test_group_prox_kernels_match_plain(cuda_device, b, e, d):
+    v, r = _prox_rows(b * 10000 + e * 10 + d, cuda_device, b, e, d)
+    got = tprox.group_ball_proj_batched(v, r)
+    torch.cuda.synchronize()
+    _assert_prox_close(got, tprox.group_ball_proj_batched_ref(v, r), v)
+    assert torch.equal(tprox.group_ball_proj_batched(v, r), got)
+    for radius in (r[0], 0.75):                # per row, scalar
+        one = tprox.group_ball_proj(v[0], radius)
+        torch.cuda.synchronize()
+        _assert_prox_close(one, tprox.group_ball_proj_ref(v[0], radius), v[0])
+    # a radius per rung, broadcast over the edges without a copy
+    rung = torch.rand((b, 1), device=cuda_device)
+    _assert_prox_close(tprox.group_ball_proj_batched(v, rung),
+                       tprox.group_ball_proj_batched_ref(v, rung), v)
+
+
+def test_cuda_tensors_never_reach_the_plain_prox(cuda_device, monkeypatch):
+    def refuse(*_):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(tprox, "group_ball_proj_ref", refuse)
+    monkeypatch.setattr(tprox, "group_ball_proj_batched_ref", refuse)
+    v = torch.randn((2, 9, 32), device=cuda_device)
+    assert ops.group_ball_proj(v[0], 0.5).is_cuda
+    assert ops.group_ball_proj_batched(v, 0.5).is_cuda
+
+
+def test_group_prox_edge_cases(cuda_device):
+    ops.reset_launch_counts()
+    empty = tprox.group_ball_proj_batched(
+        torch.zeros((2, 0, 32), device=cuda_device),
+        torch.zeros((2, 0), device=cuda_device))
+    assert empty.shape == (2, 0, 32)
+    assert tprox.group_ball_proj(torch.zeros((0, 8), device=cuda_device),
+                                 1.0).shape == (0, 8)
+    assert ops.launch_counts()["group_ball_proj_batched"] == 0
+    assert ops.launch_counts()["group_ball_proj"] == 0
+    # an unaligned view takes the scalar-load path
+    v = torch.randn((65, 32), device=cuda_device)
+    shifted = v.reshape(-1)[1:1 + 64 * 32].reshape(64, 32)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    got = tprox.group_ball_proj(shifted, 0.3)
+    _assert_prox_close(got, tprox.group_ball_proj_ref(shifted, 0.3), shifted)
+    with pytest.raises(TypeError):
+        tprox.group_ball_proj(v.double(), 1.0)
+    with pytest.raises(ValueError):
+        tprox.group_ball_proj(v.T, 1.0)
+    with pytest.raises(RuntimeError):
+        tprox.group_ball_proj(v, torch.ones(3, device=cuda_device))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
