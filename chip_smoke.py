@@ -28,6 +28,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
       d in {1, 16, 32, 200}, b in {1, 3}, with zero rows, rows on the
       sphere and inert (r = 0) slots, within rtol 1e-6 / atol
       1e-7 * ||v||; e = 0 must not launch;
+    * ``flash_attention`` at the serving shape (4, 14, 8192, 64) x
+      (4, 2, 8192, 64), bf16, causal, window 4096, on batch row 0 (the
+      plain version's fp32 logits stay near 3.8 GB), then ragged cases:
+      sq in {1, 7, 129, 1000}, skv - sq in {0, 1, 60}, sq > skv (rows
+      without keys must be zero), head_dim in {8, 36, 64, 128, 256},
+      rep in {1, 2, 7}, window in {None, 5, 32}, both masks, fp32 and
+      bf16, strided and contiguous; fp32 within rtol/atol 1e-4, bf16
+      within one bf16 ulp (2^-7 |want|) plus 1e-4 max|v|;
     and every kernel's repeat run bit-identical;
  3. small rounds on the card against the same rounds on the CPU (the
     plain versions), with the same inputs: the ODCL-KM round (identical
@@ -39,6 +47,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     atol 1e-5 * (1 + max|a|), the same AMA ``n_iter`` unless the last
     dual step lies within 1e-6 relative of the stop threshold (then
     both are printed); two card solves give bit-identical u;
+ 3c. the LM serving model, card vs CPU: qwen2-0.5b at full width cut to
+    2 layers, fp32, the same weights on both; b = 1, a prompt of 4160
+    (past the 4096 window), 8 greedy tokens (the card's, fed to both):
+    prefill and decode logits and the KV caches within 1e-4 of their
+    largest magnitude, tokens equal wherever the top-2 margin exceeds
+    that (the positions left out are printed);
  4. the main path at full size: ``simulate`` of the ODCL-KM one-shot
     round over 1 048 576 ridge clients (dim 16, 64 samples each, JL
     sketch 64, k = 8, kmeans++ + Lloyd, cluster mean), 10 warm finalizes
@@ -56,17 +70,28 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     for every path of phases 4 and 4b every kernel's launch count is set
     to 0 just before and read just after, and every kernel that the path
     runs must have launched;
+ 4c. the LM serving path at full size through ``serve.generate``:
+    qwen2-0.5b (24 layers, bf16, random weights from seed 0), batch 4,
+    prompt 8192, 64 greedy tokens, then a warm repeat: prefill ms (first
+    and warm), decode ms per token p50/p99, tok/s and peak device memory;
+    flash_attention must launch 24 times in the prefill; the prefill
+    logits must be finite, and the first decode step's logits must equal
+    the last position of a prefill over the prompt plus that token
+    within 2^-4 of the largest |logit| (bf16 rounding through 24 layers);
  5. one JSON line ``{"kernels": [...]}``: per kernel its launches on the
     main paths, its largest error against the plain version, its time,
     the plain version's and one PyTorch call's (where one computes the
     same function) at the main path's shape, and the least time the card
-    could take (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s);
+    could take (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s;
+    flash_attention's operations at the bf16 tensor cores' 989 TFLOP/s,
+    with the fp32 figure beside it);
  6. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds, after phase 4, a second run of the main path and one
 finalize of the convex path on the complete graph at C = 4096 under
-``torch.profiler``: device time by kernel and the device's busy share.
+``torch.profiler``, and after phase 4c two serve calls (the same prompts,
+1 token, then 16): device time by kernel and the device's busy share.
 
 The port imports no JAX; neither does this script.
 """
@@ -84,6 +109,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # bf16 tensor cores, dense
 MAIN_M, MAIN_K, MAIN_D = 1_048_576, 8, 64
 ROUTE_M = 4096
 FINALIZES = 11                     # the first, then 10 warm repeats
@@ -96,6 +122,21 @@ HOST_M = 1024
 PAIRWISE_CONVEX = [(1024, 16_384, 32), (4096, 4096, 32), (HOST_M, HOST_M, 32)]
 HOST_E = HOST_M * (HOST_M - 1) // 2
 CONVEX_FINALIZES = 3
+# the LM serving path: qwen2-0.5b at full width, bf16, batch 4, a prompt
+# of 8192 (twice the serve window of 4096) and 64 greedy tokens
+SERVE_ARCH = "qwen2-0.5b"
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 8192, 64
+# the card-vs-CPU check: the same width cut to 2 layers, fp32, b = 1, a
+# prompt just past the window, 8 greedy tokens
+SMALL_LAYERS, SMALL_PROMPT, SMALL_GEN = 2, 4160, 8
+# fp32 logits and caches, card vs CPU: within 1e-4 of the largest
+# magnitude (the CPU parity bound against the reference)
+FP32_REL_TOL = 1e-4
+# bf16 decode vs prefill at full size: the two paths round the new
+# token's projections (a 4-row vs a 32 772-row GEMM) and the attention
+# output to bf16 at different points, and 24 layers carry each one-ulp
+# (2^-8) difference forward
+SERVE_BF16_REL_TOL = 2.0 ** -4
 
 
 def fail(msg: str):
@@ -436,10 +477,10 @@ def phase_convex_rounds() -> None:
 
 # --------------------------------------------------- --profile only
 
-def phase_profile(simulate, **run) -> dict:
-    """A second, traced run of a path (``run``: simulate's arguments):
-    device time by kernel and the device's busy share of the traced wall
-    clock."""
+def phase_profile(fn, **run) -> dict:
+    """A second, traced run of a path (``run``: ``fn``'s arguments, e.g.
+    simulate's): device time by kernel and the device's busy share of the
+    traced wall clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -447,7 +488,7 @@ def phase_profile(simulate, **run) -> dict:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        simulate(**run)
+        fn(**run)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -609,6 +650,300 @@ def phase_host_convex(ops, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------- phase 2 (flash)
+
+def attn_inputs(seed: int, b: int, hkv: int, rep: int, sq: int, skv: int,
+                dh: int, dtype, strided: bool = True):
+    """q, k, v as the model hands them to the kernel: transposes of
+    (b, s, h, dh) buffers (or contiguous (b, h, s, dh))."""
+    h = hkv * rep
+    q, k, v = draw(seed, (b, sq, h, dh), (b, skv, hkv, dh), (b, skv, hkv, dh))
+    if strided:
+        return [t.to(dtype).transpose(1, 2) for t in (q, k, v)]
+    return [t.transpose(1, 2).contiguous().to(dtype) for t in (q, k, v)]
+
+
+def compare_flash(flash, q, k, v, causal, window, rows=None) -> float:
+    """The kernel against its plain version (on batch rows ``rows`` only,
+    to bound the plain version's logits), then bit-identical on repeat.
+    fp32 within rtol/atol 1e-4 (the reference holds its Pallas kernel to
+    its oracle so); bf16 within one bf16 ulp of the plain version's
+    result (2^-7 |want|: both round an fp32 value whose two summation
+    orders differ by ~1e-6) plus 1e-4 max|v|."""
+    got = flash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    sel = slice(None) if rows is None else slice(0, rows)
+    want = flash.flash_attention_ref(q[sel], k[sel], v[sel], causal=causal,
+                                     window=window)
+    err = (got[sel].float() - want.float()).abs()
+    if q.dtype == torch.float32:
+        tol = 1e-4 + 1e-4 * want.abs()
+    else:
+        tol = 2.0 ** -7 * want.float().abs() + 1e-4 * float(v.abs().max())
+    check(bool((err <= tol).all()),
+          f"flash_attention disagrees at q {tuple(q.shape)} k "
+          f"{tuple(k.shape)} {q.dtype} causal={causal} window={window}: "
+          f"max err {float(err.max())}")
+    sq, skv = q.shape[2], k.shape[2]
+    if causal and sq > skv:
+        check(bool((got[:, :, :sq - skv] == 0).all()),
+              "flash_attention: rows without keys are not zero")
+    again = flash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(torch.equal(again, got), "flash_attention is not repeatable")
+    return float(err.max())
+
+
+def phase_flash_kernel(flash) -> dict:
+    """The serving shape (batch row 0 against the plain version), then
+    ragged cases: sq in {1, 7, 129, 1000}, skv - sq in {0, 1, 60}, sq > skv,
+    head_dim in {8, 36, 64, 128, 256}, rep in {1, 2, 7}, window in
+    {None, 5, 32}, both masks, fp32 and bf16, strided and contiguous."""
+    q, k, v = attn_inputs(300, SERVE_B, 2, 7, SERVE_PROMPT, SERVE_PROMPT, 64,
+                          torch.bfloat16)
+    err = compare_flash(flash, q, k, v, True, 4096, rows=1)
+    print(f"[chip_smoke] flash_attention at the serving shape "
+          f"{tuple(q.shape)} x {tuple(k.shape)} bf16, causal, window 4096: "
+          f"max abs err {err:.3g} (batch row 0)", flush=True)
+    del q, k, v
+    n = 0
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    windows, reps = (None, 5, 32), (1, 2, 7)
+    for i, dh in enumerate((8, 36, 64, 128, 256)):
+        for j, sq in enumerate((1, 7, 129, 1000)):
+            for e, extra in enumerate((0, 1, 60, -5)):
+                skv = sq + extra
+                if skv < 1:
+                    continue
+                for dtype in (torch.float32, torch.bfloat16):
+                    c = i + j + e
+                    causal = (c + (dtype == torch.float32)) % 3 != 2
+                    q, k, v = attn_inputs(400 + n, 1 + c % 2, 1 + c % 2,
+                                          reps[c % 3], sq, skv, dh, dtype,
+                                          strided=bool(c % 2))
+                    worst[dtype] = max(worst[dtype], compare_flash(
+                        flash, q, k, v, causal or extra < 0,
+                        windows[(c + j) % 3]))
+                    n += 1
+    print(f"[chip_smoke] flash_attention: {n} ragged cases agree (max abs "
+          f"err fp32 {worst[torch.float32]:.3g}, bf16 "
+          f"{worst[torch.bfloat16]:.3g}); rows without keys are zero",
+          flush=True)
+    return {"flash_attention": err}
+
+
+# ------------------------------------------------------------ phase 3c
+
+def top2_margin(logits: torch.Tensor) -> torch.Tensor:
+    two = torch.topk(logits.float(), 2, dim=-1).values
+    return two[..., 0] - two[..., 1]
+
+
+def phase_serve_card_vs_cpu() -> None:
+    """qwen2-0.5b at full width cut to 2 layers, fp32, the same weights on
+    the card and the CPU: prefill over a prompt of 4160, then 8 greedy
+    tokens (the card's choices fed to both)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.models.transformer import prefill_with_cache
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SMALL_LAYERS,
+                              dtype="float32")
+    cpu = init_params(cfg, seed=1, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (1, SMALL_PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    cap = SMALL_PROMPT + SMALL_GEN
+    with torch.inference_mode():
+        lg, cache = prefill_with_cache(card, cfg, {"tokens": prompt.cuda()},
+                                       capacity=cap)
+        want, cpu_cache = prefill_with_cache(cpu, cfg, {"tokens": prompt},
+                                             capacity=cap)
+        scale = float(want.abs().max())
+        err = float((lg.cpu() - want).abs().max())
+        check(err <= FP32_REL_TOL * scale and bool(torch.isfinite(lg).all()),
+              f"serve card vs CPU: prefill logits differ by {err} (max "
+              f"|logit| {scale})")
+        errs = [err / scale]
+        tok = torch.argmax(lg[:, -1:], dim=-1)
+        want_last = want[:, -1:]
+        del lg, want
+        left_out = 0
+        for step in range(SMALL_GEN):
+            tol = FP32_REL_TOL * float(want_last.abs().max())
+            clear = top2_margin(want_last) > tol
+            left_out += int((~clear).sum())
+            cpu_tok = torch.argmax(want_last, dim=-1)
+            check(torch.equal(tok.cpu()[clear], cpu_tok[clear]),
+                  f"serve card vs CPU: greedy token {step} differs")
+            if step == SMALL_GEN - 1:
+                break
+            lg, cache = decode_step(card, cfg, cache, tok)
+            want_last, cpu_cache = decode_step(cpu, cfg, cpu_cache, tok.cpu())
+            err = float((lg.cpu() - want_last).abs().max())
+            scale = float(want_last.abs().max())
+            check(err <= FP32_REL_TOL * scale,
+                  f"serve card vs CPU: decode step {step} logits differ by "
+                  f"{err} (max |logit| {scale})")
+            errs.append(err / scale)
+            tok = torch.argmax(lg[:, -1:], dim=-1)
+        kv_err = 0.0
+        for got_l, want_l in zip(cache.layers, cpu_cache.layers):
+            for name in ("k", "v"):
+                w = want_l[name]
+                e = float((got_l[name].cpu() - w).abs().max())
+                check(e <= FP32_REL_TOL * float(w.abs().max()),
+                      f"serve card vs CPU: {name} cache differs by {e}")
+                kv_err = max(kv_err, e / float(w.abs().max()))
+    print(f"[chip_smoke] serve card vs CPU ({SERVE_ARCH}, {SMALL_LAYERS} "
+          f"layers, fp32, prompt {SMALL_PROMPT}, {SMALL_GEN} greedy tokens): "
+          f"logits within {max(errs):.3g} of max |logit| (tolerance "
+          f"{FP32_REL_TOL}), KV caches within {kv_err:.3g}; {left_out} of "
+          f"{SMALL_GEN} token positions left out (top-2 margin within the "
+          f"tolerance)", flush=True)
+
+
+# ------------------------------------------------------------ phase 4c
+
+def phase_serve(ops, card: str, profile: bool) -> tuple:
+    """The LM serving path at full size through ``serve.generate``:
+    qwen2-0.5b, 24 layers, bf16, batch 4, prompt 8192, 64 greedy tokens,
+    seed 0; then a warm repeat, and decode against prefill at the first
+    generated position.  Returns (launches of the first run, its line)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.models.transformer import prefill_with_cache
+
+    cfg = get_config(SERVE_ARCH)
+    model = init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens, first = serve.generate(model, cfg, prompts, SERVE_GEN,
+                                   device="cuda")
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"serve: {launches['flash_attention']} flash_attention launches "
+          f"in one prefill, not {cfg.n_layers}")
+    check(tokens.shape == (SERVE_B, SERVE_PROMPT + SERVE_GEN)
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+          "serve: generated tokens out of range")
+    again, warm = serve.generate(model, cfg, prompts, SERVE_GEN,
+                                 device="cuda")
+    with torch.inference_mode():
+        logits, cache = prefill_with_cache(model, cfg, {"tokens": prompts},
+                                           capacity=SERVE_PROMPT + 1)
+        check(bool(torch.isfinite(logits).all()),
+              "serve: prefill logits are not finite")
+        first_tok = torch.argmax(logits[:, -1:], dim=-1)
+        del logits
+        dec, _ = decode_step(model, cfg, cache, first_tok)
+        full, _ = prefill_with_cache(
+            model, cfg, {"tokens": torch.cat([prompts, first_tok], dim=1)})
+        last = full[:, -1:]
+        del full, cache
+        check(bool(torch.isfinite(dec).all()) and
+              bool(torch.isfinite(last).all()),
+              "serve: decode or prefill logits are not finite")
+        scale = float(last.float().abs().max())
+        err = float((dec.float() - last.float()).abs().max())
+        check(err <= SERVE_BF16_REL_TOL * scale,
+              f"serve: decode and prefill differ by {err} at the first "
+              f"generated position (max |logit| {scale}, tolerance "
+              f"{SERVE_BF16_REL_TOL} of it)")
+        clear = top2_margin(last) > SERVE_BF16_REL_TOL * scale
+        agree = torch.argmax(dec, -1)[clear] == torch.argmax(last, -1)[clear]
+        check(bool(agree.all()), "serve: decode and prefill pick different "
+              "tokens where the top-2 margin exceeds the tolerance")
+    steps = np.asarray(warm["decode_ms"])
+    line = {
+        "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+        "batch": SERVE_B, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+        "serve_window": cfg.serve_window,
+        "prefill_ms_first": first["prefill_s"] * 1e3,
+        "prefill_ms_warm": warm["prefill_s"] * 1e3,
+        "decode_ms_p50": float(np.percentile(steps, 50)),
+        "decode_ms_p99": float(np.percentile(steps, 99)),
+        "decode_ms_p50_first_run": float(np.percentile(first["decode_ms"],
+                                                       50)),
+        "tok_per_s": warm["tok_per_s"], "tok_per_s_first_run":
+            first["tok_per_s"],
+        "max_memory_allocated_bytes": peak,
+        "tokens_repeat_equal": bool(torch.equal(tokens, again)),
+        "first_token_equal_prefill": bool(torch.equal(
+            tokens[:, SERVE_PROMPT:SERVE_PROMPT + 1], first_tok)),
+        "decode_vs_prefill_rel_err": err / scale,
+        "decode_vs_prefill_tokens_compared": int(clear.sum()),
+        "launches": launches, "device": torch.cuda.get_device_name(0),
+        "card": card}
+    print(json.dumps({"serve_path": line}), flush=True)
+    if profile:
+        # the prefill alone (one token), then the prefill and 15 decode
+        # steps: the difference is the decode steps' share
+        for n in (1, 16):
+            print(json.dumps({"profile": phase_profile(
+                lambda **kw: serve.generate(model, cfg, prompts,
+                                            device="cuda", **kw), gen=n)}),
+                  flush=True)
+    return launches, line
+
+
+def flash_kernel_row(flash, launches, errs) -> dict:
+    """Phase 5's flash_attention row at the serving shape: the kernel on
+    all 4 batch rows, the plain version on batch row 0 (its fp32 logits
+    would need 15 GB at 4), ``scaled_dot_product_attention`` with the same
+    band mask as the library yardstick.  Bound: 4 dh flop for each live
+    (q, k) pair at the bf16 tensor cores' rate (which compute a bf16
+    product exactly in fp32) against q, k, v and o moved once."""
+    b, s, w, dh, h, hkv = SERVE_B, SERVE_PROMPT, 4096, 64, 14, 2
+    q, k, v = attn_inputs(500, b, hkv, h // hkv, s, s, dh, torch.bfloat16)
+    pos = torch.arange(s, device="cuda")
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
+    live = int(band.sum())
+    flops = 4.0 * b * h * dh * live
+    nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, causal=True,
+                                                    window=w), reps=10)
+    plain_ms = cuda_time_ms(lambda: flash.flash_attention_ref(
+        q[:1], k[:1], v[:1], causal=True, window=w), reps=3)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_time_ms(lambda: sdpa(qc, kc, vc, attn_mask=band,
+                                           enable_gqa=True), reps=10)
+    lib_diff = float((sdpa(qc[:1], kc[:1], vc[:1], attn_mask=band,
+                           enable_gqa=True).float()
+                      - flash.flash_attention_ref(q[:1], k[:1], v[:1],
+                                                  causal=True, window=w)
+                      .float()).abs().max())
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:75",
+            "launches": launches["flash_attention"],
+            "max_abs_err": errs["flash_attention"], "ms": ms,
+            "plain_ms": plain_ms, "plain_rows": 1,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms_fp32_cuda_cores": max(flops / FP32_FLOP_PER_S * 1e3,
+                                            t_bytes),
+            "library_ms": library_ms,
+            "library": "scaled_dot_product_attention(attn_mask=band, "
+                       "enable_gqa=True)",
+            "library_max_abs_diff": lib_diff,
+            "live_pairs_per_head": live, "flop": flops, "bytes": nbytes,
+            "shape": f"q {tuple(q.shape)} x kv {tuple(k.shape)} bf16, "
+                     f"causal, window {w}"}
+
+
 # ------------------------------------------------------------ phase 5
 
 def prox_kernel_rows(group_prox, launches, errs) -> list:
@@ -726,6 +1061,7 @@ def main() -> None:
         sys.exit(2)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import group_prox, kmeans_assign, ops, pairwise_l2
     from repro_torch.launch.simulate import simulate
 
@@ -738,8 +1074,10 @@ def main() -> None:
 
     errs = phase_kernels(pairwise_l2, kmeans_assign)
     errs.update(phase_prox_kernels(group_prox, pairwise_l2, ops))
+    errs.update(phase_flash_kernel(flash))
     phase_small_round()
     phase_convex_rounds()
+    phase_serve_card_vs_cpu()
 
     ops.reset_launch_counts()
     summary = simulate(clients=MAIN_M, clusters=8, dim=16, samples=64,
@@ -766,10 +1104,12 @@ def main() -> None:
             cc_iters=200, device="cuda")}), flush=True)
     by_path.update(phase_convex_paths(simulate, ops, card))
     by_path["host convex_clustering"] = phase_host_convex(ops, card)
+    by_path[f"serve {SERVE_ARCH}"], _ = phase_serve(ops, card, args.profile)
     total = {name: sum(p[name] for p in by_path.values())
              for name in ops.WRAPPERS}
     rows = (kernel_rows(pairwise_l2, kmeans_assign, total, errs)
-            + prox_kernel_rows(group_prox, total, errs))
+            + prox_kernel_rows(group_prox, total, errs)
+            + [flash_kernel_row(flash, total, errs)])
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}

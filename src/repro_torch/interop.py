@@ -3,9 +3,10 @@
 The reference (JAX) and the port (PyTorch) draw different numbers from
 the same seed, so a parity test hands the reference's values across as
 numpy arrays: the stacked client parameters, the (n, sketch_dim) JL
-projection, (k, d) init centers, and the (n_tables, d) LSH directions
-of the approximate kNN fusion graph.  Both packages then compute the
-same round.  Nothing here imports the reference.
+projection, (k, d) init centers, the (n_tables, d) LSH directions
+of the approximate kNN fusion graph, and a decoder LM's parameter tree.
+Both packages then compute the same thing.  Nothing here imports the
+reference.
 """
 from __future__ import annotations
 
@@ -14,12 +15,23 @@ import torch
 
 from repro_torch.core.federated import FederatedState
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import MLP
+from repro_torch.models.transformer import (
+    DecoderLayer, Transformer, require_ported, torch_dtype)
 from repro_torch.utils import tree_leaves, tree_map
 
 
 def tensor_from_numpy(arr, device=None, dtype=None) -> torch.Tensor:
     """One array -> a tensor on ``device`` (a copy, so the source may be
-    a read-only view of another framework's buffer)."""
+    a read-only view of another framework's buffer).  A bfloat16 array
+    (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` does not take)
+    goes through float32, which holds every bfloat16 value exactly, and
+    comes back as bfloat16 unless ``dtype`` says otherwise."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.astype(np.float32))
+        return t.to(resolve_device(device), dtype or torch.bfloat16)
     t = torch.from_numpy(np.array(arr, copy=True))
     return t.to(resolve_device(device), dtype or t.dtype)
 
@@ -64,3 +76,32 @@ def directions_from_numpy(directions, device=None) -> torch.Tensor:
         raise ValueError(f"directions must be (n_tables, d), got "
                          f"{tuple(dirs.shape)}")
     return dirs
+
+
+def model_from_numpy(params, cfg, device=None):
+    """The reference's decoder parameter tree (numpy arrays, every layer
+    weight stacked on a leading L axis) -> the port's ``Transformer`` on
+    ``device``, in the configuration's dtype."""
+    require_ported(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg)
+
+    def t(arr):
+        return tensor_from_numpy(arr, dev, dtype)
+
+    stacked = params["layers"]
+    n = int(np.asarray(stacked["ln1"]).shape[0])
+    if n != cfg.n_layers:
+        raise ValueError(f"{n} stacked layers for a {cfg.n_layers}-layer "
+                         "config")
+    layers = []
+    for i in range(n):
+        a = {name: t(np.asarray(w)[i]) for name, w in stacked["attn"].items()}
+        mlp = MLP(t(np.asarray(stacked["mlp"]["w_in"])[i]),
+                  t(np.asarray(stacked["mlp"]["w_out"])[i]))
+        layers.append(DecoderLayer(t(np.asarray(stacked["ln1"])[i]),
+                                   attn_lib.Attention(**a),
+                                   t(np.asarray(stacked["ln2"])[i]), mlp))
+    lm_head = t(params["lm_head"]) if "lm_head" in params else None
+    return Transformer(cfg, t(params["embed"]), layers,
+                       t(params["final_norm"]), lm_head)

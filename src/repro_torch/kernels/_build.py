@@ -21,11 +21,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("pairwise_l2", "kmeans_assign", "group_prox")
+KERNELS = ("pairwise_l2", "kmeans_assign", "group_prox",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FLOAT = ctypes.c_float
 _SIGNATURES = {
     "pairwise_l2": {
         # a, b, out, m, k, d, stream
@@ -49,6 +51,13 @@ _SIGNATURES = {
         # v, radius, out, b, e, d, radius strides (b, e), stream
         "group_ball_proj_batched_f32": [_VP, _VP, _VP, _LL, _LL, _INT, _LL,
                                         _LL, _VP],
+    },
+    "flash_attention": {
+        # q, k, v, o, strides[12], batch, h, hkv, sq, skv, dh, causal,
+        # window, scale, dtype, stream
+        "flash_attention_fwd": [_VP, _VP, _VP, _VP, ctypes.POINTER(_LL),
+                                _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                                _INT, _FLOAT, _INT, _VP],
     },
 }
 

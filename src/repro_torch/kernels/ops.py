@@ -3,13 +3,16 @@
 A CUDA tensor goes to the kernel (which launches or raises); a CPU
 tensor goes to the kernel's plain PyTorch version.  There is no
 environment switch and no fallback: the plain version never sees a CUDA
-tensor here.  Inputs of any float type are cast to contiguous fp32,
-as the reference casts them.
+tensor here.  Inputs of the engine kernels are cast to contiguous fp32,
+as the reference casts them; ``flash_attention`` takes float32 or
+bfloat16 as they come (the kernel upcasts in registers and reads through
+strides, so no second copy of q, k and v is written).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import group_prox as _prox
 from repro_torch.kernels import kmeans_assign as _assign
 from repro_torch.kernels import pairwise_l2 as _pairwise
@@ -17,7 +20,8 @@ from repro_torch.kernels import pairwise_l2 as _pairwise
 WRAPPERS = {"pairwise_sqdist": _pairwise.pairwise_sqdist,
             "kmeans_assign": _assign.kmeans_assign,
             "group_ball_proj": _prox.group_ball_proj,
-            "group_ball_proj_batched": _prox.group_ball_proj_batched}
+            "group_ball_proj_batched": _prox.group_ball_proj_batched,
+            "flash_attention": _flash.flash_attention}
 
 
 def _fp32(t: torch.Tensor) -> torch.Tensor:
@@ -61,6 +65,19 @@ def group_ball_proj_batched(v: torch.Tensor, radius) -> torch.Tensor:
         return _prox.group_ball_proj_batched_ref(v, radius)
     raise ValueError(f"group_ball_proj_batched: no kernel for device "
                      f"{v.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Block attention: q (b,h,sq,dh), k/v (b,hkv,skv,dh) ->
+    (b,h,sq,dh) in q's dtype, query positions offset by skv - sq."""
+    if q.device.type == "cuda":
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    if q.device.type == "cpu":
+        return _flash.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,95 @@
+"""Shared neural building blocks in PyTorch (the dense decoder's).
+
+Weights keep the reference's layout, ``x @ w`` with w (in, out), so the
+reference's parameters carry across unchanged (``repro_torch.interop``).
+Initial values are drawn from an explicit ``torch.Generator``; they are
+not the reference's ``jax.random`` draws.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in fp32 with the (1 + scale) gain, cast back to x's type."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(theta: float, half: int, device: torch.device) -> torch.Tensor:
+    """exp(-arange(half) * log(theta) / half) in fp32, computed on the CPU
+    (so the card and the CPU rotate by the same angles) and copied to
+    ``device`` once: a copy from pageable host memory in every layer
+    would stall the host until the device caught up."""
+    with torch.inference_mode(False):
+        log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+        freqs = torch.exp(-torch.arange(half, dtype=torch.float32)
+                          * (log_theta / half))
+        return freqs.to(device)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10_000.0) -> torch.Tensor:
+    """Rotary embeddings, half-split (not interleaved).  x (..., s, h, dh),
+    positions (..., s)."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(float(theta), half, x.device)
+    angles = positions[..., :, None].float() * freqs      # (..., s, half)
+    cos = torch.cos(angles)[..., None, :]                 # (..., s, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """Gated MLP: w_in (D, 2F) packed gate|up (or (D, F)), w_out (F, D)."""
+
+    def __init__(self, w_in: torch.Tensor, w_out: torch.Tensor):
+        super().__init__()
+        self.w_in = nn.Parameter(w_in, requires_grad=False)
+        self.w_out = nn.Parameter(w_out, requires_grad=False)
+
+
+def mlp_forward(params: MLP, x: torch.Tensor,
+                variant: str = "swiglu") -> torch.Tensor:
+    h = x @ params.w_in
+    if variant in ("swiglu", "geglu"):
+        gate, up = torch.chunk(h, 2, dim=-1)
+        act = F.silu(gate) if variant == "swiglu" else F.gelu(
+            gate, approximate="tanh")
+        h = act * up
+    else:
+        h = F.relu(h)
+    return h @ params.w_out
+
+
+def _dense_init(gen: torch.Generator, shape, dtype,
+                scale: float | None = None) -> torch.Tensor:
+    fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+    std = scale if scale is not None else fan_in ** -0.5
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * std).to(dtype)
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, variant: str,
+             dtype) -> MLP:
+    in_cols = 2 * d_ff if variant in ("swiglu", "geglu") else d_ff
+    return MLP(_dense_init(gen, (d_model, in_cols), dtype),
+               _dense_init(gen, (d_ff, d_model), dtype))
+
+
+def embed_init(gen: torch.Generator, vocab: int, d_model: int,
+               dtype) -> torch.Tensor:
+    w = torch.randn((vocab, d_model), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * 0.02).to(dtype)

@@ -10,12 +10,16 @@ equal on every row whose two nearest distances differ by more than 1e-5
 relative (the kernel's FMA order and cuBLAS's differ in the last bits);
 sums within rtol 1e-5 / atol 1e-4, counts exactly; group-prox rows
 within rtol 1e-6 / atol 1e-7 * ||v|| (the row norm summed in another
-order); a repeat run bit-identical.
+order); flash attention within rtol/atol 1e-4 in float32 and, in
+bfloat16, within one bf16 ulp of the plain version (2^-7 |want|: both
+round an fp32 result whose two summation orders differ by ~1e-6) plus
+1e-4 max|v|; a repeat run bit-identical.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import group_prox as tprox
 from repro_torch.kernels import kmeans_assign as tassign
 from repro_torch.kernels import ops
@@ -81,9 +85,13 @@ def test_launch_counters_count_kernel_launches(cuda_device):
     ops.group_ball_proj(a, 0.5)
     ops.group_ball_proj_batched(a[None], 0.5)
     ops.group_ball_proj_batched(a[None, :0], 0.5)        # e = 0: no launch
+    q = torch.randn((1, 4, 9, 16), device=cuda_device)
+    ops.flash_attention(q, q[:, :2], q[:, :2])
+    ops.flash_attention(q[:, :, :0], q, q)                # sq = 0: no launch
     assert ops.launch_counts() == {"pairwise_sqdist": 1, "kmeans_assign": 2,
                                    "group_ball_proj": 1,
-                                   "group_ball_proj_batched": 1}
+                                   "group_ball_proj_batched": 1,
+                                   "flash_attention": 1}
 
 
 @pytest.mark.parametrize("nb,m,k,d", [(256, 64, 192, 32), (3, 7, 21, 5),
@@ -181,3 +189,76 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         big = torch.zeros((1024, 64), device=cuda_device)
         tassign.kmeans_assign(big[:1], big)
+
+
+def _attn_inputs(seed, device, b, hkv, rep, sq, skv, dh, dtype, strided):
+    """q, k, v as the model hands them over (transposes of (b, s, h, dh))
+    or contiguous (b, h, s, dh)."""
+    h = hkv * rep
+    shapes = [(b, sq, h, dh), (b, skv, hkv, dh), (b, skv, hkv, dh)]
+    ts = _draw(seed, device, *shapes)
+    if strided:
+        return [t.to(dtype).transpose(1, 2) for t in ts]
+    return [t.transpose(1, 2).contiguous().to(dtype) for t in ts]
+
+
+def _assert_attn_close(got, want, v):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        tol = 1e-4 + 1e-4 * want.abs()
+    else:
+        tol = 2.0 ** -7 * want.float().abs() + 1e-4 * float(v.abs().max())
+    assert bool((err <= tol).all()), float(err.max())
+
+
+# (b, hkv, rep, sq, skv, dh, window, causal): ragged tiles, kv offsets of
+# 0, 1 and 60, sq > skv (rows without keys), every decoder head_dim
+ATTN_CASES = [(1, 1, 1, 1, 1, 8, None, True), (2, 2, 7, 7, 8, 36, 5, True),
+              (1, 2, 2, 129, 189, 64, 32, True),
+              (2, 1, 7, 1000, 1000, 128, None, True),
+              (1, 1, 2, 129, 130, 256, 32, False),
+              (1, 2, 1, 8, 5, 64, None, True), (1, 1, 7, 70, 3, 36, 4, True),
+              (3, 2, 2, 65, 125, 16, None, False),
+              (1, 4, 2, 300, 300, 80, 5, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hkv,rep,sq,skv,dh,window,causal", ATTN_CASES)
+def test_flash_kernel_matches_plain(cuda_device, dtype, b, hkv, rep, sq, skv,
+                                    dh, window, causal):
+    q, k, v = _attn_inputs(sq + skv + dh, cuda_device, b, hkv, rep, sq, skv,
+                           dh, dtype, strided=(sq % 2 == 1))
+    got = tflash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = tflash.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _assert_attn_close(got, want, v)
+    if causal and sq > skv:
+        assert bool((got[:, :, :sq - skv] == 0).all())
+    assert torch.equal(tflash.flash_attention(q, k, v, causal=causal,
+                                              window=window), got)
+
+
+def test_cuda_tensors_never_reach_the_plain_attention(cuda_device,
+                                                      monkeypatch):
+    def refuse(*_, **__):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(tflash, "flash_attention_ref", refuse)
+    q, k, v = _attn_inputs(1, cuda_device, 1, 2, 7, 33, 33, 64,
+                           torch.bfloat16, strided=True)
+    out = ops.flash_attention(q, k, v, causal=True, window=16)
+    assert out.is_cuda and out.dtype == torch.bfloat16
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    q = torch.randn((1, 2, 4, 320), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash.flash_attention(q, q, q)
+    q = torch.randn((1, 2, 4, 8), device=cuda_device)
+    with pytest.raises(TypeError):
+        tflash.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        tflash.flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="window"):
+        tflash.flash_attention(q, q, q, window=-1)

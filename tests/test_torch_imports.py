@@ -7,6 +7,8 @@
 * Entry points called without ``device=`` on a machine without CUDA
   raise instead of running on the CPU.
 * A CUDA tensor handed to ``ops`` never reaches the plain version.
+* No file of the port names PyTorch's fused attention: the prefill's
+  attention is the port's own kernel.
 """
 import ast
 from pathlib import Path
@@ -18,10 +20,14 @@ from repro_torch.core.engine.aggregate import one_shot_aggregate_device
 from repro_torch.core.engine.session import AggregationSession
 from repro_torch.device import resolve_device
 from repro_torch.interop import state_from_numpy
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import kmeans_assign as tassign
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_l2 as tpairwise
+from repro_torch.launch import serve as tserve
 from repro_torch.launch import simulate as tsimulate
+from repro_torch.models import init_decode_cache, init_params
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -45,8 +51,15 @@ def _forbidden(module: str) -> bool:
 
 
 def test_port_files_exist():
-    assert (PORT / "kernels" / "csrc" / "pairwise_l2.cu").exists()
-    assert (PORT / "kernels" / "csrc" / "kmeans_assign.cu").exists()
+    for name in ("pairwise_l2", "kmeans_assign", "group_prox",
+                 "flash_attention"):
+        assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists()
+        assert (PORT / "kernels" / f"{name}.py").exists()
+    for rel in ("configs/base.py", "configs/qwen2_0_5b.py",
+                "models/layers.py", "models/attention.py",
+                "models/transformer.py", "models/__init__.py",
+                "launch/serve.py", "interop.py"):
+        assert (PORT / rel).exists(), rel
     assert len(PORT_FILES) > 10 and PORT_FILES[-1].exists()
 
 
@@ -58,8 +71,10 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_dispatch_has_no_switch_and_no_fallback():
-    for name in ("ops.py", "pairwise_l2.py", "kmeans_assign.py"):
-        tree = ast.parse((PORT / "kernels" / name).read_text())
+    for name in ("kernels/ops.py", "kernels/pairwise_l2.py",
+                 "kernels/kmeans_assign.py", "kernels/group_prox.py",
+                 "kernels/flash_attention.py", "models/attention.py"):
+        tree = ast.parse((PORT / name).read_text())
         for node in ast.walk(tree):
             assert not isinstance(node, ast.Try), name
             assert not (isinstance(node, (ast.Attribute, ast.Name))
@@ -92,6 +107,55 @@ def test_entry_points_raise_without_cuda(no_cuda):
         tsimulate.simulate(clients=8, clusters=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         tsimulate.main(["--clients", "8", "--clusters", "2"])
+    cfg = get_config("qwen2-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_decode_cache(cfg, 1, 8)
+    model = init_params(cfg, device="cpu")
+    prompts = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.generate(model, cfg, prompts, 2)
+    assert tserve.generate(model, cfg, prompts, 2,
+                           device="cpu")[0].shape == (1, 6)
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_file_names_fused_attention(path):
+    """QK^T and PV of the prefill run in the port's own kernel: no file of
+    the package names PyTorch's fused attention (chip_smoke.py may time
+    it beside the kernel)."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Attribute):
+            names.append(node.attr)
+        elif isinstance(node, ast.Name):
+            names.append(node.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names += [a.name.split(".")[-1] for a in node.names]
+        assert "scaled_dot_product_attention" not in names, path
+        assert "cudnn" not in names, path
+
+
+def test_flash_dispatch_sends_a_cuda_tensor_to_the_kernel(monkeypatch):
+    """Without a card: an operand that says it lies on CUDA goes to the
+    kernel's wrapper, never to the plain version."""
+    class OnCuda:
+        device = torch.device("cuda", 0)
+
+    def refuse(*_, **__):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    launched = []
+    monkeypatch.setattr(tflash, "flash_attention_ref", refuse)
+    monkeypatch.setattr(tflash, "flash_attention",
+                        lambda q, k, v, **kw: launched.append(kw) or q)
+    q = OnCuda()
+    assert ops.flash_attention(q, q, q, causal=True, window=8) is q
+    assert launched == [{"causal": True, "window": 8}]
 
 
 def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
@@ -103,7 +167,11 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(tpairwise, "pairwise_sqdist_ref", refuse)
     monkeypatch.setattr(tassign, "kmeans_assign_ref", refuse)
+    monkeypatch.setattr(tflash, "flash_attention_ref", refuse)
     a = torch.randn((20, 8), device="cuda")
     b = torch.randn((3, 8), device="cuda")
     assert ops.pairwise_sqdist(a, b).is_cuda
     assert all(t.is_cuda for t in ops.kmeans_assign(a, b))
+    q = torch.randn((1, 4, 5, 8), device="cuda")
+    k = torch.randn((1, 2, 5, 8), device="cuda")
+    assert ops.flash_attention(q, k, k).is_cuda

@@ -86,9 +86,12 @@ def test_cpu_dispatch_launches_no_kernel():
     a, b = _draw(0, (9, 4), (3, 4))
     ops.pairwise_sqdist(torch.from_numpy(a), torch.from_numpy(b))
     ops.kmeans_assign(torch.from_numpy(a), torch.from_numpy(b))
+    q = torch.from_numpy(a).reshape(1, 1, 9, 4)
+    ops.flash_attention(q, q, q)
     assert ops.launch_counts() == {"pairwise_sqdist": 0, "kmeans_assign": 0,
                                    "group_ball_proj": 0,
-                                   "group_ball_proj_batched": 0}
+                                   "group_ball_proj_batched": 0,
+                                   "flash_attention": 0}
 
 
 @pytest.mark.parametrize("wrapper", [tpairwise.pairwise_sqdist,
