@@ -29,13 +29,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
       sphere and inert (r = 0) slots, within rtol 1e-6 / atol
       1e-7 * ||v||; e = 0 must not launch;
     * ``flash_attention`` at the serving shape (4, 14, 8192, 64) x
-      (4, 2, 8192, 64), bf16, causal, window 4096, on batch row 0 (the
-      plain version's fp32 logits stay near 3.8 GB), then ragged cases:
-      sq in {1, 7, 129, 1000}, skv - sq in {0, 1, 60}, sq > skv (rows
-      without keys must be zero), head_dim in {8, 36, 64, 128, 256},
-      rep in {1, 2, 7}, window in {None, 5, 32}, both masks, fp32 and
-      bf16, strided and contiguous; fp32 within rtol/atol 1e-4, bf16
-      within one bf16 ulp (2^-7 |want|) plus 1e-4 max|v|;
+      (4, 2, 8192, 64), bf16 (the tensor-core kernel), causal, window
+      4096, on batch row 0 (the plain version's fp32 logits stay near
+      3.8 GB), then 210 ragged cases: sq in {1, 7, 129, 1000}, skv - sq in
+      {0, 1, 60}, sq > skv (rows without keys must be zero), head_dim in
+      {8, 36, 64, 128, 256, 80, 192} (8 and 36 through the zero-padded
+      copy in bf16), rep in {1, 2, 7}, window in {None, 5, 32}, both
+      masks, fp32 (the CUDA-core kernel) and bf16, strided and
+      contiguous; fp32 within rtol/atol 1e-4, bf16 within one bf16 ulp
+      (2^-7 |want|) plus 1e-4 max|v|;
     and every kernel's repeat run bit-identical;
  3. small rounds on the card against the same rounds on the CPU (the
     plain versions), with the same inputs: the ODCL-KM round (identical
@@ -74,7 +76,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     qwen2-0.5b (24 layers, bf16, random weights from seed 0), batch 4,
     prompt 8192, 64 greedy tokens, then a warm repeat: prefill ms (first
     and warm), decode ms per token p50/p99, tok/s and peak device memory;
-    flash_attention must launch 24 times in the prefill; the prefill
+    flash_attention must launch 24 times in the prefill, all 24 on the
+    tensor-core kernel and none on the CUDA-core one (the library's own
+    counts); the prefill
     logits must be finite, and the first decode step's logits must equal
     the last position of a prefill over the prompt plus that token
     within 2^-4 of the largest |logit| (bf16 rounding through 24 layers);
@@ -84,7 +88,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     same function) at the main path's shape, and the least time the card
     could take (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s;
     flash_attention's operations at the bf16 tensor cores' 989 TFLOP/s,
-    with the fp32 figure beside it);
+    with the fp32 figure beside it); the flash row adds the CUDA-core
+    (fp32) kernel's time at the same shape in fp32 (``ms_fp32_kernel``),
+    both kernels' ptxas registers and spill bytes, and its design;
  6. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -99,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -697,8 +704,8 @@ def compare_flash(flash, q, k, v, causal, window, rows=None) -> float:
 def phase_flash_kernel(flash) -> dict:
     """The serving shape (batch row 0 against the plain version), then
     ragged cases: sq in {1, 7, 129, 1000}, skv - sq in {0, 1, 60}, sq > skv,
-    head_dim in {8, 36, 64, 128, 256}, rep in {1, 2, 7}, window in
-    {None, 5, 32}, both masks, fp32 and bf16, strided and contiguous."""
+    head_dim in {8, 36, 64, 128, 256, 80, 192}, rep in {1, 2, 7}, window
+    in {None, 5, 32}, both masks, fp32 and bf16, strided and contiguous."""
     q, k, v = attn_inputs(300, SERVE_B, 2, 7, SERVE_PROMPT, SERVE_PROMPT, 64,
                           torch.bfloat16)
     err = compare_flash(flash, q, k, v, True, 4096, rows=1)
@@ -709,7 +716,7 @@ def phase_flash_kernel(flash) -> dict:
     n = 0
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     windows, reps = (None, 5, 32), (1, 2, 7)
-    for i, dh in enumerate((8, 36, 64, 128, 256)):
+    for i, dh in enumerate((8, 36, 64, 128, 256, 80, 192)):
         for j, sq in enumerate((1, 7, 129, 1000)):
             for e, extra in enumerate((0, 1, 60, -5)):
                 skv = sq + extra
@@ -814,6 +821,7 @@ def phase_serve(ops, card: str, profile: bool) -> tuple:
     seed 0; then a warm repeat, and decode against prefill at the first
     generated position.  Returns (launches of the first run, its line)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch import serve
     from repro_torch.models import decode_step, init_params
     from repro_torch.models.transformer import prefill_with_cache
@@ -826,13 +834,19 @@ def phase_serve(ops, card: str, profile: bool) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    by_kernel = flash.kernel_launches()
     tokens, first = serve.generate(model, cfg, prompts, SERVE_GEN,
                                    device="cuda")
     launches = ops.launch_counts()
+    by_kernel = {name: n - by_kernel[name]
+                 for name, n in flash.kernel_launches().items()}
     peak = torch.cuda.max_memory_allocated()
     check(launches["flash_attention"] == cfg.n_layers,
           f"serve: {launches['flash_attention']} flash_attention launches "
           f"in one prefill, not {cfg.n_layers}")
+    check(by_kernel == {"tensor_core": cfg.n_layers, "cuda_core": 0},
+          f"serve: the bf16 prefill's attention ran {by_kernel}, not "
+          f"{cfg.n_layers} tensor-core launches and no CUDA-core one")
     check(tokens.shape == (SERVE_B, SERVE_PROMPT + SERVE_GEN)
           and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
           "serve: generated tokens out of range")
@@ -882,8 +896,8 @@ def phase_serve(ops, card: str, profile: bool) -> tuple:
             tokens[:, SERVE_PROMPT:SERVE_PROMPT + 1], first_tok)),
         "decode_vs_prefill_rel_err": err / scale,
         "decode_vs_prefill_tokens_compared": int(clear.sum()),
-        "launches": launches, "device": torch.cuda.get_device_name(0),
-        "card": card}
+        "launches": launches, "flash_launches_by_kernel": by_kernel,
+        "device": torch.cuda.get_device_name(0), "card": card}
     print(json.dumps({"serve_path": line}), flush=True)
     if profile:
         # the prefill alone (one token), then the prefill and 15 decode
@@ -896,13 +910,31 @@ def phase_serve(ops, card: str, profile: bool) -> tuple:
     return launches, line
 
 
-def flash_kernel_row(flash, launches, errs) -> dict:
-    """Phase 5's flash_attention row at the serving shape: the kernel on
-    all 4 batch rows, the plain version on batch row 0 (its fp32 logits
-    would need 15 GB at 4), ``scaled_dot_product_attention`` with the same
-    band mask as the library yardstick.  Bound: 4 dh flop for each live
-    (q, k) pair at the bf16 tensor cores' rate (which compute a bf16
-    product exactly in fp32) against q, k, v and o moved once."""
+def ptxas_instances(usage: dict) -> dict:
+    """ptxas registers and spill bytes by kernel instance, keyed by a
+    readable name (``flash_attention_tc<1,128>``) in place of the mangled
+    one."""
+    named = {}
+    for mangled, info in usage.items():
+        found = re.search(r"(flash_attention_(?:tc|kernel))I((?:Li\d+E)+)E",
+                          mangled)
+        if found:
+            args = ",".join(re.findall(r"Li(\d+)E", found.group(2)))
+            named[f"{found.group(1)}<{args}>"] = info
+    return named
+
+
+def flash_kernel_row(flash, launches, errs, card: str) -> dict:
+    """Phase 5's flash_attention row at the serving shape: the tensor-core
+    kernel on all 4 batch rows, the CUDA-core kernel on the same inputs in
+    fp32, the plain version on batch row 0 (its fp32 logits would need
+    15 GB at 4), ``scaled_dot_product_attention`` with the same band mask
+    as the library yardstick.  Bound: 4 dh flop for each live (q, k) pair
+    at the bf16 tensor cores' rate (which compute a bf16 product exactly
+    in fp32) against q, k, v and o moved once; the split of P into two
+    bf16 terms is the design's cost and not counted."""
+    from repro_torch.kernels import _build
+
     b, s, w, dh, h, hkv = SERVE_B, SERVE_PROMPT, 4096, 64, 14, 2
     q, k, v = attn_inputs(500, b, hkv, h // hkv, s, s, dh, torch.bfloat16)
     pos = torch.arange(s, device="cuda")
@@ -914,6 +946,10 @@ def flash_kernel_row(flash, launches, errs) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, causal=True,
                                                     window=w), reps=10)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    ms_fp32 = cuda_time_ms(lambda: flash.flash_attention(
+        qf, kf, vf, causal=True, window=w), reps=3)
+    del qf, kf, vf
     plain_ms = cuda_time_ms(lambda: flash.flash_attention_ref(
         q[:1], k[:1], v[:1], causal=True, window=w), reps=3)
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
@@ -930,6 +966,9 @@ def flash_kernel_row(flash, launches, errs) -> dict:
             "replaces": "src/repro/kernels/flash_attention.py:75",
             "launches": launches["flash_attention"],
             "max_abs_err": errs["flash_attention"], "ms": ms,
+            "ms_fp32_kernel": ms_fp32,
+            "design": "wgmma+TMA, split-P",
+            "ptxas": ptxas_instances(_build.ptxas_usage("flash_attention")),
             "plain_ms": plain_ms, "plain_rows": 1,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -941,7 +980,7 @@ def flash_kernel_row(flash, launches, errs) -> dict:
             "library_max_abs_diff": lib_diff,
             "live_pairs_per_head": live, "flop": flops, "bytes": nbytes,
             "shape": f"q {tuple(q.shape)} x kv {tuple(k.shape)} bf16, "
-                     f"causal, window {w}"}
+                     f"causal, window {w}", "card": card}
 
 
 # ------------------------------------------------------------ phase 5
@@ -1109,7 +1148,7 @@ def main() -> None:
              for name in ops.WRAPPERS}
     rows = (kernel_rows(pairwise_l2, kmeans_assign, total, errs)
             + prox_kernel_rows(group_prox, total, errs)
-            + [flash_kernel_row(flash, total, errs)])
+            + [flash_kernel_row(flash, total, errs, card)])
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}

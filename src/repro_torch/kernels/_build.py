@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -58,6 +59,8 @@ _SIGNATURES = {
         "flash_attention_fwd": [_VP, _VP, _VP, _VP, ctypes.POINTER(_LL),
                                 _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                                 _INT, _FLOAT, _INT, _VP],
+        # counts[2]: launches of the tensor-core and CUDA-core kernels
+        "flash_attention_kernel_launches": [ctypes.POINTER(_LL)],
     },
 }
 
@@ -132,3 +135,28 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what} failed with cudaError_t {err}")
+
+
+def ptxas_usage(name: str) -> dict:
+    """Registers and spill bytes of every kernel of ``csrc/<name>.cu``, as
+    ``-Xptxas -v`` reported them in the build's log:
+    ``{mangled name: {"registers": n, "spill_stores": n, "spill_loads": n}}``."""
+    log = library_path(name).with_suffix(".log").read_text()
+    usage, fn = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            fn = found.group(1)
+            usage[fn] = {}
+            continue
+        if fn is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            usage[fn]["spill_stores"] = int(spill.group(1))
+            usage[fn]["spill_loads"] = int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            usage[fn]["registers"] = int(regs.group(1))
+    return usage

@@ -5,8 +5,9 @@ tensor goes to the kernel's plain PyTorch version.  There is no
 environment switch and no fallback: the plain version never sees a CUDA
 tensor here.  Inputs of the engine kernels are cast to contiguous fp32,
 as the reference casts them; ``flash_attention`` takes float32 or
-bfloat16 as they come (the kernel upcasts in registers and reads through
-strides, so no second copy of q, k and v is written).
+bfloat16 as they come and reads them through their strides (bf16 on the
+tensor cores, fp32 on the CUDA cores), so no second copy of q, k and v
+is written unless TMA cannot address them in place.
 """
 from __future__ import annotations
 

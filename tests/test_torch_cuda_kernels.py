@@ -10,10 +10,11 @@ equal on every row whose two nearest distances differ by more than 1e-5
 relative (the kernel's FMA order and cuBLAS's differ in the last bits);
 sums within rtol 1e-5 / atol 1e-4, counts exactly; group-prox rows
 within rtol 1e-6 / atol 1e-7 * ||v|| (the row norm summed in another
-order); flash attention within rtol/atol 1e-4 in float32 and, in
-bfloat16, within one bf16 ulp of the plain version (2^-7 |want|: both
-round an fp32 result whose two summation orders differ by ~1e-6) plus
-1e-4 max|v|; a repeat run bit-identical.
+order); flash attention within rtol/atol 1e-4 in float32 (the CUDA-core
+kernel) and, in bfloat16 (the tensor-core kernel), within one bf16 ulp
+of the plain version (2^-7 |want|: both round an fp32 result whose two
+summation orders differ by ~1e-6) plus 1e-4 max|v|; a repeat run
+bit-identical.
 """
 import numpy as np
 import pytest
@@ -220,7 +221,11 @@ ATTN_CASES = [(1, 1, 1, 1, 1, 8, None, True), (2, 2, 7, 7, 8, 36, 5, True),
               (1, 1, 2, 129, 130, 256, 32, False),
               (1, 2, 1, 8, 5, 64, None, True), (1, 1, 7, 70, 3, 36, 4, True),
               (3, 2, 2, 65, 125, 16, None, False),
-              (1, 4, 2, 300, 300, 80, 5, False)]
+              (1, 4, 2, 300, 300, 80, 5, False),
+              (2, 1, 2, 129, 129, 80, None, True),
+              (1, 2, 7, 200, 333, 192, 64, True),
+              (1, 1, 2, 65, 65, 192, None, False),
+              (1, 2, 7, 33, 40, 36, 16, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -249,6 +254,46 @@ def test_cuda_tensors_never_reach_the_plain_attention(cuda_device,
                            torch.bfloat16, strided=True)
     out = ops.flash_attention(q, k, v, causal=True, window=16)
     assert out.is_cuda and out.dtype == torch.bfloat16
+
+
+def test_bf16_attention_runs_only_on_the_tensor_cores(cuda_device,
+                                                     monkeypatch):
+    def refuse(*_, **__):
+        raise AssertionError("plain version called with CUDA tensors")
+
+    monkeypatch.setattr(tflash, "flash_attention_ref", refuse)
+    cases = [(64, True), (36, True), (80, False), (256, True)]
+    for dh, strided in cases:
+        q, k, v = _attn_inputs(dh, cuda_device, 1, 2, 7, 70, 90, dh,
+                               torch.bfloat16, strided=strided)
+        before = tflash.kernel_launches()
+        out = ops.flash_attention(q, k, v, causal=True, window=32)
+        torch.cuda.synchronize()
+        after = tflash.kernel_launches()
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        assert after["tensor_core"] == before["tensor_core"] + 1
+        assert after["cuda_core"] == before["cuda_core"]
+    q, k, v = _attn_inputs(1, cuda_device, 1, 2, 7, 70, 90, 64,
+                           torch.float32, strided=True)
+    before = tflash.kernel_launches()
+    ops.flash_attention(q, k, v, causal=True, window=32)
+    after = tflash.kernel_launches()
+    assert after["cuda_core"] == before["cuda_core"] + 1
+    assert after["tensor_core"] == before["tensor_core"]
+
+
+def test_flash_bf16_reads_misaligned_operands_through_a_padded_copy(
+        cuda_device):
+    # k and v 8 bytes off TMA's 16-byte grid: the wrapper copies all three
+    q, _, _ = _attn_inputs(5, cuda_device, 1, 2, 2, 100, 100, 64,
+                           torch.bfloat16, strided=True)
+    wide = _draw(6, cuda_device, (1, 100, 2, 72), (1, 100, 2, 72))
+    k, v = (t.bfloat16()[..., 4:68].transpose(1, 2) for t in wide)
+    assert k.data_ptr() % 16 == 8
+    got = tflash.flash_attention(q, k, v, causal=True, window=None)
+    torch.cuda.synchronize()
+    want = tflash.flash_attention_ref(q, k, v, causal=True, window=None)
+    _assert_attn_close(got, want, v)
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):

@@ -126,3 +126,123 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="k/v"):
         ops.flash_attention(q, torch.zeros((1, 3, 4, 8)),
                             torch.zeros((1, 3, 4, 8)))
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core kernel's arithmetic, emulated on the CPU: bf16 q . k
+# products summed in fp32, the online softmax in the log2 domain over key
+# tiles of BK (128 for dh <= 128, 64 above, as the kernel picks), and
+# O += P_hi V + P_lo V with P_hi = bf16(P), P_lo = bf16(P - P_hi).  Inputs
+# are bf16 values held in fp32, so the reference and the Pallas kernel see
+# the same numbers; tolerance rtol/atol 1e-5 (the split leaves at most
+# 2^-16 P behind, the rest is summation order).
+
+LOG2E = 1.4426950408889634
+
+
+def _emulate_tensor_core(q, k, v, *, causal, window, scale):
+    b, h, sq, dh = q.shape
+    _, hkv, skv, _ = k.shape
+    bk = 128 if dh <= 128 else 64
+    kf = k.repeat_interleave(h // hkv, dim=1)
+    vf = v.repeat_interleave(h // hkv, dim=1)
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    m = torch.full((b, h, sq), -torch.inf)
+    l = torch.zeros((b, h, sq))
+    o = torch.zeros((b, h, sq, dh))
+    qpos = torch.arange(sq)[:, None] + (skv - sq)
+    for kt in range(0, skv, bk):
+        kpos = torch.arange(kt, min(kt + bk, skv))[None, :]
+        live = torch.ones((sq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            live &= kpos <= qpos
+        if window is not None:
+            live &= kpos > qpos - window
+        s = torch.matmul(q, kf[:, :, kt:kt + bk].transpose(-1, -2))
+        s = s.masked_fill(~live, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        mu = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(s * c - mu[..., None])
+        l = l * alpha + p.sum(-1)
+        p_hi = p.bfloat16().float()
+        p_lo = (p - p_hi).bfloat16().float()
+        vt = vf[:, :, kt:kt + bk]
+        o = o * alpha[..., None] + torch.matmul(p_hi, vt) + torch.matmul(
+            p_lo, vt)
+        m = m_new
+    return o / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def _bf16_values(*arrays):
+    return [torch.from_numpy(a).bfloat16().float().numpy() for a in arrays]
+
+
+@pytest.mark.parametrize("dh", [64, 80, 128, 192, 256])
+def test_tensor_core_arithmetic_matches_ref_and_pallas(dh):
+    q, k, v = _bf16_values(*_inputs(1, 2, 2, 40, 200, dh, dh))
+    got = _emulate_tensor_core(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal=True, window=48,
+                               scale=1.0 / np.sqrt(dh)).numpy()
+    want = _port(q, k, v, causal=True, window=48)
+    pallas = np.asarray(flash_attention_pallas(q, k, v, causal=True,
+                                               window=48, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+
+
+def test_tensor_core_arithmetic_on_padded_head_dim_and_keyless_rows():
+    # dh = 36 runs as a zero-padded 48 with the scale of 36; sq > skv
+    # leaves the first rows without a key under the causal mask
+    q, k, v = _bf16_values(*_inputs(1, 1, 7, 70, 67, 36, 11))
+    tq, tk, tv = tflash.tensor_core_operands(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)))
+    assert tq.shape[-1] == 48
+    got = _emulate_tensor_core(tq.float(), tk.float(), tv.float(),
+                               causal=True, window=None,
+                               scale=1.0 / np.sqrt(36))[..., :36].numpy()
+    want = _port(q, k, v, causal=True)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.all(got[:, :, :3] == 0.0)
+
+
+def test_split_p_keeps_fp32_accuracy():
+    rng = np.random.default_rng(0)
+    p = torch.from_numpy(np.exp(-rng.uniform(0.0, 30.0, size=1 << 20))
+                         .astype(np.float32))
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+    alone = (p - p_hi).abs() / p
+    split = (p - p_hi - p_lo).abs() / p
+    assert float(alone.max()) <= 2.0 ** -8
+    assert float(split.max()) <= 2.0 ** -15
+    # the bf16 rounding of P alone is visible; the split's is not
+    assert float(alone.max()) > 2.0 ** -10 > 2.0 ** -16 > float(split.max())
+
+
+def test_tensor_core_operands_pad_only_what_tma_cannot_read():
+    def bshd(b, s, n, width, lo, hi):
+        base = torch.arange(b * s * n * width, dtype=torch.float32)
+        return base.reshape(b, s, n, width).bfloat16()[..., lo:hi] \
+            .transpose(1, 2)
+
+    # the model's transposed views at dh = 64: read in place
+    q, k, v = bshd(2, 9, 14, 64, 0, 64), bshd(2, 9, 2, 64, 0, 64), \
+        bshd(2, 9, 2, 64, 0, 64)
+    out = tflash.tensor_core_operands(q, k, v)
+    assert all(a is b for a, b in zip(out, (q, k, v)))
+    # a 16-byte aligned window of a wider row is read in place too
+    k8 = bshd(2, 9, 2, 72, 8, 72)
+    assert tflash.tensor_core_operands(q, k8, v)[1] is k8
+    # a base 8 bytes off the 16-byte grid: all three are copied
+    k4 = bshd(2, 9, 2, 72, 4, 68)
+    for a, b in zip(tflash.tensor_core_operands(q, k4, v), (q, k4, v)):
+        assert a is not b and a.shape == b.shape
+        assert a.transpose(1, 2).is_contiguous() and torch.equal(a, b)
+    # dh = 36: zero-padded to 48, each a view of a contiguous (b,s,n,48)
+    q36, k36 = bshd(1, 5, 7, 36, 0, 36), bshd(1, 5, 1, 36, 0, 36)
+    pq, pk, pv = tflash.tensor_core_operands(q36, k36, k36)
+    assert pq.shape == (1, 7, 5, 48) and pk.shape == pv.shape == (1, 1, 5, 48)
+    assert pq.transpose(1, 2).is_contiguous()
+    assert torch.equal(pq[..., :36], q36) and torch.equal(pk[..., :36], k36)
+    assert not pq[..., 36:].any() and not pv[..., 36:].any()
