@@ -16,10 +16,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
       fusion tests (4096, 32) x (4096, 32) and (1024, 32) x (1024, 32);
       the LSH windows (256, 64, 32) x (256, 192, 32) as one batch) within
       rtol 1e-5 and atol 1e-4 * (||a||^2 + ||b||^2); ``kmeans_assign``,
-      at the same shapes but the kNN, fusion and LSH ones, labels equal on every
-      row whose two nearest distances differ by more than 1e-5 relative
-      (the count of rows left out is printed), sums within rtol 1e-5 /
-      atol 1e-4 and counts equal where the labels are;
+      at the same shapes but the kNN, fusion and LSH ones, and at m =
+      255, 256 and 257 (both sides of its small-m threshold), labels
+      equal on every row whose two nearest distances differ by more than
+      1e-5 relative (the count of rows left out is printed), sums within
+      rtol 1e-5 / atol 1e-4 and counts equal where the labels are; at
+      every shape each call launches the variant the wrapper's plan
+      names (``stream`` / ``tiled`` for pairwise_sqdist, ``small`` /
+      ``stream`` for kmeans_assign), and a single route launches one
+      ``small`` kernel and nothing else;
     * ``group_ball_proj_batched`` at (1, 131 072, 32), (10, 131 072, 32)
       and (1, 8 386 560, 32), each with a radius per slot and with one
       per rung broadcast over the edges, and ``group_ball_proj`` at
@@ -83,14 +88,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     the last position of a prefill over the prompt plus that token
     within 2^-4 of the largest |logit| (bf16 rounding through 24 layers);
  5. one JSON line ``{"kernels": [...]}``: per kernel its launches on the
-    main paths, its largest error against the plain version, its time,
-    the plain version's and one PyTorch call's (where one computes the
-    same function) at the main path's shape, and the least time the card
-    could take (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s;
+    main paths (in all, by path, and by variant), its largest error
+    against the plain version, and at each of its main shapes (the
+    Lloyd, batch-route and single-route shapes of kmeans_assign; the
+    kmeans++ shape and a kNN tile of pairwise_sqdist; the three dual
+    shapes of the batched group prox) the card's own time for one call
+    (``ms``: the durations of the device work that 20 calls launched,
+    traced by torch.profiler, over 20), the caller's time (``call_ms``:
+    CUDA events around the same 20 calls, host dispatch included), the
+    same for the plain version and for one PyTorch call where one
+    computes the same function, and the least time the card could take
+    (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s;
     flash_attention's operations at the bf16 tensor cores' 989 TFLOP/s,
-    with the fp32 figure beside it); the flash row adds the CUDA-core
-    (fp32) kernel's time at the same shape in fp32 (``ms_fp32_kernel``),
-    both kernels' ptxas registers and spill bytes, and its design;
+    with the fp32 figure beside it); one call of kmeans_assign at each
+    shape and of pairwise_sqdist at the kmeans++ shape must be exactly
+    one kernel; the flash row adds the CUDA-core (fp32) kernel's time at
+    the same shape in fp32 (``ms_fp32_kernel``), both kernels' ptxas
+    registers and spill bytes, and its design;
  6. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -165,8 +179,10 @@ def card_line() -> str:
 
 
 def cuda_time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn()`` over ``reps`` back-to-back calls,
-    after two warm-up calls, by CUDA events."""
+    """A caller's time for one call of ``fn()``: CUDA events around
+    ``reps`` back-to-back calls, after two warm-up calls, divided by
+    ``reps``.  Where a call's device work is shorter than its host
+    dispatch this is the host's rate of issuing calls."""
     fn()
     fn()
     torch.cuda.synchronize()
@@ -180,9 +196,41 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_time(fn, reps: int = 20) -> dict:
+    """The card's own time for one call of ``fn()``: the summed durations
+    of the device work (kernels, copies, fills) that ``reps`` calls
+    launched, traced by ``torch.profiler`` after two warm-up calls, over
+    ``reps``; ``call_ms`` beside it (``cuda_time_ms``) and the device
+    operations one call launches, by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call_ms = cuda_time_ms(fn, reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    check(ops, "the profiler traced no device work")
+    return {"ms": sum(e.self_device_time_total for e in ops) / 1e3 / reps,
+            "call_ms": call_ms,
+            "device_ops_per_call": {e.key[:80]: e.count / reps for e in ops}}
+
+
 def draw(seed: int, *shapes):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+
+
+def read_counts(ops) -> dict:
+    """Launches per wrapper since the last reset, and per variant as
+    ``"<wrapper>.<variant>"`` for the wrappers that pick a kernel by
+    shape."""
+    return {**ops.launch_counts(),
+            **{f"{name}.{variant}": n
+               for name, by in ops.variant_counts().items()
+               for variant, n in by.items()}}
 
 
 # ------------------------------------------------------------ phase 2
@@ -234,7 +282,7 @@ def compare_assign(kmeans_assign, pairwise_l2, pts, cts) -> tuple:
     return float(err.max()), excluded
 
 
-def phase_kernels(pairwise_l2, kmeans_assign) -> dict:
+def phase_kernels(pairwise_l2, kmeans_assign, ops) -> dict:
     # the main path's three shapes (Lloyd over all rows, a batch of
     # routes, one route), then ragged m in {1, 7, 4097}, k in {1, 8, 257},
     # d in {16, 64, 200}
@@ -243,20 +291,47 @@ def phase_kernels(pairwise_l2, kmeans_assign) -> dict:
     shapes = [(MAIN_M, MAIN_K, MAIN_D), (ROUTE_M, MAIN_K, MAIN_D),
               (1, MAIN_K, MAIN_D), (1, 1, 16), (7, 257, 200), (4097, 8, 200), (4097, 1, 64),
               (7, 8, 16), (1, 257, 64), (4097, 257, 16), (4097, 257, 200),
-              (ROUTE_M, 8, 32), (1, 8, 32)]
+              (ROUTE_M, 8, 32), (1, 8, 32),
+              # both sides of kmeans_assign's small-m threshold
+              (kmeans_assign.SMALL_M, 8, 64), (kmeans_assign.SMALL_M + 1, 8, 64),
+              (kmeans_assign.SMALL_M - 1, 8, 36)]
     errs = {}
     for i, (m, k, d) in enumerate(shapes):
         a, b = draw(100 + i, (m, d), (k, d))
         # points near the centers, as in Lloyd: clusters of (k, d) blobs
         pts = b[torch.arange(m, device="cuda") % k] + 0.5 * a
+        ops.reset_launch_counts()
         pe = compare_pairwise(pairwise_l2, a, b)
         ae, excluded = compare_assign(kmeans_assign, pairwise_l2, pts, b)
-        print(f"[chip_smoke] kernels at ({m},{d})x({k},{d}): pairwise max "
-              f"abs err {pe:.3g}, assign sums max abs err {ae:.3g}, "
+        pv = pairwise_l2.pairwise_plan(m, k, d)[0]
+        av = kmeans_assign.assign_plan(m, k, d).variant
+        # two launches each (the comparison and its repeat), all of the
+        # variant the plan names
+        check(ops.variant_counts() == {
+            "pairwise_sqdist": {**dict.fromkeys(("stream", "tiled", "batched"), 0),
+                                pv: 2},
+            "kmeans_assign": {**dict.fromkeys(("small", "stream"), 0), av: 2}},
+              f"kernels at ({m},{d})x({k},{d}) launched {ops.variant_counts()}, "
+              f"not 2 x pairwise {pv} and 2 x assign {av}")
+        print(f"[chip_smoke] kernels at ({m},{d})x({k},{d}): pairwise ({pv}) "
+              f"max abs err {pe:.3g}, assign ({av}) sums max abs err {ae:.3g}, "
               f"{excluded} near-tie rows left out of the label check",
               flush=True)
         if (m, k, d) == (MAIN_M, MAIN_K, MAIN_D):
             errs = {"pairwise_sqdist": pe, "kmeans_assign": ae}
+    # a single route is one launch of the small variant and nothing else
+    pts, cts = draw(140, (1, MAIN_D), (MAIN_K, MAIN_D))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    kmeans_assign.kmeans_assign(pts, cts)
+    check(read_counts(ops) == {**dict.fromkeys(ops.WRAPPERS, 0),
+                               "kmeans_assign": 1,
+                               "pairwise_sqdist.stream": 0,
+                               "pairwise_sqdist.tiled": 0,
+                               "pairwise_sqdist.batched": 0,
+                               "kmeans_assign.small": 1,
+                               "kmeans_assign.stream": 0},
+          f"a single route launched {read_counts(ops)}")
     # pairwise_sqdist alone at the convex paths' other shapes: the kNN
     # tiles at C = 16 384, the complete graph's fusion at C = 4096 and the
     # host solver's fusion at m = 1024
@@ -581,7 +656,7 @@ def phase_convex_paths(simulate, ops, card: str) -> dict:
                            knn_k=8, cc_iters=200, route_probes=ROUTE_M,
                            finalize_repeats=CONVEX_FINALIZES, device="cuda",
                            **kw)
-        launches = ops.launch_counts()
+        launches = read_counts(ops)
         check_path(name, summary, launches, ("group_ball_proj_batched",
                                              "pairwise_sqdist",
                                              "kmeans_assign"))
@@ -637,7 +712,7 @@ def phase_host_convex(ops, card: str) -> dict:
                                      centers)
     routed = routed.cpu().numpy()
     t3 = time.perf_counter()
-    launches = ops.launch_counts()
+    launches = read_counts(ops)
     purity = cluster_agreement(res.labels, truth.cpu().numpy())
     route_purity = cluster_agreement(routed, probe_truth.cpu().numpy())
     check(purity == 1.0, f"host convex: purity {purity} != 1.0")
@@ -837,7 +912,7 @@ def phase_serve(ops, card: str, profile: bool) -> tuple:
     by_kernel = flash.kernel_launches()
     tokens, first = serve.generate(model, cfg, prompts, SERVE_GEN,
                                    device="cuda")
-    launches = ops.launch_counts()
+    launches = read_counts(ops)
     by_kernel = {name: n - by_kernel[name]
                  for name, n in flash.kernel_launches().items()}
     peak = torch.cuda.max_memory_allocated()
@@ -944,18 +1019,18 @@ def flash_kernel_row(flash, launches, errs, card: str) -> dict:
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    ms = cuda_time_ms(lambda: flash.flash_attention(q, k, v, causal=True,
-                                                    window=w), reps=10)
+    kern = device_time(lambda: flash.flash_attention(q, k, v, causal=True,
+                                                     window=w), reps=10)
     qf, kf, vf = (t.float() for t in (q, k, v))
-    ms_fp32 = cuda_time_ms(lambda: flash.flash_attention(
+    fp32 = device_time(lambda: flash.flash_attention(
         qf, kf, vf, causal=True, window=w), reps=3)
     del qf, kf, vf
-    plain_ms = cuda_time_ms(lambda: flash.flash_attention_ref(
-        q[:1], k[:1], v[:1], causal=True, window=w), reps=3)
+    plain_ms = device_time(lambda: flash.flash_attention_ref(
+        q[:1], k[:1], v[:1], causal=True, window=w), reps=3)["ms"]
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_time_ms(lambda: sdpa(qc, kc, vc, attn_mask=band,
-                                           enable_gqa=True), reps=10)
+    library_ms = device_time(lambda: sdpa(qc, kc, vc, attn_mask=band,
+                                          enable_gqa=True), reps=10)["ms"]
     lib_diff = float((sdpa(qc[:1], kc[:1], vc[:1], attn_mask=band,
                            enable_gqa=True).float()
                       - flash.flash_attention_ref(q[:1], k[:1], v[:1],
@@ -965,8 +1040,9 @@ def flash_kernel_row(flash, launches, errs, card: str) -> dict:
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:75",
             "launches": launches["flash_attention"],
-            "max_abs_err": errs["flash_attention"], "ms": ms,
-            "ms_fp32_kernel": ms_fp32,
+            "max_abs_err": errs["flash_attention"], "ms": kern["ms"],
+            "call_ms": kern["call_ms"], "ms_fp32_kernel": fp32["ms"],
+            "call_ms_fp32_kernel": fp32["call_ms"],
             "design": "wgmma+TMA, split-P",
             "ptxas": ptxas_instances(_build.ptxas_usage("flash_attention")),
             "plain_ms": plain_ms, "plain_rows": 1,
@@ -990,22 +1066,17 @@ def prox_kernel_rows(group_prox, launches, errs) -> list:
     convex paths' three dual shapes (the row's own numbers at the first,
     the kNN graph at C = 16 384), the unbatched one at the host AMA's
     (523 776, 32) with a scalar radius (and a per-row one beside it)."""
-    def bound(nbytes, nops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / FP32_FLOP_PER_S * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
-
     def timed(fn, plain, v, r, radius_bytes, library=None):
         rows = v.numel() // v.shape[-1]
         b_ms, b_by = bound(4.0 * 2 * v.numel() + radius_bytes,
                            (3.0 * v.shape[-1] + 3) * rows)
-        return {"shape": str(tuple(v.shape)),
-                "ms": cuda_time_ms(lambda: fn(v, r)),
-                "plain_ms": cuda_time_ms(lambda: plain(v, r)),
+        kern = device_time(lambda: fn(v, r))
+        lib = device_time(library) if library is not None else None
+        return {"shape": str(tuple(v.shape)), "ms": kern["ms"],
+                "call_ms": kern["call_ms"],
+                "plain_ms": device_time(lambda: plain(v, r))["ms"],
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": (cuda_time_ms(library) if library is not None
-                               else None)}
+                "library_ms": lib["ms"] if lib is not None else None}
 
     at = []
     for i, (b, e, d, per_rung) in enumerate(PROX_MAIN):
@@ -1042,7 +1113,7 @@ def prox_kernel_rows(group_prox, launches, errs) -> list:
                      "source": "src/repro_torch/kernels/csrc/group_prox.cu",
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": errs[name], "ms": main["ms"],
-                     "plain_ms": main["plain_ms"],
+                     "call_ms": main["call_ms"], "plain_ms": main["plain_ms"],
                      "bound_ms": main["bound_ms"],
                      "bound_by": main["bound_by"],
                      "library_ms": main["library_ms"],
@@ -1050,41 +1121,107 @@ def prox_kernel_rows(group_prox, launches, errs) -> list:
     return rows
 
 
+def bound(nbytes: float, nops: float) -> tuple:
+    """The least time the card could take: bytes at 3.35 TB/s or fp32
+    operations at 67 TFLOP/s, whichever is longer, and which it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# phase 5's shapes: (class, m, k, d).  kmeans_assign: Lloyd over all rows,
+# a batch of routes, the single routes of the KM and the convex paths;
+# pairwise_sqdist: kmeans++ seeding and one kNN tile of the convex path
+ASSIGN_SHAPES = [("lloyd", MAIN_M, MAIN_K, MAIN_D),
+                 ("batch route", ROUTE_M, MAIN_K, MAIN_D),
+                 ("single route", 1, MAIN_K, MAIN_D),
+                 ("single route", 1, 8, 32)]
+PAIRWISE_SHAPES = [("kmeans++", MAIN_M, MAIN_K, MAIN_D),
+                   ("knn tile", 1024, 16_384, 32)]
+
+
+def one_kernel(timing: dict, kernel: str, what: str) -> None:
+    """Fail unless one call launched exactly one device operation, the
+    named kernel."""
+    ops = timing["device_ops_per_call"]
+    check(len(ops) == 1 and kernel in next(iter(ops)) and
+          next(iter(ops.values())) == 1.0,
+          f"{what}: one call ran {ops}, not one {kernel} launch")
+
+
+def ptxas_named(usage: dict) -> dict:
+    """ptxas registers and spill bytes by kernel instance, keyed by a
+    readable name (``assign_stream_kernel<1>``) in place of the mangled
+    one."""
+    named = {}
+    for mangled, info in usage.items():
+        found = re.search(r"\d+([a-z][a-z_]*_kernel)((?:I(?:L[ib]\d+E)+E)?)", mangled)
+        if found:
+            args = re.findall(r"L[ib](\d+)E", found.group(2))
+            named[found.group(1) + (f"<{','.join(args)}>" if args else "")] = info
+    return named
+
+
 def kernel_rows(pairwise_l2, kmeans_assign, launches, errs) -> list:
-    m, k, d = MAIN_M, MAIN_K, MAIN_D
-    a, b = draw(7, (m, d), (k, d))
-    pts = b[torch.arange(m, device="cuda") % k] + 0.5 * a
-    f4 = 4.0
+    """Phase 5 rows of the two slice-1 kernels, one entry a shape: device
+    ms and call ms of the kernel, the plain version and the library call,
+    the bound, and the variant the wrapper picked; each kernel
+    instance's ptxas registers and spill bytes."""
+    from repro_torch.kernels import _build
+
     rows = []
-    p_bytes = f4 * (m * d + k * d + m * k)
-    p_ops = 2.0 * m * k * d + 2.0 * (m + k) * d + 3.0 * m * k
-    a_bytes = f4 * (m * d + k * d) + 4.0 * m + f4 * (k * d + k)
-    a_ops = 2.0 * m * k * d + 2.0 * m * d + 3.0 * m * k + m * d
-    specs = [
-        ("pairwise_sqdist", "src/repro_torch/kernels/csrc/pairwise_l2.cu",
-         "src/repro/kernels/pairwise_l2.py:44",
-         lambda: pairwise_l2.pairwise_sqdist(a, b),
-         lambda: pairwise_l2.pairwise_sqdist_ref(a, b),
-         lambda: torch.cdist(a, b), p_bytes, p_ops),
-        ("kmeans_assign", "src/repro_torch/kernels/csrc/kmeans_assign.cu",
-         "src/repro/kernels/kmeans_assign.py:48",
-         lambda: kmeans_assign.kmeans_assign(pts, b),
-         lambda: kmeans_assign.kmeans_assign_ref(pts, b), None,
-         a_bytes, a_ops),
-    ]
-    for name, src, replaces, kern, plain, lib, nbytes, nops in specs:
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / FP32_FLOP_PER_S * 1e3
+    at = {"pairwise_sqdist": [], "kmeans_assign": []}
+    for i, (cls, m, k, d) in enumerate(PAIRWISE_SHAPES):
+        a, b = draw(7 + i, (m, d), (k, d))
+        variant = pairwise_l2.pairwise_plan(m, k, d)[0]
+        kern = device_time(lambda: pairwise_l2.pairwise_sqdist(a, b))
+        if variant == "stream":
+            one_kernel(kern, "pairwise_stream_kernel", f"pairwise_sqdist {cls}")
+        b_ms, b_by = bound(4.0 * (m * d + k * d + m * k),
+                           2.0 * m * k * d + 2.0 * (m + k) * d + 3.0 * m * k)
+        plain = device_time(lambda: pairwise_l2.pairwise_sqdist_ref(a, b))
+        lib = device_time(lambda: torch.cdist(a, b))
+        at["pairwise_sqdist"].append({
+            "class": cls, "shape": f"({m},{d})x({k},{d})", "variant": variant,
+            "ms": kern["ms"], "call_ms": kern["call_ms"],
+            "device_ops_per_call": kern["device_ops_per_call"],
+            "plain_ms": plain["ms"], "library_ms": lib["ms"],
+            "library_call_ms": lib["call_ms"], "bound_ms": b_ms,
+            "bound_by": b_by})
+        del a, b
+    for i, (cls, m, k, d) in enumerate(ASSIGN_SHAPES):
+        a, b = draw(17 + i, (m, d), (k, d))
+        pts = b[torch.arange(m, device="cuda") % k] + 0.5 * a
+        variant = kmeans_assign.assign_plan(m, k, d).variant
+        kern = device_time(lambda: kmeans_assign.kmeans_assign(pts, b))
+        one_kernel(kern, f"assign_{variant}_kernel", f"kmeans_assign {cls}")
+        b_ms, b_by = bound(4.0 * (m * d + k * d) + 4.0 * m + 4.0 * (k * d + k),
+                           2.0 * m * k * d + 2.0 * m * d + 3.0 * m * k + m * d)
+        plain = device_time(lambda: kmeans_assign.kmeans_assign_ref(pts, b))
+        at["kmeans_assign"].append({
+            "class": cls, "shape": f"({m},{d})x({k},{d})", "variant": variant,
+            "ms": kern["ms"], "call_ms": kern["call_ms"],
+            "device_ops_per_call": kern["device_ops_per_call"],
+            "plain_ms": plain["ms"], "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by})
+        del a, b, pts
+    for name, src, replaces, library in (
+            ("pairwise_sqdist", "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+             "src/repro/kernels/pairwise_l2.py:44",
+             "torch.cdist (which also takes the root)"),
+            ("kmeans_assign", "src/repro_torch/kernels/csrc/kmeans_assign.cu",
+             "src/repro/kernels/kmeans_assign.py:48",
+             "none: no one PyTorch call returns labels + sums + counts")):
+        main = at[name][0]
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name],
-            "ms": cuda_time_ms(kern), "plain_ms": cuda_time_ms(plain),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": cuda_time_ms(lib) if lib is not None else None,
-            "shape": f"({m},{d})x({k},{d})",
-        })
+            "max_abs_err": errs[name], "ms": main["ms"],
+            "call_ms": main["call_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "library": library,
+            "ptxas": ptxas_named(_build.ptxas_usage(src.split("/")[-1][:-3])),
+            "shape": main["shape"], "at_shapes": at[name]})
     return rows
 
 
@@ -1111,7 +1248,7 @@ def main() -> None:
     print(f"[chip_smoke] kernels built in {time.perf_counter() - t0:.1f}s "
           f"({json.dumps(built)})", flush=True)
 
-    errs = phase_kernels(pairwise_l2, kmeans_assign)
+    errs = phase_kernels(pairwise_l2, kmeans_assign, ops)
     errs.update(phase_prox_kernels(group_prox, pairwise_l2, ops))
     errs.update(phase_flash_kernel(flash))
     phase_small_round()
@@ -1123,7 +1260,7 @@ def main() -> None:
                        sketch_dim=64, wave=65_536, algorithm="kmeans-device",
                        init="kmeans++", route_probes=ROUTE_M,
                        finalize_repeats=FINALIZES, device="cuda")
-    launches = ops.launch_counts()
+    launches = read_counts(ops)
     check_path("main path", summary, launches,
                ("pairwise_sqdist", "kmeans_assign"))
     print(json.dumps({"main_path": path_fields(summary, launches, card)}),
@@ -1150,8 +1287,17 @@ def main() -> None:
             + prox_kernel_rows(group_prox, total, errs)
             + [flash_kernel_row(flash, total, errs, card)])
     for row in rows:
-        row["launches_by_path"] = {p: n[row["name"]]
-                                   for p, n in by_path.items()}
+        name = row["name"]
+        row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
+        variants = [key.split(".", 1)[1] for key in by_path["kmeans-device"]
+                    if key.startswith(name + ".")]
+        if variants:
+            row["launches_by_variant"] = {
+                v: sum(n[f"{name}.{v}"] for n in by_path.values())
+                for v in variants}
+            row["launches_by_variant_by_path"] = {
+                p: {v: n[f"{name}.{v}"] for v in variants}
+                for p, n in by_path.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

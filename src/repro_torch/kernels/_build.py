@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into a shared library, loaded
 with ``ctypes``.  No PyTorch header is included, so a build takes
 seconds.  Libraries go to ``kernels/build/`` (git-ignored) under a name
-keyed by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.  ``build()`` starts one
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt and an unchanged one
+is reused.  ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for all of them.
 """
 from __future__ import annotations
@@ -33,18 +34,22 @@ _SIGNATURES = {
     "pairwise_l2": {
         # a, b, out, m, k, d, stream
         "pairwise_sqdist_f32": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
+        # a, b, out, m, k, d, rows a tile, stages, grid, stream
+        "pairwise_sqdist_stream_f32": [_VP, _VP, _VP, _LL, _INT, _INT, _INT,
+                                       _INT, _INT, _VP],
         # a, b, out, nb, m, k, d, stream
         "pairwise_sqdist_batched_f32": [_VP, _VP, _VP, _INT, _INT, _INT,
                                         _INT, _VP],
     },
     "kmeans_assign": {
-        # k, d, *br, *smem_bytes, *max_grid
-        "kmeans_assign_plan": [_INT, _INT, ctypes.POINTER(_INT),
-                               ctypes.POINTER(_LL), ctypes.POINTER(_INT)],
-        # points, centers, labels, part_sums, part_counts, sums, counts,
-        # m, k, d, br, smem_bytes, grid, stream
-        "kmeans_assign_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _INT,
-                              _INT, _INT, _LL, _INT, _VP],
+        # points, centers, labels, sums, counts, m, k, d, stream
+        "kmeans_assign_small_f32": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                                    _VP],
+        # points, centers, labels, dscratch, iscratch, tickets, sums,
+        # counts, m, k, d, rows a tile, stages, smem_part, grid, stream
+        "kmeans_assign_stream_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                     _LL, _INT, _INT, _INT, _INT, _INT, _INT,
+                                     _VP],
     },
     "group_prox": {
         # v, radius, out, e, d, radius stride, stream
@@ -81,6 +86,7 @@ def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current
     source and flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

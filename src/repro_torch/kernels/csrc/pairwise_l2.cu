@@ -4,27 +4,38 @@
 // (pairwise_sqdist_pallas / _pairwise_kernel): (m,d) x (k,d) -> (m,k),
 // out = ||a||^2 + ||b||^2 - 2 a.b, clamped at >= 0.
 //
-// What bounds it on an H100: bytes.  At the main path's shape
-// (m = 2^20 sketch rows, k = 8 centers, d = 64) a call reads 268 MB of a
-// and writes 34 MB of output, about 4 flop per byte, so the floor is
-// about 90 us at 3.35 TB/s while the fp32 FMA work is a few us.
+// What bounds it on an H100: bytes.  At the kmeans++ shape (m = 2^20
+// sketch rows, k = 8 centers, d = 64) a call reads 268 MB of a and writes
+// 34 MB of output, about 4 flop per byte, so the floor is about 90 us at
+// 3.35 TB/s while the fp32 FMA work is a few us.
 //
-// Design: one block computes a (kBM x kBK) output tile with 256 threads,
-// each holding a 4x4 register micro-tile.  The TPU's sequential third
-// grid axis (the d reduction) becomes a loop inside the block over d in
-// chunks of BD, with the a- and b-chunks staged transposed in shared
-// memory by cp.async.  ||a||^2, ||b||^2 and a.b are accumulated over the whole of d
-// and combined once, with the same clamp as the reference, so near-zero
-// distances clamp as there.  Ragged edges of m, k and d are masked in
-// the kernel (zeros are staged), so no padded copy is ever made.  One
-// tile shape, 256 x 16, sized for the kmeans++ seeding shape (k = 8);
-// larger k takes more column tiles through grid.y.
-// The batched entry point (a leading window axis: the LSH bucket windows
-// of the approximate kNN fusion graph, (nb, B, d) x (nb, 3B, d)) runs the
-// same kernel with one window per blockIdx.z, each offset by its batch
-// stride; the 2-D entry point is the batch of one.
+// Two kernels; the wrapper picks by (k, d):
+//   * pairwise_stream_kernel (k <= 16, d % 4 == 0: kmeans++ seeding).  The
+//     loader of row_stream.cuh: a persistent grid of at most one block per
+//     SM, one producer thread loading tiles of rows by TMA into a ring in
+//     shared memory (mbarriers), the k centers and their norms in shared
+//     memory, one row per consumer thread, its k distances written as
+//     float4s (k % 4 == 0) or scalars.  Every distance is a sequential
+//     fmaf chain over d, as in kmeans_assign.
+//   * pairwise_sqdist_kernel (large k: the kNN tiles, the fusion tests,
+//     and every batch of windows).  One block computes a (kBM x kBK)
+//     output tile with 256 threads, each holding a 4x4 register
+//     micro-tile.  The TPU's sequential third grid axis (the d reduction)
+//     becomes a loop inside the block over d in chunks of BD, with the a-
+//     and b-chunks staged transposed in shared memory by cp.async.
+//     ||a||^2, ||b||^2 and a.b are accumulated over the whole of d and
+//     combined once, with the same clamp as the reference, so near-zero
+//     distances clamp as there.  Ragged edges of m, k and d are masked in
+//     the kernel (zeros are staged), so no padded copy is ever made.
+//     Larger k takes more column tiles through grid.y.  The batched entry
+//     point (a leading window axis: the LSH bucket windows of the
+//     approximate kNN fusion graph, (nb, B, d) x (nb, 3B, d)) runs it with
+//     one window per blockIdx.z, each offset by its batch stride.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "row_stream.cuh"
 
 namespace {
 
@@ -123,6 +134,95 @@ pairwise_sqdist_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+
+// Dynamic shared memory of pairwise_stream_kernel (mirrored by
+// kernels/pairwise_l2.py::_stream_bytes), from a 1024-byte aligned base:
+// the ring, the mbarriers, the centers and their norms; kAlign bytes more
+// for aligning the base.
+__host__ __device__ inline size_t stream_bars_offset(int d, int br, int stages) {
+  return stages * rowstream::stage_bytes(d, br);
+}
+
+__host__ __device__ inline size_t stream_bytes(int k, int d, int br, int stages) {
+  const size_t cen = stream_bars_offset(d, br, stages) + 16 * rowstream::kMaxStages + 16;
+  return rowstream::up16(cen + 4 * static_cast<size_t>(k) * d) +
+         rowstream::up16(4 * static_cast<size_t>(k)) + rowstream::kAlign;
+}
+
+// KB >= k centers in registers; kVecOut: k % 4 == 0 (float4 stores).
+template <int KB, bool kVecOut>
+__global__ void __launch_bounds__(rowstream::kThreads, 1)
+pairwise_stream_kernel(const __grid_constant__ CUtensorMap rows_map,
+                       const float* __restrict__ b, float* __restrict__ out, long m,
+                       int k, int d, int br, int stages) {
+  using namespace rowstream;
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = align_shared(smem_raw);
+  char* ring = smem;
+  const size_t bars = stream_bars_offset(d, br, stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + bars);
+  uint64_t* empty = full + kMaxStages;
+  float* cen = reinterpret_cast<float*>(smem + bars + 16 * kMaxStages + 16);
+  float* c2 = reinterpret_cast<float*>(
+      smem + up16(bars + 16 * kMaxStages + 16 + 4 * static_cast<size_t>(k) * d));
+  const size_t box_bytes = static_cast<size_t>(br) * 128;
+  const size_t tile_bytes = stage_bytes(d, br);
+  const int tid = threadIdx.x;
+  const long kd = static_cast<long>(k) * d;
+  for (long i = tid; i < kd; i += rowstream::kThreads) cen[i] = b[i];
+  init_ring(full, empty, stages);  // ends in __syncthreads
+
+  if (tid < 32) {
+    produce(&rows_map, m, d, br, stages, ring, full, empty);
+    return;
+  }
+  const int ct = tid - 32, lane = ct & 31;
+  center_norms(cen, c2, k, d, ct, kConsumers);
+  consumers_sync();
+  const long ntiles = (m + br - 1) / br;
+  int i = 0;
+  for (long t = blockIdx.x; t < ntiles; t += gridDim.x, ++i) {
+    const int s = i % stages;
+    const long row0 = t * br;
+    const int nrows = static_cast<int>(m - row0 < br ? m - row0 : br);
+    mbar_wait(&full[s], (i / stages) & 1);
+    if (ct < nrows) {
+      float dot[KB], p2 = 0.f;
+      row_dots<KB, true>(SwizzledRow{ring + s * tile_bytes, ct, box_bytes}, cen, 0, k, d,
+                         dot, p2, true);
+      float v[KB];
+#pragma unroll
+      for (int cc = 0; cc < KB; ++cc) v[cc] = cc < k ? sqdist(p2, c2[cc], dot[cc]) : 0.f;
+      float* o = out + (row0 + ct) * k;
+      if constexpr (kVecOut) {
+#pragma unroll
+        for (int q = 0; q < KB / 4; ++q)
+          if (4 * q < k)
+            reinterpret_cast<float4*>(o)[q] =
+                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+      } else {
+#pragma unroll
+        for (int cc = 0; cc < KB; ++cc)
+          if (cc < k) o[cc] = v[cc];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+}
+
+template <int KB>
+cudaError_t launch_stream(const CUtensorMap& map, const float* b, float* out, long m,
+                          int k, int d, int br, int stages, int grid, cudaStream_t s) {
+  const size_t bytes = stream_bytes(k, d, br, stages);
+  const bool vec_out = k % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15u) == 0;
+  auto kernel = vec_out ? pairwise_stream_kernel<KB, true> : pairwise_stream_kernel<KB, false>;
+  const cudaError_t err = rowstream::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, rowstream::kThreads, bytes, s>>>(map, b, out, m, k, d, br, stages);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // a (m,d), b (k,d), out (m,k): contiguous fp32 device pointers.
@@ -157,4 +257,27 @@ extern "C" int pairwise_sqdist_batched_f32(const void* a, const void* b,
       pa, pb, po, m, k, d, static_cast<long long>(m) * d,
       static_cast<long long>(k) * d, static_cast<long long>(m) * k);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The streaming variant: a (m,d) with d % 4 == 0 and a 16-byte aligned,
+// b (k,d) with k <= 16, out (m,k); br rows a tile (a multiple of 8,
+// <= 256), `stages` tiles in flight (<= 4), on `grid` blocks.  Returns the
+// launch's cudaError_t.
+extern "C" int pairwise_sqdist_stream_f32(const void* a, const void* b, void* out,
+                                          long long m, int k, int d, int br, int stages,
+                                          int grid, void* stream) {
+  if (m < 1 || k < 1 || k > 16 || d < 1 || d % 4 != 0 || br < 8 || br % 8 != 0 ||
+      br > rowstream::kMaxRows || stages < 1 || stages > rowstream::kMaxStages ||
+      grid < 1 || (reinterpret_cast<uintptr_t>(a) & 15u) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map;
+  const cudaError_t err = rowstream::encode_rows(&map, a, m, d, br);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* pb = static_cast<const float*>(b);
+  auto* po = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const long mm = static_cast<long>(m);
+  if (k <= 4) return static_cast<int>(launch_stream<4>(map, pb, po, mm, k, d, br, stages, grid, s));
+  if (k <= 8) return static_cast<int>(launch_stream<8>(map, pb, po, mm, k, d, br, stages, grid, s));
+  return static_cast<int>(launch_stream<16>(map, pb, po, mm, k, d, br, stages, grid, s));
 }

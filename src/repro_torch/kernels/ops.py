@@ -86,6 +86,16 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def variant_counts() -> dict:
+    """Launches per variant since the last reset, for the wrappers that
+    pick a kernel by shape (``kmeans_assign``: small / stream;
+    ``pairwise_sqdist``: stream / tiled / batched)."""
+    return {name: dict(fn.by_variant) for name, fn in WRAPPERS.items()
+            if hasattr(fn, "by_variant")}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        for variant in getattr(fn, "by_variant", {}):
+            fn.by_variant[variant] = 0

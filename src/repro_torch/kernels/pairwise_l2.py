@@ -9,12 +9,40 @@ which the CPU path runs and the chip check compares the kernel with.
 ``kernels/ops.py`` picks between them by the tensor's device.  Both take
 2-D operands or 3-D batches of windows, (nb,m,d) x (nb,k,d) ->
 (nb,m,k) (the reference ``jax.vmap``s the kernel over such windows).
+
+``pairwise_plan`` picks the kernel from the shapes: ``stream`` (k <= 16
+and d % 4 == 0: the kmeans++ seeding; rows streamed through a ring in
+shared memory), ``tiled`` (every other 2-D call: the kNN tiles and the
+fusion tests) and ``batched`` (the tiled kernel over windows).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._rowstream import (
+    ALIGN, BARRIER_BYTES, ring_plan, sm_count, stage_bytes, up16)
+
+STREAM_MAX_K = 16     # centers a consumer thread holds in registers
+
+
+def _stream_bytes(k: int, d: int, rows: int, stages: int) -> int:
+    """Mirror of ``stream_bytes`` in csrc/pairwise_l2.cu."""
+    return (up16(stages * stage_bytes(d, rows) + BARRIER_BYTES + 4 * k * d)
+            + up16(4 * k) + ALIGN)
+
+
+@functools.lru_cache(maxsize=256)
+def pairwise_plan(m: int, k: int, d: int) -> tuple[str, int, int]:
+    """(variant, rows a tile, stages) for a 2-D call (m,d) x (k,d): a pure
+    function of the shapes; rows and stages are 0 for the tiled kernel."""
+    if k <= STREAM_MAX_K and d % 4 == 0:
+        ring = ring_plan(lambda r, s: _stream_bytes(k, d, r, s))
+        if ring is not None:
+            return ("stream", *ring)
+    return ("tiled", 0, 0)
 
 
 def pairwise_sqdist_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -62,13 +90,24 @@ def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if max(m, k, d) >= 2 ** 31:
         raise ValueError(f"pairwise_sqdist: shape ({m},{d}) x ({k},{d}) "
                          "exceeds the kernel's 32-bit sizes")
+    variant, rows, stages = pairwise_plan(m, k, d)
     with torch.cuda.device(a.device):
         lib = _build.load("pairwise_l2")
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pairwise_sqdist_f32(a.data_ptr(), b.data_ptr(),
-                                      out.data_ptr(), m, k, d, stream)
-    _build.check(err, f"pairwise_sqdist launch at ({m},{d}) x ({k},{d})")
+        if variant == "stream":
+            if a.data_ptr() % 16:
+                a = a.clone()                # the bulk copies need 16 bytes
+            sms = sm_count(a.device.index)
+            err = lib.pairwise_sqdist_stream_f32(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, d, rows,
+                stages, min(sms, -(-m // rows)), stream)
+        else:
+            err = lib.pairwise_sqdist_f32(a.data_ptr(), b.data_ptr(),
+                                          out.data_ptr(), m, k, d, stream)
+    _build.check(err, f"pairwise_sqdist ({variant}) launch at ({m},{d}) x "
+                 f"({k},{d})")
     pairwise_sqdist.launches += 1
+    pairwise_sqdist.by_variant[variant] += 1
     return out
 
 
@@ -95,7 +134,9 @@ def _pairwise_sqdist_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _build.check(err, f"pairwise_sqdist launch at {nb} windows of "
                  f"({m},{d}) x ({k},{d})")
     pairwise_sqdist.launches += 1
+    pairwise_sqdist.by_variant["batched"] += 1
     return out
 
 
 pairwise_sqdist.launches = 0
+pairwise_sqdist.by_variant = {"stream": 0, "tiled": 0, "batched": 0}

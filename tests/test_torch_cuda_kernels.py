@@ -5,10 +5,13 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances are chip_smoke.py's: distances within rtol 1e-5 and
-atol 1e-4 * (||a||^2 + ||b||^2), also for batches of windows; labels
+atol 1e-4 * (||a||^2 + ||b||^2), also for batches of windows, for every
+variant of pairwise_sqdist (stream, tiled, batched); labels
 equal on every row whose two nearest distances differ by more than 1e-5
 relative (the kernel's FMA order and cuBLAS's differ in the last bits);
-sums within rtol 1e-5 / atol 1e-4, counts exactly; group-prox rows
+sums within rtol 1e-5 / atol 1e-4, counts exactly, for both variants of
+kmeans_assign (small, stream), each checked to be the one its plan
+names; group-prox rows
 within rtol 1e-6 / atol 1e-7 * ||v|| (the row norm summed in another
 order); flash attention within rtol/atol 1e-4 in float32 (the CUDA-core
 kernel) and, in bfloat16 (the tensor-core kernel), within one bf16 ulp
@@ -75,6 +78,93 @@ def test_assign_kernel_matches_plain(cuda_device, m, k, d):
     again = tassign.kmeans_assign(pts, cts)
     assert torch.equal(again[0], lab) and torch.equal(again[1], sums)
     assert torch.equal(again[2], cnt)
+
+
+# each variant of the two redesigned kernels: single routes (m = 1, k = 1,
+# k = 257), both sides of kmeans_assign's small-m threshold, the batch
+# route, zero-padded d, rows that fill few tiles, and the Lloyd shape
+VARIANT_SHAPES = [(1, 8, 64), (1, 8, 32), (1, 1, 16), (1, 257, 64),
+                  (255, 8, 36), (256, 8, 64), (257, 8, 64), (4096, 8, 64),
+                  (4097, 1, 64), (4097, 257, 16), (4097, 257, 200),
+                  (4097, 8, 200), (5000, 3, 5), (1_048_576, 8, 64)]
+
+
+def _blobs(seed, device, m, k, d):
+    """Points near k centers, as Lloyd sees them."""
+    a, b = _draw(seed, device, (m, d), (k, d))
+    return b[torch.arange(m, device=device) % k] + 0.5 * a, b
+
+
+def _clear_rows(pts, cts):
+    if cts.shape[0] == 1:
+        return torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    two = torch.topk(tpairwise.pairwise_sqdist_ref(pts, cts), 2, dim=1,
+                     largest=False).values
+    return (two[:, 1] - two[:, 0]) > 1e-5 * two[:, 1].abs()
+
+
+@pytest.mark.parametrize("m,k,d", VARIANT_SHAPES)
+def test_assign_variants_match_plain_and_repeat_bit_for_bit(cuda_device, m,
+                                                            k, d):
+    pts, cts = _blobs(m + k + d, cuda_device, m, k, d)
+    variant = tassign.assign_plan(m, k, d).variant
+    before = dict(tassign.kmeans_assign.by_variant)
+    lab, sums, cnt = tassign.kmeans_assign(pts, cts)
+    torch.cuda.synchronize()
+    wl, ws, wc = tassign.kmeans_assign_ref(pts, cts)
+    clear = _clear_rows(pts, cts)
+    assert torch.equal(lab[clear], wl[clear])
+    # sums and counts of the labels the kernel chose
+    ws = torch.nn.functional.one_hot(lab.long(), k).float().T @ pts
+    wc = torch.bincount(lab.long(), minlength=k).float()
+    assert torch.equal(cnt, wc)
+    torch.testing.assert_close(sums, ws, rtol=1e-5, atol=1e-4)
+    for _ in range(2):       # the streaming sums too: fixed order, no atomics
+        again = tassign.kmeans_assign(pts, cts)
+        assert all(torch.equal(x, y) for x, y in zip(again, (lab, sums, cnt)))
+    after = tassign.kmeans_assign.by_variant
+    assert {v: after[v] - before[v] for v in after} == {
+        **dict.fromkeys(after, 0), variant: 3}
+
+
+@pytest.mark.parametrize("m,k,d", VARIANT_SHAPES + [(7, 16, 4), (7, 17, 4),
+                                                    (33, 8, 5)])
+def test_pairwise_variants_match_plain_and_repeat_bit_for_bit(cuda_device, m,
+                                                              k, d):
+    a, b = _draw(2 * m + k + d, cuda_device, (m, d), (k, d))
+    variant = tpairwise.pairwise_plan(m, k, d)[0]
+    before = dict(tpairwise.pairwise_sqdist.by_variant)
+    got = tpairwise.pairwise_sqdist(a, b)
+    torch.cuda.synchronize()
+    want = tpairwise.pairwise_sqdist_ref(a, b)
+    scale = (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
+    assert float(((got - want).abs() - (1e-5 * want.abs() + 1e-4 * scale))
+                 .max()) <= 0.0
+    assert torch.equal(tpairwise.pairwise_sqdist(a, b), got)
+    after = tpairwise.pairwise_sqdist.by_variant
+    assert {v: after[v] - before[v] for v in after} == {
+        **dict.fromkeys(after, 0), variant: 2}
+
+
+def test_streaming_variants_read_unaligned_rows(cuda_device):
+    # rows 4 bytes off the TMA's 16-byte grid go through an aligned copy
+    pts, cts = _blobs(3, cuda_device, 4097, 8, 64)
+    flat = torch.cat([torch.zeros(1, device=cuda_device), pts.reshape(-1)])
+    shifted = flat[1:].reshape(4097, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    got = tassign.kmeans_assign(shifted, cts)
+    want = tassign.kmeans_assign(pts, cts)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert torch.equal(tpairwise.pairwise_sqdist(shifted, cts),
+                       tpairwise.pairwise_sqdist(pts, cts))
+
+
+def test_a_single_route_is_one_small_launch(cuda_device):
+    pts, cts = _blobs(4, cuda_device, 1, 8, 64)
+    ops.reset_launch_counts()
+    ops.kmeans_assign(pts, cts)
+    assert ops.launch_counts()["kmeans_assign"] == 1
+    assert ops.variant_counts()["kmeans_assign"] == {"small": 1, "stream": 0}
 
 
 def test_launch_counters_count_kernel_launches(cuda_device):
