@@ -43,6 +43,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
       masks, fp32 (the CUDA-core kernel) and bf16, strided and
       contiguous; fp32 within rtol/atol 1e-4, bf16 within one bf16 ulp
       (2^-7 |want|) plus 1e-4 max|v|;
+    * ``kmeans_assign`` at the route server's flush buckets, (n, 64) x
+      (8, 64) for n = 1, 2, 4 ... 64: labels equal on every row, sums
+      within the tolerance above, each n launching the variant its plan
+      names;
     and every kernel's repeat run bit-identical;
  3. small rounds on the card against the same rounds on the CPU (the
     plain versions), with the same inputs: the ODCL-KM round (identical
@@ -74,23 +78,50 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     ``convex_clustering`` of 1024 sketches at the exact lambda of the
     recovery interval (17), its clusters routing 4096 new clients; each
     must give purity 1.0, route purity 1.0 and K' = 8;
-    for every path of phases 4 and 4b every kernel's launch count is set
-    to 0 just before and read just after, and every kernel that the path
-    runs must have launched;
+    for every path of phases 4, 4b, 4c and 4d every kernel's launch
+    count is set to 0 just before and read just after, and every kernel
+    that the path runs must have launched;
  4c. the LM serving path at full size through ``serve.generate``:
     qwen2-0.5b (24 layers, bf16, random weights from seed 0), batch 4,
     prompt 8192, 64 greedy tokens, then a warm repeat: prefill ms (first
     and warm), decode ms per token p50/p99, tok/s and peak device memory;
     flash_attention must launch 24 times in the prefill, all 24 on the
     tensor-core kernel and none on the CUDA-core one (the library's own
-    counts); the prefill
-    logits must be finite, and the first decode step's logits must equal
-    the last position of a prefill over the prompt plus that token
-    within 2^-4 of the largest |logit| (bf16 rounding through 24 layers);
+    counts); the prefill logits must be finite; every decode step's
+    logits (the 63 steps, fed the generated tokens) must equal one
+    prefill over the prompt plus the generated tokens at its position
+    within 2^-4 of that position's largest |logit| (bf16 rounding
+    through 24 layers), and a decode from a cache whose layer-0 values
+    are negated must fall outside it.  Then the same weights with a planted
+    previous-token head (``models.planted``): the 4 x 64 greedy tokens
+    must be the head's known continuation, one prefill over them must
+    show a top-2 margin above that tolerance at every generated
+    position and pick every generated token, and a decode from a cache
+    whose layer-0 values are negated must pick other tokens;
+ 4d. serving: the route server (``serving.RouteServer``) over a
+    sketch-only session of C = 1 048 576 and then of C = 4096 (sketch 64,
+    k = 8, built by ``serving.loadgen.build_session``): closed loops of 4
+    and 16 callers, per request and batched (max_batch 64, max_wait 0.5
+    ms), 3 s each, then 16 batched callers under ingest (keyed waves of
+    256 every 0.2 s) with one background warm refinalize; no error,
+    timeout or flush error; the server's labels for 4096 probes equal one
+    batch route; the round refinalized in the background equals a
+    serialized replay on the card (labels identical, centers
+    bit-identical); qps, route p50/p99 (and during the refinalize), flush
+    sizes, ``refinalize_under_load_ms`` and staleness printed, the
+    batched/direct criterion printed and not gated.  Then ``simulate``
+    at C = 1 048 576 with keyed re-uploads of a quarter of the clients
+    and 64 joiners a round, sliding window 3 and the drift-triggered
+    warm refinalize (purity 1.0, the refinalize must fire), and a
+    ``convex-device`` kNN session at C = 16 384 refinalized warm (the
+    same partition in fewer AMA iterations than cold);
  5. one JSON line ``{"kernels": [...]}``: per kernel its launches on the
     main paths (in all, by path, and by variant), its largest error
     against the plain version, and at each of its main shapes (the
-    Lloyd, batch-route and single-route shapes of kmeans_assign; the
+    Lloyd, batch-route and single-route shapes of kmeans_assign and its
+    flush buckets 1, 4, 8, 16 and 64 with the serving paths' flushes at each,
+    from the server's ``serving.flush_size``, and beside bucket 1 the
+    direct rows' per-request routes; the
     kmeans++ shape and a kNN tile of pairwise_sqdist; the three dual
     shapes of the batched group prox) the card's own time for one call
     (``ms``: the durations of the device work that 20 calls launched,
@@ -102,16 +133,20 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     flash_attention's operations at the bf16 tensor cores' 989 TFLOP/s,
     with the fp32 figure beside it); one call of kmeans_assign at each
     shape and of pairwise_sqdist at the kmeans++ shape must be exactly
-    one kernel; the flash row adds the CUDA-core (fp32) kernel's time at
+    one kernel (a trace that lost some of that kernel's records is taken
+    again, at most 3 times: the profiler dropped 1 to 11 of 20 on some
+    runs, with nothing else in the trace); the flash row adds the CUDA-core (fp32) kernel's time at
     the same shape in fp32 (``ms_fp32_kernel``), both kernels' ptxas
     registers and spill bytes, and its design;
  6. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds, after phase 4, a second run of the main path and one
-finalize of the convex path on the complete graph at C = 4096 under
-``torch.profiler``, and after phase 4c two serve calls (the same prompts,
-1 token, then 16): device time by kernel and the device's busy share.
+``--profile`` adds, after phase 5, traced runs under ``torch.profiler``:
+a second run of the main path, one finalize of the convex path on the
+complete graph at C = 4096, two serve calls (phase 4c's prompts, 1
+token, then 16), and one second of phase 4d's 16-caller closed loop,
+batched and per request, at each C: device time by kernel and the
+device's busy share.
 
 The port imports no JAX; neither does this script.
 """
@@ -158,6 +193,22 @@ FP32_REL_TOL = 1e-4
 # output to bf16 at different points, and 24 layers carry each one-ulp
 # (2^-8) difference forward
 SERVE_BF16_REL_TOL = 2.0 ** -4
+# the route server: flushes padded to powers of two up to max_batch 64
+FLUSH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+SERVING_CLIENTS = (1_048_576, 4096)
+SERVING_CALLERS = (4, 16)
+SERVING_SECONDS = 3.0
+SERVING_PROBES = 4096
+# the mutation run of phase 4d (C = 1 048 576) and the convex warm path
+MUTATION = {"reupload_frac": 0.25, "churn": 64, "max_age": 3,
+            "refinalize_threshold": 1.5}
+MUTATION_FINALIZES = 4
+CONVEX_WARM_C = 16_384
+# AMA budget of the convex warm path: enough for the cold solve to reach
+# its stop test, which 200 iterations (phase 4b) do not
+CONVEX_WARM_ITERS = 2000
+# traces of a one-kernel call taken before its lost records fail the check
+TRACES = 3
 
 
 def fail(msg: str):
@@ -196,26 +247,50 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_time(fn, reps: int = 20) -> dict:
-    """The card's own time for one call of ``fn()``: the summed durations
-    of the device work (kernels, copies, fills) that ``reps`` calls
-    launched, traced by ``torch.profiler`` after two warm-up calls, over
-    ``reps``; ``call_ms`` beside it (``cuda_time_ms``) and the device
-    operations one call launches, by name."""
+def traced_ops(fn, reps: int) -> list:
+    """The device operations of ``reps`` calls of ``fn()`` as
+    ``torch.profiler`` records them, after one warm-up step under the
+    tracer (the step lets the tracer start before the measured calls)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    call_ms = cuda_time_ms(fn, reps)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    check(ops, "the profiler traced no device work")
+        prof.step()
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_time(fn, reps: int = 20, kernel: str | None = None) -> dict:
+    """The card's own time for one call of ``fn()``: the summed durations
+    of the device work (kernels, copies, fills) that ``reps`` calls
+    launched, traced by ``torch.profiler``, over ``reps``; ``call_ms``
+    beside it (``cuda_time_ms``) and the device operations one call
+    launches, by name.  With ``kernel``, a call is meant to launch that
+    kernel alone: a trace holding that kernel and nothing else, but fewer
+    than ``reps`` of its launches, lost records (the profiler has dropped
+    1 to 11 of 20 on some runs) and is taken again, at most ``TRACES``
+    times; ``traces`` says how many were taken."""
+    call_ms = cuda_time_ms(fn, reps)
+    for n in range(1, TRACES + 1):
+        ops = traced_ops(fn, reps)
+        check(ops, "the profiler traced no device work")
+        per_call = {e.key[:80]: e.count / reps for e in ops}
+        short = (kernel is not None and len(per_call) == 1
+                 and kernel in next(iter(per_call))
+                 and next(iter(per_call.values())) < 1.0)
+        if not short:
+            break
     return {"ms": sum(e.self_device_time_total for e in ops) / 1e3 / reps,
-            "call_ms": call_ms,
-            "device_ops_per_call": {e.key[:80]: e.count / reps for e in ops}}
+            "call_ms": call_ms, "device_ops_per_call": per_call,
+            "traces": n}
 
 
 def draw(seed: int, *shapes):
@@ -341,6 +416,31 @@ def phase_kernels(pairwise_l2, kmeans_assign, ops) -> dict:
         print(f"[chip_smoke] pairwise_sqdist at ({m},{d})x({k},{d}): max abs "
               f"err {pe:.3g}", flush=True)
     return errs
+
+
+def phase_flush_buckets(pairwise_l2, kmeans_assign, ops) -> float:
+    """``kmeans_assign`` at the route server's flush buckets, (n, 64) x
+    (8, 64) for n = 1, 2, 4 ... 64: labels equal on every row, sums
+    within the phase's tolerance, two launches each of the variant its
+    plan names."""
+    worst = 0.0
+    for i, n in enumerate(FLUSH_BUCKETS):
+        a, b = draw(160 + i, (n, MAIN_D), (MAIN_K, MAIN_D))
+        pts = b[torch.arange(n, device="cuda") % MAIN_K] + 0.5 * a
+        ops.reset_launch_counts()
+        err, excluded = compare_assign(kmeans_assign, pairwise_l2, pts, b)
+        check(excluded == 0, f"flush bucket {n}: {excluded} near-tie rows; "
+              "the labels are not compared on every row")
+        variant = kmeans_assign.assign_plan(n, MAIN_K, MAIN_D).variant
+        check(ops.variant_counts()["kmeans_assign"] ==
+              {**dict.fromkeys(("small", "stream"), 0), variant: 2},
+              f"flush bucket {n} launched "
+              f"{ops.variant_counts()['kmeans_assign']}, not 2 x {variant}")
+        worst = max(worst, err)
+    print(f"[chip_smoke] kmeans_assign at the flush buckets "
+          f"{FLUSH_BUCKETS} x ({MAIN_K},{MAIN_D}): labels equal on every "
+          f"row, sums max abs err {worst:.3g}", flush=True)
+    return worst
 
 
 def prox_rows(seed: int, b: int, e: int, d: int):
@@ -890,16 +990,114 @@ def phase_serve_card_vs_cpu() -> None:
 
 # ------------------------------------------------------------ phase 4c
 
-def phase_serve(ops, card: str, profile: bool) -> tuple:
+def teacher_forced(model, cfg, tokens: torch.Tensor) -> tuple:
+    """(b, P + G) tokens -> the logits at the G positions P - 1 .. P + G - 2
+    twice, fp32: as the serve path computes them (the prompt's prefill,
+    then G - 1 decode steps fed the generated tokens) and from one
+    prefill over all of them but the last."""
+    from repro_torch.models import decode_step
+    from repro_torch.models.transformer import prefill_with_cache
+
+    n_gen = tokens.shape[1] - SERVE_PROMPT
+    logits, cache = prefill_with_cache(
+        model, cfg, {"tokens": tokens[:, :SERVE_PROMPT]},
+        capacity=SERVE_PROMPT + n_gen)
+    rows = [logits[:, -1].float()]
+    del logits
+    for i in range(SERVE_PROMPT, SERVE_PROMPT + n_gen - 1):
+        lg, cache = decode_step(model, cfg, cache, tokens[:, i:i + 1])
+        rows.append(lg[:, -1].float())
+    del cache
+    full, _ = prefill_with_cache(model, cfg, {"tokens": tokens[:, :-1]})
+    at = full[:, SERVE_PROMPT - 1:].float()
+    del full
+    return torch.stack(rows, dim=1), at
+
+
+def negated_decode(model, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """The first decode step's (b, V) fp32 logits from a cache whose
+    layer-0 values were negated after the prompt's prefill: what a
+    corrupted cache gives."""
+    from repro_torch.models import decode_step
+    from repro_torch.models.transformer import prefill_with_cache
+
+    _, cache = prefill_with_cache(
+        model, cfg, {"tokens": tokens[:, :SERVE_PROMPT]},
+        capacity=tokens.shape[1])
+    cache.layers[0]["v"].neg_()
+    lg, _ = decode_step(model, cfg, cache,
+                        tokens[:, SERVE_PROMPT:SERVE_PROMPT + 1])
+    return lg[:, -1].float()
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """max |got - want| over the vocabulary, over max |want| there."""
+    return ((got - want).abs().amax(-1) / want.abs().amax(-1)).cpu()
+
+
+def phase_planted_serve(model, cfg, prompts: torch.Tensor) -> dict:
+    """A copy of the serve model with a planted previous-token head
+    (``models.planted``): the greedy tokens must be its known
+    continuation and not repeat their input throughout; one prefill over
+    them must show a top-2 margin above the bf16 tolerance at every
+    generated position, pick every generated token and agree with every
+    decode step within that tolerance; a decode from negated layer-0
+    values must pick another token in every row."""
+    import copy
+
+    from repro_torch.launch import serve
+    from repro_torch.models.planted import (
+        continuation, plant_previous_token_head)
+
+    planted = copy.deepcopy(model)
+    head = plant_previous_token_head(planted, cfg, seed=0)
+    tokens, _ = serve.generate(planted, cfg, prompts, SERVE_GEN,
+                               device="cuda")
+    got = tokens[:, SERVE_PROMPT:].cpu().numpy()
+    want = continuation(prompts.cpu().numpy(), SERVE_GEN, head)
+    check(np.array_equal(got, want), f"serve (planted): "
+          f"{int((got != want).sum())} of {got.size} greedy tokens are not "
+          "the planted head's continuation")
+    check(bool((got[:, 1:] != got[:, :-1]).any(axis=1).all()),
+          "serve (planted): a row only repeats its input token")
+    with torch.inference_mode():
+        dec, at = teacher_forced(planted, cfg, tokens)
+        worst = float(rel_err(dec, at).max())
+        check(worst <= SERVE_BF16_REL_TOL, f"serve (planted): decode and "
+              f"prefill differ by {worst} of the position's max |logit|")
+        scale = float(at.abs().max())
+        margin = top2_margin(at)
+        check(bool((margin > SERVE_BF16_REL_TOL * scale).all()),
+              f"serve (planted): the top-2 margin {float(margin.min())} "
+              f"falls within the tolerance {SERVE_BF16_REL_TOL * scale} at "
+              "some generated position")
+        check(torch.equal(torch.argmax(at, dim=-1),
+                          tokens[:, SERVE_PROMPT:]),
+              "serve (planted): decode and prefill pick different tokens")
+        del dec, at
+        neg = torch.argmax(negated_decode(planted, cfg, tokens), dim=-1)
+        check(bool((neg != tokens[:, SERVE_PROMPT + 1]).all()),
+              "serve (planted): a decode from negated layer-0 values still "
+              "picks the continuation's token")
+    del planted
+    return {"tokens_equal_continuation": True,
+            "tokens_compared": int(got.size),
+            "rope_pairs": head.pairs, "score_gap": head.score_gap,
+            "decode_vs_prefill_rel_err": worst,
+            "min_top2_margin_rel": float(margin.min()) / scale,
+            "negated_cache_tokens_differ": True}
+
+
+def phase_serve(ops, card: str) -> tuple:
     """The LM serving path at full size through ``serve.generate``:
     qwen2-0.5b, 24 layers, bf16, batch 4, prompt 8192, 64 greedy tokens,
-    seed 0; then a warm repeat, and decode against prefill at the first
-    generated position.  Returns (launches of the first run, its line)."""
+    seed 0; then a warm repeat, every decode step against one prefill
+    over the generated tokens, and the planted weights' run.  Returns
+    (launches of the first run, its line, a closure that reruns it)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch import serve
-    from repro_torch.models import decode_step, init_params
-    from repro_torch.models.transformer import prefill_with_cache
+    from repro_torch.models import init_params
 
     cfg = get_config(SERVE_ARCH)
     model = init_params(cfg, seed=0, device="cuda")
@@ -928,30 +1126,30 @@ def phase_serve(ops, card: str, profile: bool) -> tuple:
     again, warm = serve.generate(model, cfg, prompts, SERVE_GEN,
                                  device="cuda")
     with torch.inference_mode():
-        logits, cache = prefill_with_cache(model, cfg, {"tokens": prompts},
-                                           capacity=SERVE_PROMPT + 1)
-        check(bool(torch.isfinite(logits).all()),
-              "serve: prefill logits are not finite")
-        first_tok = torch.argmax(logits[:, -1:], dim=-1)
-        del logits
-        dec, _ = decode_step(model, cfg, cache, first_tok)
-        full, _ = prefill_with_cache(
-            model, cfg, {"tokens": torch.cat([prompts, first_tok], dim=1)})
-        last = full[:, -1:]
-        del full, cache
+        dec, at = teacher_forced(model, cfg, tokens)
         check(bool(torch.isfinite(dec).all()) and
-              bool(torch.isfinite(last).all()),
+              bool(torch.isfinite(at).all()),
               "serve: decode or prefill logits are not finite")
-        scale = float(last.float().abs().max())
-        err = float((dec.float() - last.float()).abs().max())
-        check(err <= SERVE_BF16_REL_TOL * scale,
-              f"serve: decode and prefill differ by {err} at the first "
-              f"generated position (max |logit| {scale}, tolerance "
-              f"{SERVE_BF16_REL_TOL} of it)")
-        clear = top2_margin(last) > SERVE_BF16_REL_TOL * scale
-        agree = torch.argmax(dec, -1)[clear] == torch.argmax(last, -1)[clear]
-        check(bool(agree.all()), "serve: decode and prefill pick different "
-              "tokens where the top-2 margin exceeds the tolerance")
+        check(torch.equal(tokens[:, SERVE_PROMPT],
+                          torch.argmax(dec[:, 0], dim=-1)),
+              "serve: the first generated token is not the prefill's argmax")
+        at1 = at[:, 1].clone()
+        rel = rel_err(dec, at)
+        worst = float(rel.max())
+        check(worst <= SERVE_BF16_REL_TOL,
+              f"serve: decode and prefill differ by {worst} of the "
+              f"position's max |logit| at generated position "
+              f"{int(rel.amax(0).argmax())} (tolerance "
+              f"{SERVE_BF16_REL_TOL})")
+        del dec, at
+        # the same comparison must fail for a cache whose layer-0 values
+        # are negated: it sees the cache
+        negated = float(rel_err(negated_decode(model, cfg, tokens),
+                                at1).max())
+        check(negated > SERVE_BF16_REL_TOL,
+              f"serve: a decode from negated layer-0 values is within "
+              f"{negated} of the prefill, inside the tolerance")
+    planted_line = phase_planted_serve(model, cfg, prompts)
     steps = np.asarray(warm["decode_ms"])
     line = {
         "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
@@ -967,22 +1165,294 @@ def phase_serve(ops, card: str, profile: bool) -> tuple:
             first["tok_per_s"],
         "max_memory_allocated_bytes": peak,
         "tokens_repeat_equal": bool(torch.equal(tokens, again)),
-        "first_token_equal_prefill": bool(torch.equal(
-            tokens[:, SERVE_PROMPT:SERVE_PROMPT + 1], first_tok)),
-        "decode_vs_prefill_rel_err": err / scale,
-        "decode_vs_prefill_tokens_compared": int(clear.sum()),
+        "decode_vs_prefill_rel_err": worst,
+        "decode_vs_prefill_positions_compared": SERVE_GEN,
+        "decode_vs_prefill_rel_err_layer0_v_negated": negated,
+        "planted": planted_line,
         "launches": launches, "flash_launches_by_kernel": by_kernel,
         "device": torch.cuda.get_device_name(0), "card": card}
     print(json.dumps({"serve_path": line}), flush=True)
-    if profile:
-        # the prefill alone (one token), then the prefill and 15 decode
-        # steps: the difference is the decode steps' share
-        for n in (1, 16):
+    return launches, line, (lambda **kw: serve.generate(
+        model, cfg, prompts, device="cuda", **kw))
+
+
+# ------------------------------------------------------------ phase 4d
+
+def check_rows(name: str, rows: list) -> None:
+    for row in rows:
+        what = (f"{name}: {'batched' if row['batched'] else 'direct'} at "
+                f"{row['callers']} callers")
+        check(row["n_errors"] == 0 and row["timeouts"] == 0,
+              f"{what}: {row['n_errors']} errors, {row['timeouts']} timeouts")
+        check(row["flush_errors"] == 0, f"{what}: {row['flush_errors']} "
+              "serving.flush_errors")
+        check(row["n_requests"] > 0, f"{what}: no request was answered")
+
+
+def phase_serving(ops, card: str, clients: int) -> tuple:
+    """The route server over a sketch-only session of ``clients`` rows
+    (sketch 64, k = 8, built by the port's ``loadgen.build_session``):
+    closed loops at each caller count, per request and batched; one
+    batched row under ingest (keyed waves of 256 every 0.2 s) with one
+    background warm refinalize; then the server's labels for 4096 probes
+    against one batch route, and the served round against a serialized
+    replay (labels identical, centers bit-identical).  Returns (launches,
+    the rows' flushes by the bucket they launched at, the per-request
+    routes of the direct rows, the printed line)."""
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.server import RouteServer
+
+    callers = SERVING_CALLERS
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    session, rows = loadgen.build_session(clients=clients, clusters=MAIN_K,
+                                          sketch_dim=MAIN_D, seed=0,
+                                          device="cuda")
+    build_s = time.perf_counter() - t0
+    config = {"clients": clients, "clusters": MAIN_K, "sketch_dim": MAIN_D}
+    kw = dict(duration_s=SERVING_SECONDS, max_batch=FLUSH_BUCKETS[-1],
+              max_wait_ms=0.5, queue_depth=1024, config=config)
+    bench, criterion = [], {}
+    for m in callers:
+        direct = loadgen.run_row(session, rows, mode="closed", batched=False,
+                                 callers=m, **kw)
+        batched = loadgen.run_row(session, rows, mode="closed", batched=True,
+                                  callers=m, **kw)
+        bench += [direct, batched]
+        criterion[f"callers={m}"] = {
+            "batched_qps": batched["qps"], "direct_qps": direct["qps"],
+            "speedup": batched["qps"] / max(direct["qps"], 1e-9),
+            "pass": batched["qps"] > direct["qps"]}
+    log: list = []
+    under = loadgen.run_row(session, rows, mode="closed", batched=True,
+                            callers=max(callers), ingest=True,
+                            ingest_log=log, **kw)
+    bench.append(under)
+    check_rows(f"serving C={clients}", bench)
+    check(under["ingest_waves"] > 0 and under["refinalize_under_load_ms"]
+          is not None, f"serving C={clients}: the ingest row ran "
+          f"{under['ingest_waves']} waves and no refinalize")
+    served = session.served_round
+    check(served.out[2]["refinalize"] == "warm",
+          f"serving C={clients}: the background refinalize ran "
+          f"{served.out[2]['refinalize']}, not warm")
+    # the server's labels for 4096 probes against one batch route
+    probes = rows[:SERVING_PROBES]
+    srv = RouteServer(session, max_batch=FLUSH_BUCKETS[-1], max_wait_ms=0.5,
+                      queue_depth=2 * SERVING_PROBES).start()
+    futures = [srv.submit(p, timeout=60.0) for p in probes]
+    got = np.asarray([f.result(60.0) for f in futures])
+    srv.stop(timeout=60.0)
+    want = np.asarray(session.route(probes))
+    check(np.array_equal(got, want), f"serving C={clients}: the server's "
+          f"labels differ from one batch route on "
+          f"{int((got != want).sum())} of {len(probes)} probes")
+    launches = read_counts(ops)
+    # one kmeans_assign launch per flush, at its bucket (the server's own
+    # serving.flush_size observations), and one at m = 1 per request of
+    # a direct row (route_direct)
+    flushes: dict = {}
+    for r in bench:
+        for b, n in r["flushes_by_bucket"].items():
+            flushes[int(b)] = flushes.get(int(b), 0) + n
+    direct_routes = sum(r["n_requests"] for r in bench if not r["batched"])
+    # the serialized replay: the same keyed waves in clock order, the
+    # same cold finalize, and a warm refinalize right after the clock of
+    # the background round's snapshot
+    replay, _ = loadgen.build_session(clients=clients, clusters=MAIN_K,
+                                      sketch_dim=MAIN_D, seed=0,
+                                      device="cuda")
+    for clock, ids, chunk in sorted(log, key=lambda w: w[0]):
+        if clock > served.clock:
+            break
+        replay.ingest(sketches=chunk, client_ids=ids)
+        check(replay.clock == clock, f"serving C={clients}: replay clock "
+              f"{replay.clock} != {clock}")
+    replay.refinalize()
+    rep = replay.served_round
+    check(rep.clock == served.clock and rep.n_clusters == served.n_clusters
+          and np.array_equal(rep.out[1], served.out[1])
+          and np.array_equal(rep.first_idx, served.first_idx)
+          and torch.equal(rep.centers, served.centers)
+          and rep.finalized_d2 == served.finalized_d2,
+          f"serving C={clients}: the round refinalized in the background "
+          "differs from the serialized replay")
+    for kernel in ("kmeans_assign", "pairwise_sqdist"):
+        check(launches[kernel] > 0, f"serving C={clients}: launched no "
+              f"{kernel} kernel")
+    b16 = [r for r in bench if r["batched"] and r["callers"] == max(callers)
+           and not r["ingest_waves"]][0]
+    line = {
+        "clients": clients, "clusters": MAIN_K, "sketch_dim": MAIN_D,
+        "seconds": SERVING_SECONDS, "build_session_s": build_s,
+        "criterion": criterion,
+        "qps": {f"{'batched' if r['batched'] else 'direct'} "
+                f"{r['callers']}{' ingest' if r['ingest_waves'] else ''}":
+                r["qps"] for r in bench},
+        "route_p50_ms": {f"{'batched' if r['batched'] else 'direct'} "
+                         f"{r['callers']}": r["route_p50_ms"]
+                         for r in bench if not r["ingest_waves"]},
+        "route_p99_ms": {f"{'batched' if r['batched'] else 'direct'} "
+                         f"{r['callers']}": r["route_p99_ms"]
+                         for r in bench if not r["ingest_waves"]},
+        "route_p99_ms_batched_no_refinalize": b16["route_p99_ms"],
+        "route_p50_ms_during_refinalize":
+            under.get("route_p50_ms_during_refinalize"),
+        "route_p99_ms_during_refinalize":
+            under.get("route_p99_ms_during_refinalize"),
+        "route_p99_ms_outside_refinalize_ingest_row":
+            under.get("route_p99_ms_outside_refinalize"),
+        "n_requests_during_refinalize":
+            under.get("n_requests_during_refinalize"),
+        "refinalize_window_ms": under.get("refinalize_window_ms"),
+        "refinalize_under_load_ms": under["refinalize_under_load_ms"],
+        "refinalize_n_iter": served.out[2]["meta"]["n_iter"],
+        "staleness_at_serve_p95": under["staleness_at_serve_p95"],
+        "flush_size_p50": {r["callers"]: r["flush_size_p50"]
+                           for r in bench if r["batched"]
+                           and not r["ingest_waves"]},
+        "flush_size_p95": {r["callers"]: r["flush_size_p95"]
+                           for r in bench if r["batched"]
+                           and not r["ingest_waves"]},
+        "ingest_waves": under["ingest_waves"],
+        "replay_equal": True, "labels_equal_batch_route": True,
+        "launches": launches, "flushes_by_bucket": flushes,
+        "direct_routes": direct_routes,
+        "rows": bench, "device": torch.cuda.get_device_name(0),
+        "card": card}
+    print(json.dumps({"serving_path": line}), flush=True)
+    return launches, flushes, direct_routes, line
+
+
+def phase_traces(simulate, generate) -> None:
+    """``--profile``, after phase 5 (a trace of CPU and CUDA activity
+    taken earlier left phase 5's own profiler sessions counting about
+    half of a kernel's launches): a second run of the main path, one
+    finalize of the complete fusion graph (8 386 560 edges), two serve
+    calls (the prompt pass alone, then it and 15 decode steps: the
+    difference is the decode steps' share), and one second of phase 4d's
+    16-caller closed loop, batched and then per request, over a fresh
+    session of each phase-4d size."""
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.server import RouteServer
+
+    print(json.dumps({"profile": phase_profile(
+        simulate, clients=MAIN_M, clusters=8, dim=16, samples=64,
+        sketch_dim=64, wave=65_536, algorithm="kmeans-device",
+        init="kmeans++", route_probes=256, finalize_repeats=3,
+        device="cuda")}), flush=True)
+    print(json.dumps({"profile": phase_profile(
+        simulate, clients=4096, clusters=8, dim=16, samples=64,
+        sketch_dim=32, algorithm="convex-device", edges="complete",
+        cc_iters=200, device="cuda")}), flush=True)
+    for n in (1, 16):
+        print(json.dumps({"profile": phase_profile(generate, gen=n)}),
+              flush=True)
+    for clients in SERVING_CLIENTS:
+        session, rows = loadgen.build_session(
+            clients=clients, clusters=MAIN_K, sketch_dim=MAIN_D, seed=0,
+            device="cuda")
+        loadgen.warm_route_buckets(session, rows[0], FLUSH_BUCKETS[-1])
+        srv = RouteServer(session, max_batch=FLUSH_BUCKETS[-1],
+                          max_wait_ms=0.5, queue_depth=1024).start()
+        for batched in (True, False):
             print(json.dumps({"profile": phase_profile(
-                lambda **kw: serve.generate(model, cfg, prompts,
-                                            device="cuda", **kw), gen=n)}),
-                  flush=True)
-    return launches, line
+                lambda clients, **kw: loadgen.closed_loop(srv, rows, **kw),
+                clients=clients, callers=max(SERVING_CALLERS),
+                duration_s=1.0, batched=batched)}), flush=True)
+        srv.stop(timeout=60.0)
+
+
+def phase_mutation(simulate, ops, card: str) -> dict:
+    """``simulate`` with the mutation knobs: keyed re-uploads of a quarter
+    of the clients and 64 joiners a round for three rounds against
+    shifted optima, sliding window 3, then the drift-triggered warm
+    re-finalize and its repeats.  Purity 1.0 and the refinalize must
+    fire."""
+    ops.reset_launch_counts()
+    summary = simulate(clients=MAIN_M, clusters=8, dim=16, samples=64,
+                       sketch_dim=MAIN_D, wave=65_536,
+                       algorithm="kmeans-device", init="kmeans++",
+                       finalize_repeats=MUTATION_FINALIZES, device="cuda",
+                       **MUTATION)
+    launches = read_counts(ops)
+    sv = summary["serving"]
+    check(summary["purity"] == 1.0,
+          f"mutation: purity {summary['purity']} != 1.0")
+    check(sv["refinalize_fired"] is True, "mutation: the drift-triggered "
+          f"refinalize did not fire (drift {sv['drift_after_mutation']})")
+    for kernel in ("kmeans_assign", "pairwise_sqdist"):
+        check(launches[kernel] > 0, f"mutation: launched no {kernel} kernel")
+    print(json.dumps({"mutation_path": {
+        "clients": MAIN_M, "wave": 65_536, **MUTATION,
+        "purity": summary["purity"], "live_clients": sv["live_clients"],
+        "evictions": sv["evictions"],
+        "drift_after_mutation": sv["drift_after_mutation"],
+        "refinalize_fired": sv["refinalize_fired"],
+        "refinalize_count": sv["refinalize_count"],
+        "refinalize_warm_p50_ms": sv["refinalize_warm_p50_ms"],
+        "refinalize_warm_p99_ms": sv["refinalize_warm_p99_ms"],
+        "refinalize_n_iter": sv["refinalize_n_iter"],
+        "finalize_first_ms": sv["finalize_first_ms"],
+        "finalize_cold_p50_ms": sv["finalize_p50_ms"],
+        "cold_n_iter": summary["meta"]["n_iter"],
+        "phases": summary["phases"], "launches": launches,
+        "device": summary["device_name"], "card": card}}), flush=True)
+    return launches
+
+
+def phase_convex_warm(ops, card: str) -> dict:
+    """A ``convex-device`` session on the kNN graph (k = 8) at the exact
+    lambda of (17), finalized cold and then refinalized warm from its AMA
+    dual: the same partition in fewer AMA iterations, both within a
+    budget of CONVEX_WARM_ITERS."""
+    from repro_torch.core.clustering.convex import lambda_interval
+    from repro_torch.core.engine.session import AggregationSession
+    from repro_torch.core.federated import cluster_agreement
+    from repro_torch.core.sketch import make_generator
+    from repro_torch.launch.simulate import staggered_optima, wave_ridge_erm
+
+    clients = CONVEX_WARM_C
+    gen = make_generator(0, torch.device("cuda"))
+    optima = staggered_optima(gen, 8, 16)
+    truth = torch.arange(clients, device="cuda") % 8
+    ops.reset_launch_counts()
+    sess = AggregationSession(clients, sketch_dim=32, device="cuda")
+    for lo in range(0, clients, 4096):
+        sess.ingest({"theta": wave_ridge_erm(gen, optima, truth[lo:lo + 4096],
+                                             n=64)})
+    lo, hi = lambda_interval(sess.state().params["theta"], truth.cpu().numpy())
+    options = {"lam": 0.5 * (lo + hi) if lo < hi else lo,
+               "iters": CONVEX_WARM_ITERS, "edges": "knn", "knn_k": 8}
+    t0 = time.perf_counter()
+    _, cold, info0 = sess.finalize(algorithm="convex-device",
+                                   algo_options=options)
+    t1 = time.perf_counter()
+    _, warm, info1 = sess.refinalize()
+    t2 = time.perf_counter()
+    launches = read_counts(ops)
+    n0, n1 = info0["meta"]["n_iter"], info1["meta"]["n_iter"]
+    purity = cluster_agreement(warm, truth.cpu().numpy())
+    check(info1["refinalize"] == "warm", "convex warm: the refinalize ran "
+          f"{info1['refinalize']}")
+    check(np.array_equal(cold, warm), "convex warm: the warm partition "
+          "differs from the cold one")
+    check(n1 < n0, f"convex warm: {n1} AMA iterations warm, not fewer than "
+          f"{n0} cold")
+    check(purity == 1.0, f"convex warm: purity {purity}")
+    for kernel in ("group_ball_proj_batched", "pairwise_sqdist"):
+        check(launches[kernel] > 0, f"convex warm: launched no {kernel}")
+    print(json.dumps({"convex_warm_path": {
+        "clients": clients, "edges": "knn", "knn_k": 8,
+        "lam": options["lam"], "n_clusters": info1["n_clusters"],
+        "purity": purity, "iters": CONVEX_WARM_ITERS, "n_iter_cold": n0,
+        "n_iter_warm": n1,
+        "finalize_cold_ms": (t1 - t0) * 1e3,
+        "refinalize_warm_ms": (t2 - t1) * 1e3, "launches": launches,
+        "device": torch.cuda.get_device_name(0), "card": card}}),
+        flush=True)
+    return launches
 
 
 def ptxas_instances(usage: dict) -> dict:
@@ -1135,7 +1605,14 @@ def bound(nbytes: float, nops: float) -> tuple:
 ASSIGN_SHAPES = [("lloyd", MAIN_M, MAIN_K, MAIN_D),
                  ("batch route", ROUTE_M, MAIN_K, MAIN_D),
                  ("single route", 1, MAIN_K, MAIN_D),
-                 ("single route", 1, 8, 32)]
+                 ("single route", 1, 8, 32),
+                 # the route server's flushes (phase 4d): the buckets
+                 # 4 and 16 take most of them at 4 and 16 callers
+                 ("flush 1", 1, MAIN_K, MAIN_D),
+                 ("flush 4", 4, MAIN_K, MAIN_D),
+                 ("flush 8", 8, MAIN_K, MAIN_D),
+                 ("flush 16", 16, MAIN_K, MAIN_D),
+                 ("flush 64", 64, MAIN_K, MAIN_D)]
 PAIRWISE_SHAPES = [("kmeans++", MAIN_M, MAIN_K, MAIN_D),
                    ("knn tile", 1024, 16_384, 32)]
 
@@ -1162,11 +1639,16 @@ def ptxas_named(usage: dict) -> dict:
     return named
 
 
-def kernel_rows(pairwise_l2, kmeans_assign, launches, errs) -> list:
+def kernel_rows(pairwise_l2, kmeans_assign, launches, errs,
+                flushes: dict, direct_routes: int) -> list:
     """Phase 5 rows of the two slice-1 kernels, one entry a shape: device
     ms and call ms of the kernel, the plain version and the library call,
     the bound, and the variant the wrapper picked; each kernel
-    instance's ptxas registers and spill bytes."""
+    instance's ptxas registers and spill bytes.  A flush bucket's entry
+    also carries the serving paths' flushes that launched at it
+    (``flushes``, from the route server's ``serving.flush_size``); bucket
+    1 also gives the direct rows' per-request routes, one launch at m = 1
+    each, which are not flushes."""
     from repro_torch.kernels import _build
 
     rows = []
@@ -1174,7 +1656,9 @@ def kernel_rows(pairwise_l2, kmeans_assign, launches, errs) -> list:
     for i, (cls, m, k, d) in enumerate(PAIRWISE_SHAPES):
         a, b = draw(7 + i, (m, d), (k, d))
         variant = pairwise_l2.pairwise_plan(m, k, d)[0]
-        kern = device_time(lambda: pairwise_l2.pairwise_sqdist(a, b))
+        kern = device_time(lambda: pairwise_l2.pairwise_sqdist(a, b),
+                           kernel=("pairwise_stream_kernel"
+                                   if variant == "stream" else None))
         if variant == "stream":
             one_kernel(kern, "pairwise_stream_kernel", f"pairwise_sqdist {cls}")
         b_ms, b_by = bound(4.0 * (m * d + k * d + m * k),
@@ -1185,6 +1669,7 @@ def kernel_rows(pairwise_l2, kmeans_assign, launches, errs) -> list:
             "class": cls, "shape": f"({m},{d})x({k},{d})", "variant": variant,
             "ms": kern["ms"], "call_ms": kern["call_ms"],
             "device_ops_per_call": kern["device_ops_per_call"],
+            "traces": kern["traces"],
             "plain_ms": plain["ms"], "library_ms": lib["ms"],
             "library_call_ms": lib["call_ms"], "bound_ms": b_ms,
             "bound_by": b_by})
@@ -1193,7 +1678,8 @@ def kernel_rows(pairwise_l2, kmeans_assign, launches, errs) -> list:
         a, b = draw(17 + i, (m, d), (k, d))
         pts = b[torch.arange(m, device="cuda") % k] + 0.5 * a
         variant = kmeans_assign.assign_plan(m, k, d).variant
-        kern = device_time(lambda: kmeans_assign.kmeans_assign(pts, b))
+        kern = device_time(lambda: kmeans_assign.kmeans_assign(pts, b),
+                           kernel=f"assign_{variant}_kernel")
         one_kernel(kern, f"assign_{variant}_kernel", f"kmeans_assign {cls}")
         b_ms, b_by = bound(4.0 * (m * d + k * d) + 4.0 * m + 4.0 * (k * d + k),
                            2.0 * m * k * d + 2.0 * m * d + 3.0 * m * k + m * d)
@@ -1202,8 +1688,13 @@ def kernel_rows(pairwise_l2, kmeans_assign, launches, errs) -> list:
             "class": cls, "shape": f"({m},{d})x({k},{d})", "variant": variant,
             "ms": kern["ms"], "call_ms": kern["call_ms"],
             "device_ops_per_call": kern["device_ops_per_call"],
+            "traces": kern["traces"],
             "plain_ms": plain["ms"], "library_ms": None, "bound_ms": b_ms,
-            "bound_by": b_by})
+            "bound_by": b_by,
+            **({"launches": flushes.get(m, 0)}
+               if cls.startswith("flush") else {}),
+            **({"direct_route_launches": direct_routes}
+               if cls == "flush 1" else {})})
         del a, b, pts
     for name, src, replaces, library in (
             ("pairwise_sqdist", "src/repro_torch/kernels/csrc/pairwise_l2.cu",
@@ -1249,6 +1740,7 @@ def main() -> None:
           f"({json.dumps(built)})", flush=True)
 
     errs = phase_kernels(pairwise_l2, kmeans_assign, ops)
+    phase_flush_buckets(pairwise_l2, kmeans_assign, ops)
     errs.update(phase_prox_kernels(group_prox, pairwise_l2, ops))
     errs.update(phase_flash_kernel(flash))
     phase_small_round()
@@ -1267,23 +1759,26 @@ def main() -> None:
           flush=True)
     by_path = {"kmeans-device": launches}
 
-    if args.profile:
-        print(json.dumps({"profile": phase_profile(
-            simulate, clients=MAIN_M, clusters=8, dim=16, samples=64,
-            sketch_dim=64, wave=65_536, algorithm="kmeans-device",
-            init="kmeans++", route_probes=256, finalize_repeats=3,
-            device="cuda")}), flush=True)
-        # one finalize of the complete fusion graph (8 386 560 edges)
-        print(json.dumps({"profile": phase_profile(
-            simulate, clients=4096, clusters=8, dim=16, samples=64,
-            sketch_dim=32, algorithm="convex-device", edges="complete",
-            cc_iters=200, device="cuda")}), flush=True)
     by_path.update(phase_convex_paths(simulate, ops, card))
     by_path["host convex_clustering"] = phase_host_convex(ops, card)
-    by_path[f"serve {SERVE_ARCH}"], _ = phase_serve(ops, card, args.profile)
+    by_path[f"serve {SERVE_ARCH}"], _, generate = phase_serve(ops, card)
+    if not args.profile:
+        del generate                  # the model's memory goes with it
+    flushes: dict = {}
+    direct_routes = 0
+    for clients in SERVING_CLIENTS:
+        launches, by_bucket, direct, _ = phase_serving(ops, card, clients)
+        by_path[f"serving C={clients}"] = launches
+        direct_routes += direct
+        for b, n in by_bucket.items():
+            flushes[b] = flushes.get(b, 0) + n
+    by_path[f"mutation C={MAIN_M}"] = phase_mutation(simulate, ops, card)
+    by_path[f"convex-device knn warm C={CONVEX_WARM_C}"] = phase_convex_warm(
+        ops, card)
     total = {name: sum(p[name] for p in by_path.values())
              for name in ops.WRAPPERS}
-    rows = (kernel_rows(pairwise_l2, kmeans_assign, total, errs)
+    rows = (kernel_rows(pairwise_l2, kmeans_assign, total, errs,
+                        flushes, direct_routes)
             + prox_kernel_rows(group_prox, total, errs)
             + [flash_kernel_row(flash, total, errs, card)])
     for row in rows:
@@ -1299,6 +1794,8 @@ def main() -> None:
                 p: {v: n[f"{name}.{v}"] for v in variants}
                 for p, n in by_path.items()}
     print(json.dumps({"kernels": rows}), flush=True)
+    if args.profile:
+        phase_traces(simulate, generate)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -126,7 +126,11 @@ class DeviceLloydFamily:
     def device_warm_call(self, generator, points, warm, *,
                          k: Optional[int] = None,
                          **options: Any) -> DeviceClusteringResult:
+        # the warm state supersedes any init_centers of the finalize
+        # being replayed (a warm-started first finalize, as the parity
+        # tests run it)
         options = {**options, "init": "warm", "restarts": 1}
+        options.pop("init_centers", None)
         return self.device_call(generator, points, k=k, init_centers=warm,
                                 **options)
 

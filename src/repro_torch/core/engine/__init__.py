@@ -1,2 +1,3 @@
-"""The device aggregation engine: Lloyd loop, aggregators, the one-shot
-round (``aggregate``) and the streaming ``session``."""
+"""The device aggregation engine: Lloyd loop, aggregators, staleness
+policies, the one-shot round (``aggregate``) and the streaming, mutable
+``session``."""

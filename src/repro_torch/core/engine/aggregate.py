@@ -10,7 +10,7 @@ gets the compacted labels and the scalar meta.  The session's finalize
 runs the same stages as two programs (cluster, then mean) and its
 ``route`` runs the route program.  A ``_Program`` is a plain callable
 that times each call under the reference's span name
-(``<label>.execute``) and synchronizes the device once at its end;
+(``<label>.execute``) and synchronizes its stream once at its end;
 PyTorch runs eagerly, so there is nothing to compile.
 """
 from __future__ import annotations
@@ -55,9 +55,12 @@ def _cluster_and_average(algo, options, k, generator, sketches, params,
 
 class _Program:
     """A named stage of the round: each call runs under the
-    ``"<label>.execute"`` span and ends with one device synchronize when
-    its outputs are still on a CUDA device (a stage that already copied
-    its outputs to the host has synchronized by then)."""
+    ``"<label>.execute"`` span and ends by synchronizing the calling
+    thread's current stream when its outputs are still on a CUDA device
+    (a stage that already copied its outputs to the host has
+    synchronized by then).  The wait is local to that stream, so a round
+    computed on a worker's stream and routes on another thread's stream
+    do not wait for each other."""
 
     def __init__(self, label: str, fn):
         self.label = label
@@ -69,7 +72,7 @@ class _Program:
             cuda = [t for t in tree_leaves(out)
                     if isinstance(t, torch.Tensor) and t.is_cuda]
             if cuda:
-                torch.cuda.synchronize(cuda[0].device)
+                torch.cuda.current_stream(cuda[0].device).synchronize()
         return out
 
 
@@ -90,6 +93,55 @@ def _mean_program(aggregator="mean"):
         return _average_clusters(labels, centers, params, aggregator)
 
     return _Program("session.finalize.mean", mean_fn)
+
+
+def _warm_cluster_program(algo, k, options):
+    """Step 2 warm-started: the session's incremental re-finalize runs the
+    family's ``device_warm_call`` from the previous round's state (the
+    centers for Lloyd, the AMA dual for the convex family)."""
+    options = dict(options or {})
+
+    def cluster_fn(generator, sketches, warm):
+        return algo.device_warm_call(generator, sketches, warm, k=k,
+                                     **options)
+
+    return _Program("session.refinalize.cluster", cluster_fn)
+
+
+def _weighted_mean_program():
+    """Steps 3-4 with per-client weights, the exp-decay staleness
+    policy's averaging phase: the per-cluster mean
+    ``sum_i w_i x_i / sum_i w_i`` (its denominator floored at 1e-12),
+    gathered back per client.  Only the mean has a weighted form; the
+    session refuses weighting for any other aggregator."""
+
+    def mean_fn(labels, centers, params, weights):
+        kk = centers.shape[0]
+        onehot = torch.nn.functional.one_hot(labels.long(), kk).to(
+            torch.float32)                                      # (C, K)
+        weighted = onehot * weights.to(torch.float32)[:, None]  # (C, K)
+        denom = torch.clamp_min(torch.sum(weighted, dim=0), 1e-12)[:, None]
+
+        def back(leaf):
+            flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+            means = (weighted.T @ flat) / denom                 # (K, n)
+            return (onehot @ means).reshape(leaf.shape).to(leaf.dtype)
+
+        return tree_map(back, params)
+
+    return _Program("session.finalize.mean", mean_fn)
+
+
+def _gather_rows_program():
+    """Live-row gather: compact a holey fixed-capacity buffer (the
+    sketches and the stacked parameter tree) down to the surviving rows.
+    A session whose live rows are a contiguous prefix takes a slice
+    instead."""
+
+    def gather_fn(buf, rows):
+        return tree_map(lambda l: l.index_select(0, rows), buf)
+
+    return _Program("session.gather", gather_fn)
 
 
 def _route_program():

@@ -1,5 +1,5 @@
-"""AggregationSession: the server side of Algorithm 1 as a long-lived
-service (the port of ``repro/core/engine/session.py``).
+"""AggregationSession: the server side of Algorithm 1 as a long-lived,
+mutable service (the port of ``repro/core/engine/session.py``).
 
   * ``ingest(wave)`` / ``ingest(sketches=...)``: step-1 uploads, wave by
     wave.  Parameter waves are sketched on the device and written into a
@@ -7,18 +7,29 @@ service (the port of ``repro/core/engine/session.py``).
     a stacked buffer beside it.  Buffers are updated in place (the
     reference rebinds functional arrays; here an in-place row write saves
     a capacity-sized copy per wave).  With ``client_ids=`` the wave is
-    keyed: a returning client's row is replaced in place.
+    keyed: a host-side slot table maps client ids to buffer rows, a
+    returning client's row is replaced in place, and ``count`` means live
+    clients, not uploads.
+  * staleness: a logical clock advances by one per wave and stamps every
+    written row; a policy (``engine/staleness.py``: ``none`` | ``max_age``
+    | ``exp_decay``) evicts aged rows onto a free list, which new clients
+    take before the written rows grow, or fades their weight in the
+    per-cluster mean.
   * ``finalize()``: steps 2-4 over the live rows as two programs, the
     clustering (``session.finalize.cluster``) and the per-cluster mean
     (``session.finalize.mean``); ``snapshot`` / ``compute_round`` /
-    ``install_round`` split it for callers that ingest meanwhile.
+    ``install_round`` split it for callers that ingest meanwhile
+    (``serving.RouteServer``).  ``refinalize`` / ``maybe_refinalize``
+    replay the last finalize warm-started: Lloyd from the previous
+    centers, the convex family from its previous AMA dual (a cold start
+    when the client count changed).
   * ``route()``: nearest recovered cluster for a batch of never-seen
     clients, one program and ONE host transfer per batch, which also
-    feeds the ``drift`` gauge.
+    feeds the ``drift`` gauge that ``maybe_refinalize`` triggers on.
 
-Staleness is ``none``: rows live until they are replaced.  Eviction
-(and the free list it fills), the other staleness policies,
-``refinalize`` and the host engine come later.
+Every wait is local to the calling thread's current stream, so a round
+computed on a worker's stream does not stall routes and ingests on
+other threads.  ``engine="host"`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -37,11 +48,16 @@ from repro_torch.core.clustering.api import (
 )
 from repro_torch.core.engine.aggregate import (
     _cluster_program,
+    _gather_rows_program,
     _mean_program,
     _route_program,
+    _warm_cluster_program,
+    _weighted_mean_program,
     compact_labels,
     materialize_round,
 )
+from repro_torch.core.engine.aggregators import get_aggregator
+from repro_torch.core.engine.staleness import make_staleness_policy
 from repro_torch.core.federated import FederatedState
 from repro_torch.core.sketch import (
     jl_projection,
@@ -55,11 +71,14 @@ from repro_torch.utils import tree_leaves, tree_map
 
 class SessionSnapshot(NamedTuple):
     """The live rows at one logical clock tick, copied out of the
-    session's buffers (which later waves overwrite in place)."""
-    sketches: torch.Tensor         # (count, sketch_dim)
+    session's buffers (which later waves overwrite in place).  A round
+    computed from it equals a sequential replay that finalizes right
+    after the ``clock``-th wave."""
+    sketches: torch.Tensor         # (count, sketch_dim), live rows only
     params: Optional[dict]         # stacked live-params tree or None
-    count: int
-    clock: int
+    weights: Optional[np.ndarray]  # staleness weights (live-row order) or None
+    count: int                     # live clients at snapshot time
+    clock: int                     # session clock at snapshot time
 
 
 class ServedRound(NamedTuple):
@@ -70,8 +89,8 @@ class ServedRound(NamedTuple):
     n_clusters: int
     finalized_d2: float            # mean row d^2 at finalize (drift anchor)
     finalized_scale: float         # mean row scale (degenerate fallback)
-    clock: int
-    count: int
+    clock: int                     # snapshot clock this round was built from
+    count: int                     # snapshot live-client count
 
 
 def _structure(tree):
@@ -83,14 +102,16 @@ def _structure(tree):
 
 
 class AggregationSession:
-    """Streaming server-side aggregation over a fixed capacity.
+    """Streaming, mutable server-side aggregation over a fixed capacity.
 
     Args:
-      capacity: maximum number of live clients.
+      capacity: maximum number of live clients (evicted rows are reused).
       sketch_dim: JL sketch width.
       seed / cluster_seed: seed the JL projection and the clustering's
         generator (a fresh generator per finalize, as the reference
         builds a fresh key).
+      staleness: a policy from ``engine/staleness.py`` or its spelling
+        (``"none"`` | ``"max_age=3"`` | ``"exp_decay=2.0"``).
       projection: an explicit (n, sketch_dim) projection in place of the
         one drawn from ``seed`` (how tests carry the reference's across).
       device: where the buffers live; CUDA unless ``"cpu"`` is asked for.
@@ -98,7 +119,7 @@ class AggregationSession:
 
     def __init__(self, capacity: int, *, sketch_dim: int = 256,
                  seed: int = 0, cluster_seed: Optional[int] = None,
-                 projection=None, device=None):
+                 staleness="none", projection=None, device=None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.device = resolve_device(device)
@@ -107,6 +128,7 @@ class AggregationSession:
         self.seed = int(seed)
         self.cluster_seed = self.seed if cluster_seed is None else int(
             cluster_seed)
+        self.staleness = make_staleness_policy(staleness)
         self._projection = (None if projection is None else
                             torch.as_tensor(projection).to(self.device,
                                                            torch.float32))
@@ -114,10 +136,27 @@ class AggregationSession:
                                      dtype=torch.float32, device=self.device)
         self._params = None            # stacked buffer, allocated lazily
         self._mode: Optional[str] = None    # 'params' | 'sketches'
+        # ---- slot table: host-side row bookkeeping -------------------
         self._slots: dict = {}         # client id -> buffer row
-        self._high = 0                 # rows written: live rows are [0, high)
+        self._row_ids: dict = {}       # buffer row -> client id (keyed only)
+        self._live = np.zeros(self.capacity, bool)
+        self._stamps = np.zeros(self.capacity, np.int64)
+        # live rows per stamp: a policy decides by age, and every row of
+        # one stamp has the same age, so eviction and weights ask it
+        # about the distinct stamps instead of every row
+        self._stamp_counts: dict = {}
+        self._free: list = []          # evicted rows, reused from the end
+        self._high = 0                 # high-water mark of written rows
+        self._count = 0                # LIVE clients (not uploads)
         self._clock = 0                # logical time, +1 per ingested wave
+        # ---- finalize / serving state --------------------------------
         self._served: Optional[ServedRound] = None
+        self._finalize_kwargs = None   # replayed by refinalize()
+        # warm-start cache of the incremental re-finalize
+        self._warm_algo_name = None
+        self._warm_state = None
+        self._warm_count = 0
+        # drift: routed traffic's d^2 since the last install
         self._routed_d2_sum = 0.0
         self._routed_n = 0
 
@@ -125,26 +164,43 @@ class AggregationSession:
 
     @property
     def count(self) -> int:
-        """Live clients (re-uploads replace, they do not add)."""
-        return self._high
+        """Live clients (re-uploads replace, evictions subtract)."""
+        return self._count
 
     @property
     def clients(self) -> dict:
-        """Copy of the slot table: client id -> buffer row (keyed waves)."""
+        """Copy of the live slot table: client id -> buffer row (keyed
+        waves only)."""
         return dict(self._slots)
+
+    def _live_rows(self) -> np.ndarray:
+        """Sorted buffer rows holding live clients."""
+        return np.flatnonzero(self._live[:self._high])
+
+    def _contiguous_live(self) -> bool:
+        """The live rows are exactly the written prefix [0, high)."""
+        return self._count == self._high
 
     @property
     def sketches(self) -> torch.Tensor:
-        """Device-resident (count, sketch_dim) view of the live rows."""
-        return self._sketches[:self._high]
+        """Device-resident (count, sketch_dim) live rows: a view while
+        they are a contiguous prefix, a gather after evictions."""
+        if self._contiguous_live():
+            return self._sketches[:self._high]
+        rows = self._live_rows()
+        return self._sketches[torch.as_tensor(rows, device=self.device)]
 
     @property
     def clock(self) -> int:
+        """Logical session time, +1 per ingested wave: the key of the
+        serialized-replay contract."""
         return self._clock
 
     def _sync(self) -> None:
+        """Wait for the work queued on the calling thread's current
+        stream (not the whole device)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _ensure_projection(self, n: int) -> torch.Tensor:
         if self._projection is None:
@@ -180,39 +236,69 @@ class AggregationSession:
                         f"match the session's {tuple(b.shape[1:])}")
         return w
 
-    def _alloc_rows(self, w: int, client_ids) -> np.ndarray:
-        """Map a wave onto buffer rows without changing anything:
-        returning ids keep their row, new ids (and anonymous waves) extend
-        the written rows.  Raises on duplicate ids or a full buffer."""
-        high = self._high
-        if client_ids is None:
-            rows = np.arange(high, high + w, dtype=np.int64)
-            high += w
-        else:
+    def _alloc_rows(self, w: int, client_ids) -> tuple:
+        """Map a wave onto buffer rows without changing anything.
+
+        Returning ids keep their row; new ids (and anonymous waves) take
+        evicted rows from the end of the free list first, then extend the
+        written rows.  Returns ``(rows, n_from_free)``; raises on
+        duplicate ids or a full buffer."""
+        if client_ids is not None:
             ids = list(client_ids)
             if len(ids) != w:
                 raise ValueError(f"client_ids has {len(ids)} entries for a "
                                  f"wave of {w}")
             if len(set(ids)) != len(ids):
                 raise ValueError("duplicate client ids within one wave")
-            rows = np.empty(w, np.int64)
-            for i, cid in enumerate(ids):
-                row = self._slots.get(cid)
-                if row is None:
-                    row, high = high, high + 1
-                rows[i] = row
-        if high > self.capacity:
+            rows = np.fromiter((self._slots.get(cid, -1) for cid in ids),
+                               np.int64, w)
+        else:
+            rows = np.full(w, -1, np.int64)
+        new_at = np.flatnonzero(rows < 0)
+        n_new = new_at.size
+        n_free = len(self._free)
+        if n_new > n_free + (self.capacity - self._high):
             raise ValueError(
-                f"session capacity exceeded: {self._high} live + "
-                f"{high - self._high} new clients > capacity {self.capacity}")
-        return rows
+                f"session capacity exceeded: {self._count} live + "
+                f"{n_new} new clients > capacity {self.capacity}")
+        n_from_free = min(n_new, n_free)
+        # the reference pops the free list from its end, one new id at a time
+        rows[new_at[:n_from_free]] = self._free[::-1][:n_from_free]
+        rows[new_at[n_from_free:]] = np.arange(
+            self._high, self._high + n_new - n_from_free)
+        return rows, n_from_free
 
-    def _commit_rows(self, rows: np.ndarray, client_ids) -> None:
+    def _commit_rows(self, rows: np.ndarray, n_from_free: int,
+                     client_ids) -> None:
+        """Post-write bookkeeping: slot table, free list, stamps, clock,
+        then the staleness policy's eviction."""
         self._clock += 1
+        was_live = self._live[rows]
+        self._count += int(np.count_nonzero(~was_live))
+        old, n_old = np.unique(self._stamps[rows[was_live]],
+                               return_counts=True)
+        for stamp, n in zip(old.tolist(), n_old.tolist()):
+            left = self._stamp_counts[stamp] - n
+            if left:
+                self._stamp_counts[stamp] = left
+            else:
+                del self._stamp_counts[stamp]
+        self._stamp_counts[self._clock] = len(rows)
+        self._live[rows] = True
+        if n_from_free:
+            del self._free[len(self._free) - n_from_free:]
         if client_ids is not None:
-            for row, cid in zip(rows, client_ids):
-                self._slots[cid] = int(row)
+            for row, cid in zip(rows.tolist(), client_ids):
+                self._slots[cid] = row
+                self._row_ids[row] = cid
         self._high = max(self._high, int(rows.max()) + 1)
+        self._stamps[rows] = self._clock
+        self.evict_stale()
+        self._gauge_slots()
+
+    def _gauge_slots(self) -> None:
+        obs.gauge("session.slots.live", float(self._count))
+        obs.gauge("session.slots.free", float(self.capacity - self._count))
 
     def _write_rows(self, buf: torch.Tensor, rows: np.ndarray,
                     values: torch.Tensor) -> None:
@@ -224,10 +310,14 @@ class AggregationSession:
 
     def ingest(self, wave=None, *, sketches=None, client_ids=None):
         """Ingest one wave of step-1 uploads: a stacked parameter tree (or
-        ``FederatedState``) or ``sketches=`` (w, sketch_dim).  Returns the
-        row assignment for keyed waves, the wave's offset otherwise."""
+        ``FederatedState``) or ``sketches=`` (w, sketch_dim).  With
+        ``client_ids=`` (w stable hashable ids) a returning id's row is
+        replaced in place and a new id takes a free row.  Returns the row
+        assignment for keyed waves, the wave's offset otherwise."""
         if (wave is None) == (sketches is None):
             raise ValueError("pass exactly one of wave= or sketches=")
+        if client_ids is not None:
+            client_ids = list(client_ids)
         if sketches is not None:
             return self._ingest_sketches(sketches, client_ids)
         if isinstance(wave, FederatedState):
@@ -240,10 +330,10 @@ class AggregationSession:
         wave = self._to_device(wave)
         leaves = tree_leaves(wave)
         w = self._validate_params_wave(wave, leaves)
-        rows = self._alloc_rows(w, client_ids)
+        rows, n_from_free = self._alloc_rows(w, client_ids)
         n = sum(l[0].numel() for l in leaves)
         projection = self._ensure_projection(n)
-        self._mode = "params"
+        self._mode = "params"      # only after validation
         if self._params is None:
             self._params = tree_map(
                 lambda l: torch.zeros((self.capacity,) + tuple(l.shape[1:]),
@@ -259,7 +349,7 @@ class AggregationSession:
         obs.count("session.ingest.clients", w)
         obs.count("session.ingest.bytes",
                   sum(l.numel() * l.element_size() for l in leaves))
-        self._commit_rows(rows, client_ids)
+        self._commit_rows(rows, n_from_free, client_ids)
         return rows if client_ids is not None else offset
 
     def _ingest_sketches(self, sketches, client_ids=None):
@@ -273,8 +363,8 @@ class AggregationSession:
         w = int(sketches.shape[0])
         if w < 1:
             raise ValueError("empty wave")
-        rows = self._alloc_rows(w, client_ids)
-        self._mode = "sketches"
+        rows, n_from_free = self._alloc_rows(w, client_ids)
+        self._mode = "sketches"    # only after validation
         offset = int(rows[0])
         with obs.span("session.ingest"):
             self._write_rows(self._sketches, rows, sketches)
@@ -282,68 +372,181 @@ class AggregationSession:
         obs.count("session.ingest.clients", w)
         obs.count("session.ingest.bytes",
                   sketches.numel() * sketches.element_size())
-        self._commit_rows(rows, client_ids)
+        self._commit_rows(rows, n_from_free, client_ids)
         return rows if client_ids is not None else offset
+
+    # --------------------------------------------------------- staleness
+
+    def evict_stale(self) -> list:
+        """Apply the staleness policy's eviction mask to the live rows:
+        evicted rows go to the free list and out of every later finalize.
+        Returns the evicted client ids (``None`` for anonymous rows).
+        Runs after every ingest and before every finalize."""
+        if not self._stamp_counts:
+            return []
+        stamps = np.fromiter(self._stamp_counts, np.int64,
+                             len(self._stamp_counts))
+        dead = stamps[np.asarray(self.staleness.evict(self._clock - stamps),
+                                 bool)]
+        if dead.size == 0:
+            return []
+        rows = self._live_rows()
+        evicted = rows[np.isin(self._stamps[rows], dead)]
+        for stamp in dead.tolist():
+            del self._stamp_counts[stamp]
+        out = []
+        for row in evicted.tolist():
+            cid = self._row_ids.pop(row, None)
+            if cid is not None:
+                del self._slots[cid]
+            out.append(cid)
+        self._live[evicted] = False
+        self._free.extend(evicted.tolist())
+        self._count -= len(out)
+        obs.count("session.evictions", len(out))
+        self._gauge_slots()
+        return out
+
+    def _live_weights(self, rows: Optional[np.ndarray]):
+        """Per-row staleness weights in live-row order (``rows=None``:
+        the contiguous prefix), or ``None`` for unweighted policies."""
+        stamps = np.fromiter(self._stamp_counts, np.int64,
+                             len(self._stamp_counts))
+        if self.staleness.weights(self._clock - stamps) is None:
+            return None
+        live = self._stamps[:self._high] if rows is None else self._stamps[rows]
+        return self.staleness.weights(self._clock - live)
 
     # ---------------------------------------------------------- finalize
 
     def snapshot(self) -> SessionSnapshot:
-        """Copy the live rows out at the current clock, so a round can be
-        computed from them while later waves overwrite the buffers."""
-        if self._high == 0:
+        """Copy the live rows out at the current clock (a slice's clone
+        while they are a contiguous prefix, a gather otherwise), with
+        their staleness weights.
+
+        The copy is queued on the calling thread's current stream, after
+        every earlier wave of this thread.  Work on that stream reads it
+        in order.  A caller that reads it on another stream, or lets a
+        later wave overwrite the buffers from another stream, first
+        makes that stream wait for this one; callers that ingest from
+        several threads also serialize ``ingest`` against ``snapshot``.
+        ``serving.RouteServer`` does both."""
+        self.evict_stale()
+        if self._count == 0:
             raise ValueError("nothing ingested")
         high = self._high
-        params = (None if self._params is None else
-                  tree_map(lambda l: l[:high].clone(), self._params))
-        return SessionSnapshot(sketches=self._sketches[:high].clone(),
-                               params=params, count=high, clock=self._clock)
+        rows = None
+        if self._contiguous_live():
+            sketches = self._sketches[:high].clone()
+            params = (None if self._params is None else
+                      tree_map(lambda l: l[:high].clone(), self._params))
+        else:
+            rows = self._live_rows()
+            sketches, params = _gather_rows_program()(
+                (self._sketches, self._params),
+                torch.as_tensor(rows, device=self.device))
+        return SessionSnapshot(sketches=sketches, params=params,
+                               weights=self._live_weights(rows),
+                               count=self._count, clock=self._clock)
 
     def finalize(self, *, algorithm="kmeans-device", k: Optional[int] = None,
-                 algo_options: Optional[dict] = None, aggregator="mean"):
+                 algo_options: Optional[dict] = None, engine: str = "device",
+                 aggregator="mean"):
         """Steps 2-4 over the live rows on the device.  Returns
         ``(new_state, labels, info)`` (``new_state is None`` for
-        sketch-only sessions)."""
+        sketch-only sessions).  The arguments are remembered:
+        ``refinalize()`` replays them warm-started."""
         return self.finalize_snapshot(
             self.snapshot(), algorithm=algorithm, k=k,
-            algo_options=algo_options, aggregator=aggregator)
+            algo_options=algo_options, engine=engine, aggregator=aggregator)
 
-    def finalize_snapshot(self, snap: SessionSnapshot, **kwargs):
-        out, served = self.compute_round(snap, **kwargs)
+    def refinalize(self):
+        """Re-run the last ``finalize`` configuration over the current
+        live rows, warm-started from the previous round's state where the
+        family supports it (cold otherwise)."""
+        if self._finalize_kwargs is None:
+            raise ValueError("refinalize() needs a prior finalize()")
+        return self.finalize_snapshot(self.snapshot(), warm=True,
+                                      **self._finalize_kwargs)
+
+    def maybe_refinalize(self, threshold: float = 1.5):
+        """Warm re-finalize when the ``drift`` gauge exceeds
+        ``threshold``; ``None`` when it does not (or is unmeasured)."""
+        d = self.drift
+        if d is None or d <= threshold:
+            return None
+        obs.count("session.refinalize.triggered")
+        return self.refinalize()
+
+    def finalize_snapshot(self, snap: SessionSnapshot, *, warm: bool = False,
+                          **kwargs):
+        out, served = self.compute_round(snap, warm=warm, **kwargs)
         return self.install_round(out, served)
 
-    def compute_round(self, snap: SessionSnapshot, *,
+    def compute_round(self, snap: SessionSnapshot, *, warm: bool = False,
                       algorithm="kmeans-device", k: Optional[int] = None,
                       algo_options: Optional[dict] = None,
-                      aggregator="mean"):
-        """Steps 2-4 over a snapshot without touching the serving state.
-        Returns ``(out, served)`` for ``install_round``."""
+                      engine: str = "device", aggregator="mean"):
+        """Steps 2-4 over a snapshot without touching the serving state,
+        on the calling thread's current stream.  Returns ``(out,
+        served)`` for ``install_round``.  The warm-start cache is shared
+        state: concurrent calls are serialized by the caller."""
+        if engine not in ("auto", "host", "device"):
+            raise ValueError(f"engine must be auto|host|device, got "
+                             f"{engine!r}")
+        if engine == "host":
+            raise NotImplementedError(
+                "engine='host' is not ported yet (ROADMAP queue A, item 3); "
+                "use engine='device'")
+        kwargs = dict(algorithm=algorithm, k=k, algo_options=algo_options,
+                      engine=engine, aggregator=aggregator)
         algorithm, algo_options = resolve_device_request(algorithm,
                                                          algo_options)
         algo = get_algorithm(algorithm)
         if not is_device_algorithm(algo):
             algo = device_twin(algo)     # "convex" runs as "convex-device"
         k_eff = k if algo.requires_k else None
-        with obs.span("session.finalize"):
+        self._adopt(snap)
+        with obs.span("session.refinalize" if warm else "session.finalize"):
             generator = make_generator(self.cluster_seed, self.device)
-            res = _cluster_program(algo, k_eff, algo_options)(
-                generator, snap.sketches)
+            if self._warm_usable(algo, warm, snap.count):
+                res = _warm_cluster_program(algo, k_eff, algo_options)(
+                    generator, snap.sketches, self._warm_state)
+                mode = "warm"
+            else:
+                res = _cluster_program(algo, k_eff, algo_options)(
+                    generator, snap.sketches)
+                mode = "cold"
+            self._cache_warm_state(algo, res, snap.count)
             if snap.params is None:
                 labels, uniq, first = compact_labels(res.labels)
                 info = {"n_clusters": int(len(uniq)),
                         "meta": meta_to_host(res.meta), "engine": "device"}
                 out = (None, labels, info)
             else:
-                new_params = _mean_program(aggregator)(
-                    res.labels, res.centers, snap.params)
+                new_params = self._average_params(res, snap.params,
+                                                  aggregator, snap.weights)
                 state = FederatedState(params=snap.params, opt_state=None,
                                        n_clients=snap.count, step=0)
                 new_state, labels, info, uniq, first = materialize_round(
                     new_params, res, state)
                 out = (new_state, labels, info)
             info["count"] = snap.count
+            info["refinalize"] = mode if warm else None
             info["snapshot_clock"] = snap.clock
             served = self._make_served(out, res, uniq, first, snap)
+        self._finalize_kwargs = kwargs
         return out, served
+
+    def _adopt(self, snap: SessionSnapshot) -> None:
+        """The snapshot was copied on the snapshotting thread's stream and
+        is read on this one: record the use, so that its memory is not
+        handed to the other stream while this one may still read it."""
+        if self.device.type != "cuda":
+            return
+        stream = torch.cuda.current_stream(self.device)
+        for t in [snap.sketches] + tree_leaves(snap.params):
+            t.record_stream(stream)
 
     def install_round(self, out, served: ServedRound):
         """Publish a computed round (one attribute write) and re-anchor
@@ -353,12 +556,51 @@ class AggregationSession:
         self._routed_n = 0
         return out
 
+    def _warm_usable(self, algo, warm: bool, count: int) -> bool:
+        if not warm or self._warm_state is None:
+            return False
+        if getattr(algo, "name", None) != self._warm_algo_name:
+            return False
+        if not callable(getattr(algo, "device_warm_call", None)):
+            return False
+        if (getattr(algo, "warm_requires_same_count", False)
+                and count != self._warm_count):
+            obs.count("session.refinalize.cold_fallback")
+            return False
+        return True
+
+    def _cache_warm_state(self, algo, res, count: int) -> None:
+        if not callable(getattr(algo, "device_warm_call", None)):
+            return
+        state = algo.warm_state(res)
+        if state is not None:
+            self._warm_algo_name = getattr(algo, "name", None)
+            self._warm_state = state
+            self._warm_count = count
+
+    def _average_params(self, res, params, aggregator, weights):
+        """The mean phase: the unweighted program, or the weighted mean
+        where the staleness policy supplies decay weights (only for the
+        ``mean`` aggregator, as in the reference)."""
+        if weights is None:
+            return _mean_program(aggregator)(res.labels, res.centers, params)
+        name = get_aggregator(aggregator).name
+        if name != "mean":
+            raise ValueError(
+                "staleness weighting (exp_decay) requires the 'mean' "
+                f"aggregator, got {name!r}")
+        return _weighted_mean_program()(
+            res.labels, res.centers, params,
+            torch.as_tensor(np.asarray(weights), dtype=torch.float32,
+                            device=self.device))
+
     def _make_served(self, out, res, uniq, first, snap) -> ServedRound:
         """Bundle a round with its drift anchor: the clustering's mean row
         inertia, and the mean row scale as the degenerate fallback."""
         sk = snap.sketches
         centred = sk - torch.mean(sk, dim=0, keepdim=True)
-        # the Lloyd family's meta inertia is the direct sum of row d^2
+        # the meta inertia of both families is the direct sum of row d^2
+        # to the assigned centers
         anchors = torch.stack([
             res.meta["inertia"].to(torch.float32),
             torch.mean(torch.sum(centred * centred, dim=1)),
@@ -377,7 +619,8 @@ class AggregationSession:
         """Nearest recovered cluster for a (sketch_dim,) / (n, sketch_dim)
         sketch or a raw parameter tree (one client, sketched with the
         session's projection).  One program and one host transfer per
-        batch; returns an int or an (n,) int32 array."""
+        batch; returns an int or an (n,) int32 array.  Serving stays on
+        the last installed round while later waves change the buffers."""
         served = self._served
         if served is None:
             raise ValueError("route() needs finalize() first")
@@ -437,7 +680,31 @@ class AggregationSession:
 
     @property
     def served_round(self) -> Optional[ServedRound]:
+        """The round ``route()`` reads (``None`` before a finalize)."""
         return self._served
+
+    @property
+    def finalize_config(self) -> Optional[dict]:
+        """The last finalize's arguments (what refinalize replays), or
+        ``None`` before any finalize."""
+        return (None if self._finalize_kwargs is None
+                else dict(self._finalize_kwargs))
+
+    @property
+    def n_clusters(self) -> int:
+        """Recovered cluster count of the round currently served."""
+        served = self._served
+        if served is None:
+            raise ValueError("finalize() first")
+        return served.n_clusters
+
+    @property
+    def route_centers(self) -> torch.Tensor:
+        """(K', sketch_dim) active centers of the served round."""
+        served = self._served
+        if served is None:
+            raise ValueError("finalize() first")
+        return served.centers
 
     @property
     def drift(self) -> Optional[float]:
@@ -459,7 +726,10 @@ class AggregationSession:
         """The live federation as a stacked ``FederatedState``."""
         if self._mode != "params":
             raise ValueError("state() needs parameter waves")
-        high = self._high
-        return FederatedState(
-            params=tree_map(lambda l: l[:high], self._params),
-            opt_state=None, n_clients=high)
+        if self._contiguous_live():
+            params = tree_map(lambda l: l[:self._high], self._params)
+        else:
+            idx = torch.as_tensor(self._live_rows(), device=self.device)
+            params = tree_map(lambda l: l.index_select(0, idx), self._params)
+        return FederatedState(params=params, opt_state=None,
+                              n_clients=self._count)

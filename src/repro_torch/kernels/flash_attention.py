@@ -32,6 +32,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._counts import count_launch
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256          # the widest head of the decoder configs (gemma-2b)
@@ -162,7 +163,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _DTYPES[q.dtype], stream)
     _build.check(err, f"flash_attention launch at {tuple(q.shape)} x "
                  f"{tuple(k.shape)} {q.dtype}")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out[..., :dh]
 
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._counts import count_launch
 from repro_torch.kernels.pairwise_l2 import _check_operands
 
 
@@ -77,7 +78,7 @@ def _launch(wrapper, v: torch.Tensor, radius, batched: bool) -> torch.Tensor:
                                           out.data_ptr(), e, d, r.stride(0),
                                           stream)
     _build.check(err, f"{name} launch at {tuple(v.shape)}")
-    wrapper.launches += 1
+    count_launch(wrapper)
     return out
 
 

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._counts import count_launch
 from repro_torch.kernels._rowstream import (
     ALIGN, BARRIER_BYTES, SMEM_PER_BLOCK, padded_stride, ring_plan, sm_count,
     stage_bytes, up16)
@@ -179,8 +180,7 @@ def kmeans_assign(points: torch.Tensor, centers: torch.Tensor):
                 sums = sums[:, :d].contiguous()
     _build.check(err, f"kmeans_assign ({plan.variant}) launch at ({m},{d}) "
                  f"x ({k},{d})")
-    kmeans_assign.launches += 1
-    kmeans_assign.by_variant[plan.variant] += 1
+    count_launch(kmeans_assign, plan.variant)
     return labels, sums, counts
 
 

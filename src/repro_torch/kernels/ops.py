@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _counts
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import group_prox as _prox
 from repro_torch.kernels import kmeans_assign as _assign
@@ -83,19 +84,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset."""
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    with _counts.LOCK:
+        return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def variant_counts() -> dict:
     """Launches per variant since the last reset, for the wrappers that
     pick a kernel by shape (``kmeans_assign``: small / stream;
     ``pairwise_sqdist``: stream / tiled / batched)."""
-    return {name: dict(fn.by_variant) for name, fn in WRAPPERS.items()
-            if hasattr(fn, "by_variant")}
+    with _counts.LOCK:
+        return {name: dict(fn.by_variant) for name, fn in WRAPPERS.items()
+                if hasattr(fn, "by_variant")}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-        for variant in getattr(fn, "by_variant", {}):
-            fn.by_variant[variant] = 0
+    with _counts.LOCK:
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+            for variant in getattr(fn, "by_variant", {}):
+                fn.by_variant[variant] = 0

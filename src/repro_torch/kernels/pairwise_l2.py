@@ -22,6 +22,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._counts import count_launch
 from repro_torch.kernels._rowstream import (
     ALIGN, BARRIER_BYTES, ring_plan, sm_count, stage_bytes, up16)
 
@@ -106,8 +107,7 @@ def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                           out.data_ptr(), m, k, d, stream)
     _build.check(err, f"pairwise_sqdist ({variant}) launch at ({m},{d}) x "
                  f"({k},{d})")
-    pairwise_sqdist.launches += 1
-    pairwise_sqdist.by_variant[variant] += 1
+    count_launch(pairwise_sqdist, variant)
     return out
 
 
@@ -133,8 +133,7 @@ def _pairwise_sqdist_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                               stream)
     _build.check(err, f"pairwise_sqdist launch at {nb} windows of "
                  f"({m},{d}) x ({k},{d})")
-    pairwise_sqdist.launches += 1
-    pairwise_sqdist.by_variant["batched"] += 1
+    count_launch(pairwise_sqdist, "batched")
     return out
 
 

@@ -16,10 +16,22 @@ routes fresh, never-seen clients one request at a time (latency
 percentiles over those calls only) and as one batch (throughput); the
 two must give the same labels.
 
+The mutation knobs (``reupload_frac``, ``churn``, ``max_age``,
+``refinalize_threshold``) key the initial waves by client id, then run
+``mutation_rounds`` rounds against shifted optima: a keyed re-upload of
+a fraction of the clients and ``churn`` new joiners each round, under the
+sliding-window staleness policy; drifted probes then feed the drift
+gauge and ``maybe_refinalize`` warm-starts a re-finalize
+(``refinalize_fired``, ``refinalize_warm_p50_ms``).  ``qps_callers``
+runs the ``RouteServer`` over the finalized session: closed-loop callers
+per request, then batched across callers.
+
   python -m repro_torch.launch.simulate --clients 4096 --clusters 8
   python -m repro_torch.launch.simulate --clients 4096 --device cpu
   python -m repro_torch.launch.simulate --algorithm convex-device \
       --edges knn --clients 512 --device cpu
+  python -m repro_torch.launch.simulate --clients 4096 --reupload-frac 0.25 \
+      --churn 64 --max-age 3 --refinalize-threshold 1.5 --device cpu
 """
 from __future__ import annotations
 
@@ -35,6 +47,7 @@ from repro_torch.core.clustering.api import LLOYD_DEVICE_INIT, list_algorithms
 from repro_torch.core.clustering.convex import lambda_interval
 from repro_torch.core.engine.edges import list_edge_sets
 from repro_torch.core.engine.session import AggregationSession
+from repro_torch.core.engine.staleness import make_staleness_policy
 from repro_torch.core.erm import batched_ridge_erm
 from repro_torch.core.federated import (
     cluster_agreement,
@@ -72,7 +85,7 @@ def wave_ridge_erm(generator: torch.Generator, optima, labels, *, n: int,
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
 
 
 def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
@@ -81,6 +94,11 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
              kmeans_iters: int = 50, restarts: int = 1,
              cc_iters: int = 300, edges: str = "complete", knn_k: int = 8,
              seed: int = 0, route_probes: int = 0, finalize_repeats: int = 1,
+             reupload_frac: float = 0.0, churn: int = 0,
+             max_age: int | None = None,
+             refinalize_threshold: float | None = None,
+             mutation_rounds: int = 3, drift_scale: float = 2.0,
+             qps_callers: int = 0, qps_duration: float = 2.0,
              device=None) -> dict:
     """Stream a K-cluster federation of ``clients`` ridge clients into an
     ``AggregationSession``, run the one-shot round, and return a summary
@@ -92,7 +110,11 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
     optima = staggered_optima(gen, clusters, dim)
     true_labels = torch.arange(clients, device=dev) % clusters
 
-    session = AggregationSession(clients, sketch_dim=sketch_dim, seed=seed,
+    # mutation mode: keyed slots (client ids) and room for the joiners
+    mutated = (reupload_frac > 0 or churn > 0 or max_age is not None
+               or refinalize_threshold is not None)
+    capacity = clients + (churn * mutation_rounds if mutated else 0)
+    session = AggregationSession(capacity, sketch_dim=sketch_dim, seed=seed,
                                  device=dev)
     t_erm = t_ingest = 0.0
     for start in range(0, clients, wave):
@@ -102,7 +124,9 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
                                  n=samples)
         _sync(dev)
         t1 = time.perf_counter()
-        session.ingest({"theta": theta_w})
+        session.ingest({"theta": theta_w},
+                       client_ids=range(start, start + w) if mutated
+                       else None)
         t_erm += t1 - t0
         t_ingest += time.perf_counter() - t1
 
@@ -133,7 +157,7 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
     mse = float(torch.mean((served - optima[true_labels]) ** 2))
 
     serving = None
-    if route_probes > 0 or finalize_repeats > 1:
+    if mutated or route_probes > 0 or finalize_repeats > 1:
         # warm finalizes only: the first one above also pays first-call
         # set-up (allocator growth, kernel loading)
         h_fin = obs.Histogram()
@@ -188,6 +212,19 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
                 "route_purity": cluster_agreement(routed, probe_truth),
             })
         serving["drift"] = session.drift
+        if mutated:
+            serving.update(_mutate(
+                session, gen, optima, true_labels, samples=samples,
+                clusters=clusters, reupload_frac=reupload_frac, churn=churn,
+                max_age=max_age, refinalize_threshold=refinalize_threshold,
+                mutation_rounds=mutation_rounds, drift_scale=drift_scale,
+                finalize_repeats=finalize_repeats))
+
+    qps_server = None
+    if qps_callers > 0:
+        qps_server = _qps(session, gen, optima, clusters=clusters,
+                          samples=samples, callers=qps_callers,
+                          duration_s=qps_duration)
 
     return {
         "clients": clients, "clusters": clusters, "dim": dim,
@@ -211,7 +248,106 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
         "mse": mse,
         "meta": {"engine": info["engine"], **info["meta"]},
         "serving": serving,
+        "qps_server": qps_server,
         "obs": obs.snapshot(),
+    }
+
+
+def _mutate(session, gen, optima, true_labels, *, samples, clusters,
+            reupload_frac, churn, max_age, refinalize_threshold,
+            mutation_rounds, drift_scale, finalize_repeats) -> dict:
+    """The drifted-population mutation loop (the reference's): keyed
+    re-uploads and joiners drawn around SHIFTED optima, then drifted
+    probes routed as one batch to move the drift gauge, then the
+    drift-triggered warm re-finalize and its repeats."""
+    dev = optima.device
+    clients = true_labels.shape[0]
+    if max_age is not None:
+        session.staleness = make_staleness_policy(f"max_age={max_age}")
+    shifted = optima + drift_scale * torch.randn(
+        optima.shape, generator=gen, device=dev)
+    n_re = int(round(reupload_frac * clients))
+    for r in range(mutation_rounds):
+        if n_re > 0:
+            sel = (np.arange(n_re) + r * n_re) % clients
+            theta_m = wave_ridge_erm(
+                gen, shifted, true_labels[torch.as_tensor(sel, device=dev)],
+                n=samples)
+            session.ingest({"theta": theta_m}, client_ids=sel.tolist())
+        if churn > 0:
+            lab_c = torch.arange(churn, device=dev) % clusters
+            theta_c = wave_ridge_erm(gen, shifted, lab_c, n=samples)
+            session.ingest({"theta": theta_c},
+                           client_ids=[("joiner", r, i)
+                                       for i in range(churn)])
+    n_probe = 4096
+    theta_p = wave_ridge_erm(gen, shifted,
+                             torch.arange(n_probe, device=dev) % clusters,
+                             n=samples)
+    session.route(session.sketch_params({"theta": theta_p}))
+    drift_after = session.drift
+    refinalize_fired = None
+    h_ref = obs.Histogram()
+    if refinalize_threshold is not None:
+        t0 = time.perf_counter()
+        out = session.maybe_refinalize(threshold=refinalize_threshold)
+        refinalize_fired = out is not None
+        if refinalize_fired:
+            h_ref.observe((time.perf_counter() - t0) * 1e3)
+        for _ in range(max(0, finalize_repeats - 1)):
+            t0 = time.perf_counter()
+            session.refinalize()
+            h_ref.observe((time.perf_counter() - t0) * 1e3)
+    counters = obs.snapshot()["counters"]
+    return {
+        "reupload_frac": reupload_frac, "churn": churn, "max_age": max_age,
+        "mutation_rounds": mutation_rounds,
+        "live_clients": session.count,
+        "evictions": int(counters.get("session.evictions", 0)),
+        "drift_after_mutation": drift_after,
+        "refinalize_threshold": refinalize_threshold,
+        "refinalize_fired": refinalize_fired,
+        "refinalize_count": h_ref.count,
+        "refinalize_warm_p50_ms": (h_ref.percentile(50.0)
+                                   if h_ref.count else None),
+        "refinalize_warm_p99_ms": (h_ref.percentile(99.0)
+                                   if h_ref.count else None),
+        "refinalize_n_iter": (session.served_round.out[2]["meta"]["n_iter"]
+                              if h_ref.count else None),
+    }
+
+
+def _qps(session, gen, optima, *, clusters, samples, callers,
+         duration_s) -> dict:
+    """The ``RouteServer`` over the finalized session: ``callers``
+    closed-loop threads per request, then batched across callers."""
+    from repro_torch.serving.loadgen import closed_loop, warm_route_buckets
+    from repro_torch.serving.server import RouteServer
+
+    n_probe = 1024
+    theta_q = wave_ridge_erm(
+        gen, optima, torch.arange(n_probe, device=optima.device) % clusters,
+        n=samples)
+    probes = session.sketch_params({"theta": theta_q}).cpu().numpy()
+    warm_route_buckets(session, probes[0], 64)
+    server = RouteServer(session, max_batch=64, max_wait_ms=0.5)
+    server.start()
+    try:
+        direct = closed_loop(server, probes, callers=callers,
+                             duration_s=duration_s, batched=False)
+        batched = closed_loop(server, probes, callers=callers,
+                              duration_s=duration_s, batched=True)
+    finally:
+        server.stop()
+    return {
+        "callers": int(callers), "duration_s": float(duration_s),
+        "direct_qps": direct["qps"], "batched_qps": batched["qps"],
+        "batched_p50_ms": batched["route_p50_ms"],
+        "batched_p99_ms": batched["route_p99_ms"],
+        "direct_p50_ms": direct["route_p50_ms"],
+        "direct_p99_ms": direct["route_p99_ms"],
+        "timeouts": batched["timeouts"] + direct["timeouts"],
+        "errors": batched["n_errors"] + direct["n_errors"],
     }
 
 
@@ -243,6 +379,23 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--route-probes", type=int, default=0)
     ap.add_argument("--finalize-repeats", type=int, default=1)
+    ap.add_argument("--reupload-frac", type=float, default=0.0,
+                    help="fraction of clients re-uploading drifted models "
+                         "each mutation round (keyed slot replacement)")
+    ap.add_argument("--churn", type=int, default=0,
+                    help="fresh clients joining each mutation round")
+    ap.add_argument("--max-age", type=int, default=None,
+                    help="sliding-window staleness: evict rows older than "
+                         "this many waves")
+    ap.add_argument("--refinalize-threshold", type=float, default=None,
+                    help="drift ratio above which maybe_refinalize() "
+                         "warm-starts a re-finalize after the mutation "
+                         "rounds")
+    ap.add_argument("--qps-callers", type=int, default=0,
+                    help="run the RouteServer QPS probe with this many "
+                         "closed-loop callers (0 = off)")
+    ap.add_argument("--qps-duration", type=float, default=2.0,
+                    help="seconds per QPS measurement loop")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, help="write the summary JSON here")
@@ -254,7 +407,11 @@ def main(argv=None):
         kmeans_iters=args.kmeans_iters, restarts=args.restarts,
         cc_iters=args.cc_iters, edges=args.edges, knn_k=args.knn_k,
         seed=args.seed, route_probes=args.route_probes,
-        finalize_repeats=args.finalize_repeats, device=args.device)
+        finalize_repeats=args.finalize_repeats,
+        reupload_frac=args.reupload_frac, churn=args.churn,
+        max_age=args.max_age, refinalize_threshold=args.refinalize_threshold,
+        qps_callers=args.qps_callers, qps_duration=args.qps_duration,
+        device=args.device)
     ph = summary["phases"]
     print(f"[simulate] C={summary['clients']} K={summary['clusters']} "
           f"wave={summary['wave']} algo={summary['algorithm']} "
@@ -274,6 +431,19 @@ def main(argv=None):
               f"p99={sv['route_p99_ms']:.3f}ms "
               f"({sv['routes_per_s']:.0f}/s), batch of {sv['route_probes']} "
               f"in {sv['route_batch_ms']:.3f}ms")
+    if sv is not None and sv.get("live_clients") is not None:
+        rw = sv["refinalize_warm_p50_ms"]
+        print(f"[simulate] mutation: live={sv['live_clients']} "
+              f"evictions={sv['evictions']} drift(after)="
+              f"{sv['drift_after_mutation']:.3f} refinalize="
+              f"{'-' if sv['refinalize_fired'] is None else ('fired' if sv['refinalize_fired'] else 'held')} "
+              f"warm p50={'-' if rw is None else format(rw, '.3f')}ms")
+    qs = summary["qps_server"]
+    if qs is not None:
+        print(f"[simulate] qps: {qs['callers']} callers  direct "
+              f"{qs['direct_qps']:.0f}/s  batched {qs['batched_qps']:.0f}/s "
+              f"p50={qs['batched_p50_ms']:.3f}ms "
+              f"p99={qs['batched_p99_ms']:.3f}ms")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=2)

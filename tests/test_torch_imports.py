@@ -28,6 +28,8 @@ from repro_torch.kernels import pairwise_l2 as tpairwise
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import simulate as tsimulate
 from repro_torch.models import init_decode_cache, init_params
+from repro_torch.serving import RouteServer
+from repro_torch.serving import loadgen as tloadgen
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -58,7 +60,10 @@ def test_port_files_exist():
     for rel in ("configs/base.py", "configs/qwen2_0_5b.py",
                 "models/layers.py", "models/attention.py",
                 "models/transformer.py", "models/__init__.py",
-                "launch/serve.py", "interop.py"):
+                "launch/serve.py", "interop.py",
+                "core/engine/staleness.py", "serving/__init__.py",
+                "serving/batching.py", "serving/server.py",
+                "serving/loadgen.py", "kernels/_counts.py"):
         assert (PORT / rel).exists(), rel
     assert len(PORT_FILES) > 10 and PORT_FILES[-1].exists()
 
@@ -107,6 +112,26 @@ def test_entry_points_raise_without_cuda(no_cuda):
         tsimulate.simulate(clients=8, clusters=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         tsimulate.main(["--clients", "8", "--clusters", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsimulate.main(["--clients", "8", "--clusters", "2", "--churn", "2",
+                        "--qps-callers", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tloadgen.main(["--clients", "64", "--duration", "0.1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tloadgen.run(clients=64, duration_s=0.1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tloadgen.build_session(clients=64, clusters=2, sketch_dim=4)
+
+    class CudaSession:
+        device = torch.device("cuda", 0)
+        sketch_dim = 4
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RouteServer(CudaSession())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RouteServer(object())
+    cpu_session = AggregationSession(8, sketch_dim=4, device="cpu")
+    assert RouteServer(cpu_session).device == torch.device("cpu")
     cfg = get_config("qwen2-0.5b").reduced()
     with pytest.raises(RuntimeError, match="CUDA"):
         tserve.main(["--reduced"])

@@ -108,3 +108,57 @@ def test_ops_refuses_other_devices():
         ops.pairwise_sqdist(a, a)
     with pytest.raises(ValueError, match="no kernel"):
         ops.kmeans_assign(a, a)
+
+
+# the route server's flush buckets: (n, 64) routes against (8, 64) centers
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16, 32, 64])
+def test_flush_buckets_plain_matches_reference_and_plan_small(n):
+    pts, cts = _draw(900 + n, (n, 64), (8, 64))
+    pts = cts[np.arange(n) % 8] + 0.5 * pts
+    lab, sums, cnt = ops.kmeans_assign(torch.from_numpy(pts),
+                                       torch.from_numpy(cts))
+    wl, ws, wc = (np.asarray(x) for x in kmeans_assign_pallas(
+        jnp.asarray(pts), jnp.asarray(cts), interpret=True))
+    np.testing.assert_array_equal(lab.numpy(), wl)
+    np.testing.assert_allclose(sums.numpy(), ws, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(cnt.numpy(), wc)
+    assert tassign.assign_plan(n, 8, 64).variant == "small"
+
+
+def test_launch_counters_are_exact_across_threads():
+    """N threads x M counted launches (the wrappers' own counting step,
+    which runs on the card after each launch) lose no count."""
+    import sys
+    import threading
+
+    from repro_torch.kernels._counts import count_launch
+
+    n_threads, m_calls = 8, 2000
+    ops.reset_launch_counts()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)       # switch threads as often as possible
+    try:
+        def work(tid):
+            for i in range(m_calls):
+                count_launch(tassign.kmeans_assign,
+                             "small" if i % 2 else "stream")
+                count_launch(tpairwise.pairwise_sqdist, "tiled")
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    total = n_threads * m_calls
+    assert ops.launch_counts()["kmeans_assign"] == total
+    assert ops.launch_counts()["pairwise_sqdist"] == total
+    assert ops.variant_counts()["kmeans_assign"] == {"small": total // 2,
+                                                     "stream": total // 2}
+    assert ops.variant_counts()["pairwise_sqdist"]["tiled"] == total
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["kmeans_assign"] == 0
+    assert ops.variant_counts()["kmeans_assign"] == {"small": 0,
+                                                     "stream": 0}

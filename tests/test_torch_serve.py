@@ -19,6 +19,8 @@ from repro_torch.configs import get_config as tget_config
 from repro_torch.interop import model_from_numpy
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as ttf
+from repro_torch.models.planted import (
+    continuation, plant_previous_token_head)
 
 ARCH = "qwen2-0.5b"
 
@@ -119,3 +121,100 @@ def test_generate_keeps_the_cache_capacity_at_prompt_plus_gen(models):
     _, cache = ttf.prefill_with_cache(model, tcfg, {"tokens": prompts},
                                       capacity=5 + 3)
     assert cache.layers[0]["k"].shape[2] == 8 and cache.pos == 5
+
+
+# the tolerance of the full-size bf16 check in chip_smoke.py phase 4c,
+# which plants the same head in qwen2-0.5b at full width
+BF16_REL_TOL = 2.0 ** -4
+
+
+def _planted(models):
+    """The reduced model with a planted previous-token head, as the port's
+    model and as the reference's parameter tree."""
+    cfg, tcfg, params, _ = models
+    np_params = jax.tree_util.tree_map(np.asarray, params)
+    model = model_from_numpy(np_params, tcfg, "cpu")
+    head = plant_previous_token_head(model, tcfg, seed=0)
+    planted = dict(np_params)
+    planted["embed"] = model.embed.numpy().copy()
+    attn = {name: np.array(w) for name, w in
+            np_params["layers"]["attn"].items()}
+    for name in attn:
+        attn[name][0] = getattr(model.layers[0].attn, name).numpy()
+    planted["layers"] = {**np_params["layers"], "attn": attn}
+    return model, jax.tree_util.tree_map(jnp.asarray, planted), head
+
+
+def test_greedy_tokens_match_reference_on_planted_margin(models):
+    """With a planted previous-token head every generated position is
+    compared: the continuation is known, the top-2 margin is asserted
+    first, then the port's tokens must equal the reference's, the known
+    continuation and the argmax of a prefill over them."""
+    cfg, tcfg, _, _ = models
+    model, jparams, head = _planted(models)
+    prompt_len, gen = 72, 8            # past the serve window of 64
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                                (3, prompt_len))
+    want, _ = jserve.generate(jparams, cfg, jnp.asarray(prompts, jnp.int32),
+                              gen)
+    want = np.asarray(want)
+    logits, _ = jax.jit(lambda p, t: jtf.prefill_with_cache(
+        p, cfg, {"tokens": t}))(jparams, jnp.asarray(want[:, :-1]))
+    logits = np.asarray(logits, np.float64)[:, prompt_len - 1:]
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    margin = (top2[..., 1] - top2[..., 0]) / np.abs(logits).max()
+    assert margin.min() > BF16_REL_TOL, margin.min()
+    got, _ = tserve.generate(model, tcfg, torch.from_numpy(prompts), gen,
+                             device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got[:, prompt_len:].numpy(),
+                                  continuation(prompts, gen, head))
+    # no row is its input token repeated
+    new = got[:, prompt_len:].numpy()
+    assert (new[:, 1:] != new[:, :-1]).any(axis=1).all()
+    # the port's own decode against its prefill over the same tokens
+    with torch.inference_mode():
+        tlogits, _ = ttf.prefill_with_cache(
+            model, tcfg, {"tokens": got[:, :-1]})
+    np.testing.assert_array_equal(
+        torch.argmax(tlogits[:, prompt_len - 1:], dim=-1).numpy(),
+        got[:, prompt_len:].numpy())
+
+
+@pytest.mark.parametrize("corrupt", ["negate_v", "shift_v", "swap_rows"])
+def test_planted_tokens_change_on_a_corrupted_cache(models, corrupt):
+    """The planted head reads the cache entry one position back, so a
+    decode from a corrupted cache picks another token than the known
+    continuation: the token check of the planted weights sees the cache.
+    Layer 0's values negated, moved one ring slot on, or taken from the
+    row before."""
+    _, tcfg, _, _ = models
+    model, _, head = _planted(models)
+    prompt_len, gen = 72, 2
+    prompts = np.random.default_rng(5).integers(0, tcfg.vocab_size,
+                                                (8, prompt_len))
+    want = continuation(prompts, gen, head)
+    with torch.inference_mode():
+        logits, cache = ttf.prefill_with_cache(
+            model, tcfg, {"tokens": torch.from_numpy(prompts)},
+            capacity=prompt_len + gen)
+        first = torch.argmax(logits[:, -1], dim=-1)
+        np.testing.assert_array_equal(first.numpy(), want[:, 0])
+        v = cache.layers[0]["v"]
+        if corrupt == "negate_v":
+            v.neg_()
+        elif corrupt == "shift_v":
+            v.copy_(torch.roll(v, 1, dims=2))
+        else:
+            v.copy_(torch.roll(v, 1, dims=0))
+        lg, _ = ttf.decode_step(model, tcfg, cache, first[:, None])
+    got = torch.argmax(lg[:, -1], dim=-1).numpy()
+    # a row's token changes where the value read one position back
+    # changed sign
+    prev, before = prompts[:, -1], prompts[:, -2]
+    flipped = {"negate_v": np.ones(len(prompts), bool),
+               "shift_v": head.signs[prev] != head.signs[before],
+               "swap_rows": head.signs[prev] != head.signs[np.roll(prev, 1)]
+               }[corrupt]
+    assert flipped.any()
+    np.testing.assert_array_equal(got != want[:, 1], flipped)
