@@ -14,10 +14,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
       against (8, 64) centers; (4096, 32) and (1, 32) rows against
       (8, 32) centers; the kNN tiles (1024, 32) x (16 384, 32), the
       fusion tests (4096, 32) x (4096, 32) and (1024, 32) x (1024, 32);
-      the LSH windows (256, 64, 32) x (256, 192, 32) as one batch) within
+      the LSH windows (256, 64, 32) x (256, 192, 32) as one batch; spectral
+      seeding's (1 048 576, 8) x (8, 8), then d in {4, 8, 12} against k in
+      {3, 5, 8} at m = 7 and 4097 and k = 5 at d = 5, each launching the
+      variant its plan names) within
       rtol 1e-5 and atol 1e-4 * (||a||^2 + ||b||^2); ``kmeans_assign``,
-      at the same shapes but the kNN, fusion and LSH ones, and at m =
-      255, 256 and 257 (both sides of its small-m threshold), labels
+      at the same shapes but the kNN, fusion, LSH and small-d ones, at
+      minibatch Lloyd's (65 536, 64) x (8, 64), and at m = 255, 256 and
+      257 (both sides of its small-m threshold), labels
       equal on every row whose two nearest distances differ by more than
       1e-5 relative (the count of rows left out is printed), sums within
       rtol 1e-5 / atol 1e-4 and counts equal where the labels are; at
@@ -58,6 +62,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     atol 1e-5 * (1 + max|a|), the same AMA ``n_iter`` unless the last
     dual step lies within 1e-6 relative of the stop threshold (then
     both are printed); two card solves give bit-identical u;
+ 3d. this slice's paths, card vs CPU, at m = 4096 (clients around 8
+    optima, sketch 32): ``kmeans-device`` with ``init="spectral"``;
+    minibatch Lloyd (``batch_m`` 512) from the same carried rows; the
+    ``trimmed_mean``, ``median`` and ``geometric_median`` center updates
+    (with the same parameter reduction); ``engine="host"`` with kmeans++
+    (each device's own seeds: the same partition up to a renaming);
+    partitions and route labels identical, parameters and centers within
+    rtol 1e-5 / atol 1e-5 max|x|, the same Lloyd iterations; the damped
+    gradient-clustering loop from the same seeds (identical labels) and
+    ``gradient-device`` on the card (purity 1.0); a logistic wave: 8
+    Newton steps on both devices from the same (x, y) within 1e-4 of
+    max|theta|, and the same partition of the CPU's models on both;
  3c. the LM serving model, card vs CPU: qwen2-0.5b at full width cut to
     2 layers, fp32, the same weights on both; b = 1, a prompt of 4160
     (past the 4096 window), 8 greedy tokens (the card's, fed to both):
@@ -115,14 +131,35 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     warm refinalize (purity 1.0, the refinalize must fire), and a
     ``convex-device`` kNN session at C = 16 384 refinalized warm (the
     same partition in fewer AMA iterations than cold);
+ 4e. this slice's paths at full size: one ridge session of C = 1 048 576
+    (dim 16, 64 samples, sketch 64, k = 8), built once, then one finalize
+    each of ``SLICE7_PATHS``: spectral seeding; kmeans++ with ``batch_m``
+    65 536; the trimmed mean (beta 0.1) from random seeds with 8
+    restarts (BENCH_robustness.json's robust config; purity printed, see
+    ``SLICE7_PATHS``) and from kmeans++; the median; the geometric
+    median; ``gradient-device``; ``engine="host"`` with kmeans++: purity
+    1.0 (where gated), K' = 8, finite models, its ms, and every kernel
+    of the path launched (counts set to 0 just before, read just after).
+    Beside them the SVD of the centered sketches (``torch.linalg.svd``
+    and the port's QR route, their ms and the angle between their top-8
+    subspaces), whether the card's spectral seed rows are the CPU's, and
+    the card's spectral partition against the CPU's (the same, up to a
+    renaming); then ``simulate --task logistic`` at C = 1 048 576 with 8
+    restarts (K' = 8; purity printed: the logistic models of 64 samples
+    overlap across clusters) and ``simulate --trace`` at C = 4096, whose
+    JSONL trace must hold the ``session.ingest`` and ``session.finalize``
+    spans with their fields;
  5. one JSON line ``{"kernels": [...]}``: per kernel its launches on the
     main paths (in all, by path, and by variant), its largest error
     against the plain version, and at each of its main shapes (the
-    Lloyd, batch-route and single-route shapes of kmeans_assign and its
+    Lloyd, batch-route, single-route and minibatch shapes of
+    kmeans_assign and its
     flush buckets 1, 4, 8, 16 and 64 with the serving paths' flushes at each,
     from the server's ``serving.flush_size``, and beside bucket 1 the
     direct rows' per-request routes; the
-    kmeans++ shape and a kNN tile of pairwise_sqdist; the three dual
+    kmeans++ shape (also the host Lloyd's and gradient clustering's), a
+    kNN tile and the spectral shape of pairwise_sqdist, the last two with
+    the launches of the phase-4e finalize that runs them; the three dual
     shapes of the batched group prox) the card's own time for one call
     (``ms``: the durations of the device work that 20 calls launched,
     traced by torch.profiler, over 20), the caller's time (``call_ms``:
@@ -157,6 +194,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -209,6 +247,60 @@ CONVEX_WARM_C = 16_384
 CONVEX_WARM_ITERS = 2000
 # traces of a one-kernel call taken before its lost records fail the check
 TRACES = 3
+# the small-d shapes of pairwise_sqdist: spectral seeding's farthest-point
+# traversal at (C, 8) x (8, 8), then d in {4, 8, 12} against k in {3, 5, 8}
+# (the stream variant: d % 4 == 0) and k = 5 with d = 5 (tiled)
+SPECTRAL_D = 8
+PAIRWISE_SMALL_D = ([(MAIN_M, MAIN_K, SPECTRAL_D)]
+                    + [(m, k, d) for d in (4, 8, 12) for k in (3, 5, 8)
+                       for m in (7, 4097)] + [(4097, 5, 5)])
+# minibatch Lloyd's rows an iteration at C = 1 048 576 (phase 4e)
+BATCH_M = 65_536
+# phase 3d: card vs CPU at m = 4096, minibatches of 512
+SMALL_M, SMALL_BATCH = 4096, 512
+# phase 4e: one finalize of each path over one session of C = 1 048 576,
+# with the kernels it must launch and whether purity 1.0 is gated.  The
+# trimmed mean's random init with 8 restarts is BENCH_robustness.json's
+# "robust" config: 8 uniform rows hit all 8 clusters with probability
+# 8!/8^8 = 0.24 %, and Lloyd does not undo a merge, so its purity is
+# printed, not gated (1 of 10 generator seeds recovered the partition at
+# C = 8192 on the CPU); the same update from kmeans++ seeds is gated.
+SLICE7_PATHS = [
+    ("spectral", {"algorithm": "kmeans-device",
+                  "algo_options": {"init": "spectral", "iters": 50}},
+     ("pairwise_sqdist", "kmeans_assign"), True),
+    ("kmeans++ batch_m 65536", {
+        "algorithm": "kmeans-device",
+        "algo_options": {"init": "kmeans++", "iters": 50,
+                         "batch_m": BATCH_M}},
+     ("pairwise_sqdist", "kmeans_assign"), True),
+    ("trimmed_mean random restarts 8", {
+        "algorithm": "kmeans-device", "aggregator": "trimmed_mean",
+        "algo_options": {"init": "random", "iters": 50, "restarts": 8,
+                         "aggregator": "trimmed_mean"}},
+     ("kmeans_assign",), False),
+    ("trimmed_mean kmeans++", {
+        "algorithm": "kmeans-device", "aggregator": "trimmed_mean",
+        "algo_options": {"init": "kmeans++", "iters": 50,
+                         "aggregator": "trimmed_mean"}},
+     ("pairwise_sqdist", "kmeans_assign"), True),
+    ("median", {"algorithm": "kmeans-device", "aggregator": "median",
+                "algo_options": {"init": "kmeans++", "iters": 50,
+                                 "aggregator": "median"}},
+     ("pairwise_sqdist", "kmeans_assign"), True),
+    ("geometric_median", {
+        "algorithm": "kmeans-device", "aggregator": "geometric_median",
+        "algo_options": {"init": "kmeans++", "iters": 50,
+                         "aggregator": "geometric_median"}},
+     ("pairwise_sqdist", "kmeans_assign"), True),
+    ("gradient-device", {"algorithm": "gradient-device",
+                         "algo_options": {"iters": 50}},
+     ("pairwise_sqdist",), True),
+    ("engine host kmeans++", {"algorithm": "kmeans++", "engine": "host",
+                              "algo_options": {"iters": 50}},
+     ("pairwise_sqdist",), True),
+]
+TRACE_C = 4096
 
 
 def fail(msg: str):
@@ -367,6 +459,8 @@ def phase_kernels(pairwise_l2, kmeans_assign, ops) -> dict:
               (1, MAIN_K, MAIN_D), (1, 1, 16), (7, 257, 200), (4097, 8, 200), (4097, 1, 64),
               (7, 8, 16), (1, 257, 64), (4097, 257, 16), (4097, 257, 200),
               (ROUTE_M, 8, 32), (1, 8, 32),
+              # minibatch Lloyd's batch (phase 4e)
+              (BATCH_M, MAIN_K, MAIN_D),
               # both sides of kmeans_assign's small-m threshold
               (kmeans_assign.SMALL_M, 8, 64), (kmeans_assign.SMALL_M + 1, 8, 64),
               (kmeans_assign.SMALL_M - 1, 8, 36)]
@@ -415,6 +509,21 @@ def phase_kernels(pairwise_l2, kmeans_assign, ops) -> dict:
         pe = compare_pairwise(pairwise_l2, a, b)
         print(f"[chip_smoke] pairwise_sqdist at ({m},{d})x({k},{d}): max abs "
               f"err {pe:.3g}", flush=True)
+    # small feature dims: the TMA box is 32 columns wide, so a row of d = 8
+    # fills a quarter of its 128-byte line and the rest is zero filled
+    for i, (m, k, d) in enumerate(PAIRWISE_SMALL_D):
+        a, b = draw(170 + i, (m, d), (k, d))
+        ops.reset_launch_counts()
+        pe = compare_pairwise(pairwise_l2, a, b)
+        pv = pairwise_l2.pairwise_plan(m, k, d)[0]
+        check(pv == ("stream" if d % 4 == 0 else "tiled"),
+              f"pairwise_sqdist at ({m},{d})x({k},{d}) plans {pv}")
+        check(ops.variant_counts()["pairwise_sqdist"] ==
+              {**dict.fromkeys(("stream", "tiled", "batched"), 0), pv: 2},
+              f"pairwise_sqdist at ({m},{d})x({k},{d}) launched "
+              f"{ops.variant_counts()['pairwise_sqdist']}, not 2 x {pv}")
+        print(f"[chip_smoke] pairwise_sqdist ({pv}) at ({m},{d})x({k},{d}): "
+              f"max abs err {pe:.3g}", flush=True)
     return errs
 
 
@@ -655,6 +764,147 @@ def phase_convex_rounds() -> None:
             float(np.abs(sk).max()))
     print(f"[chip_smoke] host convex_clustering at m=256: card == CPU "
           f"({res['cuda'].n_clusters} clusters)", flush=True)
+
+
+# ------------------------------------------------------------ phase 3d
+
+def renaming(a, b) -> dict:
+    """The bijection of label ids that takes partition ``a`` to ``b``;
+    fails unless there is one (the two partitions are the same)."""
+    fwd, bwd = {}, {}
+    for x, y in zip(np.asarray(a).tolist(), np.asarray(b).tolist()):
+        check(fwd.setdefault(x, y) == y and bwd.setdefault(y, x) == x,
+              "the card's partition differs from the CPU's")
+    return fwd
+
+
+def phase_slice7_rounds() -> None:
+    """Phase 3d: small rounds of this slice's paths on the card against
+    the same rounds on the CPU (the plain versions), the same inputs, at
+    m = 4096.  Partitions and route labels identical (the kmeans++ seeds
+    of the two generators differ, so for the host kmeans++ round up to a
+    renaming of the cluster ids), parameters and centers within rtol 1e-5
+    / atol 1e-5 max|x|, the same iteration counts."""
+    from repro_torch.core.clustering.gradient import gradient_steps
+    from repro_torch.core.clustering.kmeans import kmeans_plus_plus_init
+    from repro_torch.core.engine.session import AggregationSession
+    from repro_torch.core.erm import batched_logistic_erm
+    from repro_torch.core.federated import cluster_agreement
+    from repro_torch.core.sketch import make_generator
+    from repro_torch.interop import rows_from_numpy
+
+    thetas, truth, probes, proj = clustered_thetas(17, SMALL_M, 8)
+    init = thetas[:8] @ proj                   # one client of each cluster
+    rng = np.random.default_rng(17)
+    rows = [rng.choice(SMALL_M, SMALL_BATCH, replace=False)
+            for _ in range(50)]
+    warm = {"init": "warm", "init_centers": torch.from_numpy(init),
+            "iters": 50}
+    cases = [("kmeans-device spectral", "kmeans-device",
+              {"init": "spectral", "iters": 50}, "mean", "device"),
+             (f"minibatch {SMALL_BATCH}", "kmeans-device",
+              {**warm, "batch_m": SMALL_BATCH}, "mean", "device"),
+             ("engine host kmeans++", "kmeans++", {"iters": 50}, "mean",
+              "host")]
+    cases += [(f"robust {agg}", "kmeans-device", {**warm, "aggregator": agg},
+               agg, "device")
+              for agg in ("trimmed_mean", "median", "geometric_median")]
+
+    def session(dev, rows_in):
+        sess = AggregationSession(rows_in.shape[0], sketch_dim=32,
+                                  projection=torch.from_numpy(proj),
+                                  device=dev)
+        sess.ingest({"theta": torch.from_numpy(rows_in)})
+        return sess
+
+    for name, algorithm, options, agg, engine in cases:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            opts = dict(options)
+            if "batch_m" in opts:
+                opts["sampler"] = rows_from_numpy(*rows)
+            sess = session(dev, thetas)
+            state, labels, info = sess.finalize(
+                algorithm=algorithm, k=8, algo_options=opts, engine=engine,
+                aggregator=agg)
+            routed = sess.route(sess.sketch_params(
+                {"theta": torch.from_numpy(probes)}))
+            out[dev] = (labels, routed, state.params["theta"].cpu().numpy(),
+                        sess.route_centers.cpu().numpy(), info)
+        (cl, cr, cp, cc, ci), (gl, gr, gp, gc, gi) = out["cpu"], out["cuda"]
+        if algorithm == "kmeans++":
+            ren = renaming(cl, gl)
+            check([ren[x] for x in cr.tolist()] == gr.tolist(),
+                  f"{name}: route labels differ")
+            cc = cc[np.argsort([ren[x] for x in range(len(cc))])]
+        else:
+            check(np.array_equal(cl, gl), f"{name}: partitions differ")
+            check(np.array_equal(cr, gr), f"{name}: route labels differ")
+        check(algorithm == "kmeans++" or
+              ci["meta"].get("n_iter") == gi["meta"].get("n_iter"),
+              f"{name}: iteration counts differ")
+        scale = float(np.abs(thetas).max())
+        check(np.allclose(gp, cp, rtol=1e-5, atol=1e-5 * scale),
+              f"{name}: averaged parameters differ")
+        check(np.allclose(gc, cc, rtol=1e-5,
+                          atol=1e-5 * float(np.abs(cc).max())),
+              f"{name}: centers differ")
+        check(cluster_agreement(gl, truth) == 1.0, f"{name}: purity below 1")
+        print(f"[chip_smoke] 3d {name} at m={SMALL_M}: card == CPU "
+              f"(engine {gi['engine']}, {gi['n_clusters']} clusters, "
+              f"{len(gr)} route labels, n_iter {gi['meta'].get('n_iter')})",
+              flush=True)
+
+    # gradient clustering: the damped loop on both devices from the CPU's
+    # kmeans++ seeds, then the registry's gradient-device on the card
+    sk = torch.from_numpy(thetas @ proj)
+    seeds = kmeans_plus_plus_init(make_generator(0, "cpu"), sk, 8)
+    cpu = gradient_steps(sk, seeds, alpha=0.5, iters=100)
+    gpu = gradient_steps(sk.cuda(), seeds.cuda(), alpha=0.5, iters=100)
+    check(torch.equal(cpu.labels, gpu.labels.cpu()),
+          "gradient clustering: partitions differ")
+    check(torch.allclose(gpu.centers.cpu(), cpu.centers, rtol=1e-5,
+                         atol=1e-5 * float(sk.abs().max())),
+          "gradient clustering: centers differ")
+    _, labels, info = session("cuda", thetas).finalize(
+        algorithm="gradient-device", k=8, algo_options={"iters": 100})
+    check(cluster_agreement(labels, truth) == 1.0 and
+          info["n_clusters"] == 8, "gradient-device: purity below 1")
+    print(f"[chip_smoke] 3d gradient clustering at m={SMALL_M}: card == CPU "
+          "from the same seeds; gradient-device recovers the 8 clusters",
+          flush=True)
+
+    # a logistic wave: Newton on both devices from the same (x, y), then
+    # one spectral round of the CPU's models on each
+    rng = np.random.default_rng(18)
+    optima = rng.choice([-1.0, 1.0], size=(8, 16)) * (
+        np.arange(1, 9)[:, None] + rng.uniform(size=(8, 16)))
+    x = rng.normal(size=(SMALL_M, 64, 16)).astype(np.float32)
+    z = np.einsum("wnd,wd->wn", x, optima[truth])
+    y = np.where(rng.uniform(size=z.shape) < 1.0 / (1.0 + np.exp(-z)), 1.0,
+                 -1.0).astype(np.float32)
+    th = {dev: batched_logistic_erm(torch.from_numpy(x).to(dev),
+                                    torch.from_numpy(y).to(dev), 1e-6,
+                                    8).cpu().numpy()
+          for dev in ("cpu", "cuda")}
+    err = float(np.abs(th["cuda"] - th["cpu"]).max())
+    big = float(np.abs(th["cpu"]).max())
+    check(np.isfinite(th["cuda"]).all() and err <= 1e-4 * big,
+          f"logistic wave: thetas differ by {err} (atol {1e-4 * big})")
+    lproj = rng.normal(size=(17, 32)).astype(np.float32) / np.sqrt(32.0)
+    parts = {}
+    for dev in ("cpu", "cuda"):
+        sess = AggregationSession(SMALL_M, sketch_dim=32,
+                                  projection=torch.from_numpy(lproj),
+                                  device=dev)
+        sess.ingest({"theta": torch.from_numpy(th["cpu"])})
+        parts[dev] = sess.finalize(algorithm="kmeans-device", k=8,
+                                   algo_options={"init": "spectral"})[1]
+    check(np.array_equal(parts["cpu"], parts["cuda"]),
+          "logistic wave: partitions differ")
+    print(f"[chip_smoke] 3d logistic wave at m={SMALL_M}: Newton card vs "
+          f"CPU max abs diff {err:.3g} (max|theta| {big:.3g}); partitions "
+          "equal", flush=True)
 
 
 # --------------------------------------------------- --profile only
@@ -1455,6 +1705,163 @@ def phase_convex_warm(ops, card: str) -> dict:
     return launches
 
 
+def phase_slice7(simulate, ops, card: str) -> tuple:
+    """Phase 4e: one ridge session of C = 1 048 576 (dim 16, 64 samples,
+    sketch 64, k = 8), built once, then one finalize of each of
+    ``SLICE7_PATHS`` with the launch counts set to 0 just before and read
+    just after: purity 1.0, K' = 8 and every kernel of the path launched.
+    Beside them the SVD of the centered sketches (torch.linalg.svd, and
+    the QR route the port takes), the spectral seeds and partition of the
+    card against the CPU's, ``simulate --task logistic`` at C = 1 048 576
+    and ``simulate --trace`` at C = 4096.  Returns (launches by path, the
+    launches at the new phase-5 shapes)."""
+    from repro_torch.core.clustering.kmeans import (
+        spectral_init, top_right_singular)
+    from repro_torch.core.engine.device_kmeans import device_kmeans
+    from repro_torch.core.engine.session import AggregationSession
+    from repro_torch.core.federated import cluster_agreement
+    from repro_torch.core.sketch import make_generator
+    from repro_torch.launch.simulate import main as simulate_main
+    from repro_torch.launch.simulate import staggered_optima, wave_ridge_erm
+    from repro_torch.obs import read_jsonl
+
+    gen = make_generator(0, torch.device("cuda"))
+    optima = staggered_optima(gen, 8, 16)
+    truth = torch.arange(MAIN_M, device="cuda") % 8
+    t0 = time.perf_counter()
+    sess = AggregationSession(MAIN_M, sketch_dim=MAIN_D, device="cuda")
+    for lo in range(0, MAIN_M, 65_536):
+        sess.ingest({"theta": wave_ridge_erm(gen, optima,
+                                             truth[lo:lo + 65_536], n=64)})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    truth_np = truth.cpu().numpy()
+
+    # the SVD of the (C, 64) centered sketches, two ways
+    sk = sess.sketches
+    x = sk - torch.mean(sk, dim=0, keepdim=True)
+    svd_ms = {}
+    for name, fn in (("qr_then_svd", lambda: top_right_singular(x, 8)),
+                     ("torch.linalg.svd", lambda: torch.linalg.svd(
+                         x, full_matrices=False)[2][:8])):
+        fn()                                   # cuSOLVER's set-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vt = fn()
+        torch.cuda.synchronize()
+        svd_ms[name] = (time.perf_counter() - t1) * 1e3
+        svd_ms[name + "_vt"] = vt
+    # the two top-8 subspaces: the largest principal angle's sine
+    a, b = svd_ms.pop("qr_then_svd_vt"), svd_ms.pop("torch.linalg.svd_vt")
+    sing = torch.linalg.svdvals(a @ b.T)
+    svd_ms["subspace_sin_max"] = float(torch.sqrt(torch.clamp_min(
+        1.0 - sing.min() ** 2, 0.0)))
+    svals = torch.linalg.svdvals(x)[:10].cpu().tolist()
+    seeds_card = spectral_init(sk, 8)
+    sk_cpu = sk.cpu()
+    seeds_cpu = spectral_init(sk_cpu, 8)
+    seed_rows_agree = bool(torch.equal(seeds_card.cpu(), seeds_cpu))
+    del x, a, b
+
+    by_path, shape_launches, rows = {}, {}, []
+    for name, kw, kernels, gate_purity in SLICE7_PATHS:
+        kw = dict(kw)
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        state, labels, info = sess.finalize(k=8, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        launches = read_counts(ops)
+        purity = cluster_agreement(labels, truth_np)
+        check(purity == 1.0 or not gate_purity,
+              f"4e {name}: purity {purity} != 1.0")
+        check(info["n_clusters"] == 8,
+              f"4e {name}: recovered {info['n_clusters']} clusters, not 8")
+        check(bool(torch.isfinite(state.params["theta"]).all()),
+              f"4e {name}: non-finite models")
+        for kernel in kernels:
+            check(launches[kernel] > 0, f"4e {name}: launched no {kernel}")
+        meta = info["meta"]
+        row = {"name": name, "engine": info["engine"],
+               "purity_gated": gate_purity,
+               "algorithm": kw["algorithm"],
+               "aggregator": kw.get("aggregator", "mean"),
+               "options": {k: v for k, v in kw["algo_options"].items()},
+               "finalize_ms": ms, "purity": purity,
+               "n_clusters": info["n_clusters"],
+               "n_iter": meta.get("n_iter"), "restarts": meta.get("restarts"),
+               "inertia": meta.get("inertia"),
+               "restart_spread": meta.get("restart_spread"),
+               "launches": launches}
+        if name == "spectral":
+            # the card's partition against the CPU's spectral Lloyd on the
+            # same sketches (identical, or the same up to renaming where
+            # the near-tied 8th singular axis rotated the seeds)
+            cpu = device_kmeans(make_generator(0, "cpu"), sk_cpu, 8, iters=50,
+                                init="spectral")
+            row["cpu_labels_identical"] = bool(np.array_equal(
+                cpu.labels.numpy(), np.asarray(labels)))
+            renaming(cpu.labels.numpy(), labels)
+            shape_launches["spectral"] = launches["pairwise_sqdist"]
+        if name.startswith("kmeans++ batch_m"):
+            # every minibatch iteration, then the final assignment over C
+            shape_launches["minibatch"] = launches["kmeans_assign"] - 1
+        rows.append(row)
+        by_path[f"4e {name}"] = launches
+        print(json.dumps({"slice7_path": {**row, "clients": MAIN_M,
+                                          "card": card}}), flush=True)
+
+    # simulate --task logistic at C = 1 048 576: 8 Newton steps a client.
+    # The logistic models of 64 samples overlap across clusters (their
+    # separability margin is below 1), so the planted partition is not
+    # the clustering's optimum; the reference's simulate recovers 0.75 of
+    # it at C = 4096.  K' = 8 and finite models are gated, the purity and
+    # the margin are printed.
+    ops.reset_launch_counts()
+    logi = simulate(clients=MAIN_M, clusters=8, dim=16, samples=64,
+                    sketch_dim=MAIN_D, wave=65_536, task="logistic",
+                    restarts=8, device="cuda")
+    launches = read_counts(ops)
+    check(logi["n_clusters_recovered"] == 8,
+          f"4e logistic: recovered {logi['n_clusters_recovered']} clusters")
+    check(logi["purity"] > 0.5, f"4e logistic: purity {logi['purity']}")
+    for kernel in ("pairwise_sqdist", "kmeans_assign"):
+        check(launches[kernel] > 0, f"4e logistic: launched no {kernel}")
+    by_path["4e simulate logistic"] = launches
+    print(json.dumps({"slice7_logistic": {
+        "clients": MAIN_M, "task": "logistic", "restarts": 8,
+        "purity": logi["purity"], "n_clusters": logi["n_clusters_recovered"],
+        "phases": logi["phases"], "meta": logi["meta"],
+        "launches": launches, "card": card}}), flush=True)
+
+    # simulate --trace at C = 4096: the JSONL trace holds the session's
+    # spans with their fields (written beside this script, then removed)
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        path = str(Path(tmp) / "trace.jsonl")
+        simulate_main(["--clients", str(TRACE_C), "--clusters", "8",
+                       "--trace", path])
+        events = read_jsonl(path)
+    by_path["4e simulate trace"] = read_counts(ops)
+    spans = [e for e in events if e["event"] == "span"]
+    ingest = [e for e in spans if e["name"] == "session.ingest"]
+    fin = [e for e in spans if e["name"] == "session.finalize"]
+    check(ingest and all(e.get("wave") == TRACE_C and e.get("offset") == 0
+                         and e.get("mode") == "params" for e in ingest),
+          f"trace: session.ingest spans {ingest}")
+    check(len(fin) == 1 and fin[0].get("count") == TRACE_C and
+          fin[0].get("algorithm") == "kmeans-device" and
+          fin[0].get("engine") == "device" and fin[0].get("ms", 0) > 0,
+          f"trace: session.finalize spans {fin}")
+    print(json.dumps({"slice7_setup": {
+        "clients": MAIN_M, "build_s": build_s,
+        "svd_ms": svd_ms, "singular_values": svals,
+        "spectral_seed_rows_agree_with_cpu": seed_rows_agree,
+        "trace_events": len(spans), "trace_finalize": fin[0],
+        "card": card}}), flush=True)
+    return by_path, shape_launches
+
+
 def ptxas_instances(usage: dict) -> dict:
     """ptxas registers and spill bytes by kernel instance, keyed by a
     readable name (``flash_attention_tc<1,128>``) in place of the mangled
@@ -1612,9 +2019,14 @@ ASSIGN_SHAPES = [("lloyd", MAIN_M, MAIN_K, MAIN_D),
                  ("flush 4", 4, MAIN_K, MAIN_D),
                  ("flush 8", 8, MAIN_K, MAIN_D),
                  ("flush 16", 16, MAIN_K, MAIN_D),
-                 ("flush 64", 64, MAIN_K, MAIN_D)]
+                 ("flush 64", 64, MAIN_K, MAIN_D),
+                 # minibatch Lloyd's batch (phase 4e)
+                 ("minibatch", BATCH_M, MAIN_K, MAIN_D)]
+# the kmeans++ shape is also the host Lloyd's and gradient clustering's
+# assignment (phase 4e); spectral: the farthest-point traversal
 PAIRWISE_SHAPES = [("kmeans++", MAIN_M, MAIN_K, MAIN_D),
-                   ("knn tile", 1024, 16_384, 32)]
+                   ("knn tile", 1024, 16_384, 32),
+                   ("spectral", MAIN_M, MAIN_K, SPECTRAL_D)]
 
 
 def one_kernel(timing: dict, kernel: str, what: str) -> None:
@@ -1640,7 +2052,8 @@ def ptxas_named(usage: dict) -> dict:
 
 
 def kernel_rows(pairwise_l2, kmeans_assign, launches, errs,
-                flushes: dict, direct_routes: int) -> list:
+                flushes: dict, direct_routes: int,
+                shape_launches: dict) -> list:
     """Phase 5 rows of the two slice-1 kernels, one entry a shape: device
     ms and call ms of the kernel, the plain version and the library call,
     the bound, and the variant the wrapper picked; each kernel
@@ -1648,7 +2061,9 @@ def kernel_rows(pairwise_l2, kmeans_assign, launches, errs,
     also carries the serving paths' flushes that launched at it
     (``flushes``, from the route server's ``serving.flush_size``); bucket
     1 also gives the direct rows' per-request routes, one launch at m = 1
-    each, which are not flushes."""
+    each, which are not flushes.  The spectral and minibatch entries
+    carry the launches of phase 4e's finalize that runs them
+    (``shape_launches``)."""
     from repro_torch.kernels import _build
 
     rows = []
@@ -1672,7 +2087,9 @@ def kernel_rows(pairwise_l2, kmeans_assign, launches, errs,
             "traces": kern["traces"],
             "plain_ms": plain["ms"], "library_ms": lib["ms"],
             "library_call_ms": lib["call_ms"], "bound_ms": b_ms,
-            "bound_by": b_by})
+            "bound_by": b_by,
+            **({"launches": shape_launches[cls]}
+               if cls in shape_launches else {})})
         del a, b
     for i, (cls, m, k, d) in enumerate(ASSIGN_SHAPES):
         a, b = draw(17 + i, (m, d), (k, d))
@@ -1694,7 +2111,9 @@ def kernel_rows(pairwise_l2, kmeans_assign, launches, errs,
             **({"launches": flushes.get(m, 0)}
                if cls.startswith("flush") else {}),
             **({"direct_route_launches": direct_routes}
-               if cls == "flush 1" else {})})
+               if cls == "flush 1" else {}),
+            **({"launches": shape_launches[cls]}
+               if cls in shape_launches else {})})
         del a, b, pts
     for name, src, replaces, library in (
             ("pairwise_sqdist", "src/repro_torch/kernels/csrc/pairwise_l2.cu",
@@ -1745,6 +2164,7 @@ def main() -> None:
     errs.update(phase_flash_kernel(flash))
     phase_small_round()
     phase_convex_rounds()
+    phase_slice7_rounds()
     phase_serve_card_vs_cpu()
 
     ops.reset_launch_counts()
@@ -1775,10 +2195,12 @@ def main() -> None:
     by_path[f"mutation C={MAIN_M}"] = phase_mutation(simulate, ops, card)
     by_path[f"convex-device knn warm C={CONVEX_WARM_C}"] = phase_convex_warm(
         ops, card)
+    slice7, shape_launches = phase_slice7(simulate, ops, card)
+    by_path.update(slice7)
     total = {name: sum(p[name] for p in by_path.values())
              for name in ops.WRAPPERS}
     rows = (kernel_rows(pairwise_l2, kmeans_assign, total, errs,
-                        flushes, direct_routes)
+                        flushes, direct_routes, shape_launches)
             + prox_kernel_rows(group_prox, total, errs)
             + [flash_kernel_row(flash, total, errs, card)])
     for row in rows:

@@ -1,11 +1,18 @@
-"""Clustering registry (the port's subset of
+"""The admissible-clustering registry, the set C of ODCL-C (the port of
 ``repro/core/clustering/api.py``): the host and device result types, the
-uniform meta contract, the ``kmeans-device`` Lloyd family with its
-warm-start protocol, the convex family (``convex-device``,
-``clusterpath-device`` and their host twins ``convex``, ``clusterpath``),
-``device_twin`` and the name mapping of ``resolve_device_request``.  The
-host Lloyd families, spectral seeding, ``gradient`` and the
-admissibility constants come later.
+uniform meta contract, and the paper's families with the Lemma-1/2
+admissibility margin of each:
+
+  * the Lloyd family: host ``kmeans`` (random init), ``kmeans++`` and
+    ``spectral`` (``clustering/kmeans.py``), and ``kmeans-device``
+    (``engine/device_kmeans.py``: the init an option, restarts, minibatch
+    and robust center updates, a warm-start protocol);
+  * gradient clustering: ``gradient`` and ``gradient-device``;
+  * the convex family: ``convex-device``, ``clusterpath-device`` and their
+    host twins ``convex``, ``clusterpath``.
+
+``resolve_device_request`` / ``resolve_host_request`` map a request onto
+the engine that runs it, as in the reference.
 """
 from __future__ import annotations
 
@@ -15,16 +22,25 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.clustering.admissible import (
+    alpha_convex_clustering,
+    alpha_kmeans,
+    separability_alpha,
+)
 from repro_torch.core.clustering.convex import (
     clusterpath,
     convex_clustering,
     lambda_interval,
 )
+from repro_torch.core.clustering.gradient import gradient_clustering
+from repro_torch.core.clustering.kmeans import kmeans
+from repro_torch.core.engine.aggregators import get_aggregator
 from repro_torch.core.engine.device_convex import (
     device_clusterpath,
     device_convex_cluster,
 )
-from repro_torch.core.engine.device_kmeans import _check_options, device_kmeans
+from repro_torch.core.engine.device_kmeans import device_kmeans
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,34 +107,90 @@ def is_device_algorithm(algo) -> bool:
     return callable(getattr(algo, "device_call", None))
 
 
+def separability_of(points, result: "ClusteringResult") -> float:
+    """Achieved margin of condition (4) for ``result`` on ``points``."""
+    return separability_alpha(points, result.labels)
+
+
+def _host_points(points, device=None) -> torch.Tensor:
+    """A tensor stays on its device; anything else goes to ``device``
+    (CUDA unless "cpu")."""
+    if not isinstance(points, torch.Tensor):
+        points = torch.as_tensor(np.asarray(points, np.float32)).to(
+            resolve_device(device))
+    return points.to(torch.float32)
+
+
+def _n_clusters(labels, k: int) -> torch.Tensor:
+    return torch.sum(torch.bincount(labels.long(), minlength=k) > 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class LloydFamily:
+    """kmeans / kmeans++ / spectral: the host Lloyd loop
+    (``clustering.kmeans``), one registry name per init (ODCL-KM,
+    Lemma 2).  Runs on the points' device (a tensor), else on CUDA."""
+    name: str
+    init: str
+    requires_k: bool = True
+
+    def __call__(self, generator, points, *, k: Optional[int] = None,
+                 iters: int = 100, sampler=None, device=None,
+                 **_: Any) -> ClusteringResult:
+        if k is None:
+            raise ValueError(f"{self.name!r} requires k")
+        res = kmeans(generator, _host_points(points, device), k, iters=iters,
+                     init=self.init, sampler=sampler)
+        return _as_result(res.labels.cpu().numpy(), res.centers.cpu().numpy(),
+                          {"inertia": float(res.inertia),
+                           "n_iter": int(res.n_iter)})
+
+    def admissibility_alpha(self, m: int, c_min: int) -> float:
+        return alpha_kmeans(m, c_min)
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceLloydFamily:
     """The device Lloyd loop (``engine.device_kmeans``) as the registry's
     ``kmeans-device`` (ODCL-KM, Lemma 2).  ``init`` is an option
-    (``kmeans++`` | ``random`` | ``warm``); ``restarts`` keeps the best
-    of that many inits."""
+    (``kmeans++`` | ``spectral`` | ``random`` | ``warm``); ``restarts``
+    keeps the best of that many inits; ``batch_m`` switches to minibatch
+    updates; ``aggregator`` (a registry name or instance other than
+    ``mean``) makes the center update robust."""
     name: str = "kmeans-device"
     requires_k: bool = True
+
+    @staticmethod
+    def _resolve_aggregator(aggregator):
+        """None / 'mean' keep the kernel's accumulator update; anything
+        else resolves through the aggregator registry."""
+        if aggregator is None:
+            return None
+        agg = get_aggregator(aggregator)
+        return None if agg.name == "mean" else agg
 
     def device_call(self, generator, points, *, k: Optional[int] = None,
                     iters: int = 100, init: str = "kmeans++",
                     restarts: int = 1, batch_m: Optional[int] = None,
-                    aggregator=None, init_centers=None,
+                    aggregator=None, init_centers=None, sampler=None,
                     **_: Any) -> DeviceClusteringResult:
         if k is None:
             raise ValueError(f"{self.name!r} requires k")
-        _check_options(batch_m, points.shape[0], aggregator)
         res = device_kmeans(generator, points, k, iters=iters, init=init,
-                            restarts=restarts, init_centers=init_centers)
-        n_clusters = torch.sum(
-            torch.bincount(res.labels.long(), minlength=k) > 0)
+                            restarts=restarts, batch_m=batch_m,
+                            aggregator=self._resolve_aggregator(aggregator),
+                            init_centers=init_centers, sampler=sampler)
+        # the effective restart count: full-batch spectral seeding and
+        # warm starts are deterministic, so device_kmeans runs them once
+        full_batch = batch_m is None or batch_m >= points.shape[0]
+        eff_restarts = (1 if (init in ("spectral", "warm") and full_batch)
+                        else restarts)
         return DeviceClusteringResult(
             labels=res.labels, centers=res.centers,
             meta=device_meta(
                 inertia=res.inertia, n_iter=res.n_iter,
-                restarts=1 if init == "warm" else restarts,
-                n_clusters=n_clusters, restart_spread=res.restart_spread,
-                device=points.device))
+                restarts=eff_restarts, n_clusters=_n_clusters(res.labels, k),
+                restart_spread=res.restart_spread, device=points.device))
 
     def warm_state(self, res: DeviceClusteringResult):
         return res.centers
@@ -133,6 +205,66 @@ class DeviceLloydFamily:
         options.pop("init_centers", None)
         return self.device_call(generator, points, k=k, init_centers=warm,
                                 **options)
+
+    def __call__(self, generator, points, *, k: Optional[int] = None,
+                 **options: Any) -> ClusteringResult:
+        return _host_view(self.device_call(
+            generator, torch.as_tensor(points).to(torch.float32), k=k,
+            **options))
+
+    def admissibility_alpha(self, m: int, c_min: int) -> float:
+        return alpha_kmeans(m, c_min)
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientClustering:
+    """Gradient clustering [21], K-means type, so Lemma 2 applies.  Runs
+    on the points' device (a tensor), else on CUDA."""
+    name: str = "gradient"
+    requires_k: bool = True
+
+    def __call__(self, generator, points, *, k: Optional[int] = None,
+                 iters: int = 100, alpha: float = 0.5, device=None,
+                 **_: Any) -> ClusteringResult:
+        if k is None:
+            raise ValueError("gradient clustering requires k")
+        res = gradient_clustering(generator, _host_points(points, device), k,
+                                  alpha=alpha, iters=iters)
+        return _as_result(res.labels.cpu().numpy(), res.centers.cpu().numpy(),
+                          {"inertia": float(res.inertia)})
+
+    def admissibility_alpha(self, m: int, c_min: int) -> float:
+        return alpha_kmeans(m, c_min)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGradientClustering:
+    """Device twin of ``"gradient"``: the damped center loop on the
+    points' device, reported through the device meta contract."""
+    name: str = "gradient-device"
+    requires_k: bool = True
+
+    def device_call(self, generator, points, *, k: Optional[int] = None,
+                    iters: int = 100, alpha: float = 0.5,
+                    **_: Any) -> DeviceClusteringResult:
+        if k is None:
+            raise ValueError("gradient clustering requires k")
+        res = gradient_clustering(generator, points.to(torch.float32), k,
+                                  alpha=alpha, iters=iters)
+        return DeviceClusteringResult(
+            labels=res.labels, centers=res.centers,
+            meta=device_meta(inertia=res.inertia, n_iter=res.n_iter,
+                             n_clusters=_n_clusters(res.labels, k),
+                             device=points.device))
+
+    def __call__(self, generator, points, *, k: Optional[int] = None,
+                 **options: Any) -> ClusteringResult:
+        return _host_view(self.device_call(
+            generator, torch.as_tensor(points).to(torch.float32), k=k,
+            **options))
+
+    def admissibility_alpha(self, m: int, c_min: int) -> float:
+        return alpha_kmeans(m, c_min)
 
 
 def _as_result(labels, centers, meta) -> ClusteringResult:
@@ -201,6 +333,9 @@ class DeviceConvexClustering:
             generator, torch.as_tensor(points).to(torch.float32), k=k,
             **options))
 
+    def admissibility_alpha(self, m: int, c_min: int) -> float:
+        return alpha_convex_clustering(m, c_min)
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceClusterpath:
@@ -226,6 +361,9 @@ class DeviceClusterpath:
             generator, torch.as_tensor(points).to(torch.float32), k=k,
             **options))
 
+    def admissibility_alpha(self, m: int, c_min: int) -> float:
+        return alpha_convex_clustering(m, c_min)
+
 
 @dataclasses.dataclass(frozen=True)
 class ConvexClustering:
@@ -248,6 +386,9 @@ class ConvexClustering:
         return _as_result(res.labels, res.centers,
                           {"lam": res.lam, "n_clusters": res.n_clusters})
 
+    def admissibility_alpha(self, m: int, c_min: int) -> float:
+        return alpha_convex_clustering(m, c_min)
+
 
 @dataclasses.dataclass(frozen=True)
 class Clusterpath:
@@ -261,6 +402,9 @@ class Clusterpath:
         best, _ = clusterpath(points, n_lambdas=n_lambdas, iters=iters)
         return _as_result(best.labels, best.centers,
                           {"lam": best.lam, "n_clusters": best.n_clusters})
+
+    def admissibility_alpha(self, m: int, c_min: int) -> float:
+        return alpha_convex_clustering(m, c_min)
 
 
 # ------------------------------------------------------------- registry
@@ -298,7 +442,8 @@ def list_algorithms() -> tuple:
 
 
 # host Lloyd-family names and the kmeans-device init that reproduces them
-LLOYD_DEVICE_INIT = {"kmeans": "random", "kmeans++": "kmeans++"}
+LLOYD_DEVICE_INIT = {"kmeans": "random", "kmeans++": "kmeans++",
+                     "spectral": "spectral"}
 
 
 def device_twin(algo):
@@ -311,23 +456,72 @@ def device_twin(algo):
     return twin if twin is not None and is_device_algorithm(twin) else None
 
 
-def resolve_device_request(algorithm, options: Optional[dict] = None):
+def resolve_device_request(algorithm, options: Optional[dict] = None, *,
+                           strict: bool = True):
     """Map a request onto something the device engine runs: device names
     and names with a registered ``"-device"`` twin pass through (the
     caller upgrades a twin), the Lloyd-family names map onto
-    ``kmeans-device`` with their init.  Returns ``(algorithm, options)``;
-    anything else raises."""
-    if isinstance(algorithm, str) and algorithm in LLOYD_DEVICE_INIT:
-        return "kmeans-device", {"init": LLOYD_DEVICE_INIT[algorithm],
-                                 **(options or {})}
+    ``kmeans-device`` with their init (the mapping outranks the twin, so
+    ``kmeans`` keeps its random init).  Returns ``(algorithm,
+    options)``; any other name raises when ``strict`` (engine='device')
+    and passes through when not (engine='auto', the host path)."""
     algo = get_algorithm(algorithm)
-    if not (is_device_algorithm(algo) or device_twin(algo) is not None):
-        raise ValueError(f"{getattr(algo, 'name', algo)!r} is not a device "
-                         "clustering algorithm and has no '-device' twin")
+    if is_device_algorithm(algo):
+        return algorithm, options
+    name = getattr(algo, "name", algorithm)
+    if name in LLOYD_DEVICE_INIT:
+        return "kmeans-device", {"init": LLOYD_DEVICE_INIT[name],
+                                 **(options or {})}
+    if device_twin(algo) is not None:
+        return algorithm, options
+    if strict:
+        raise ValueError(
+            f"engine='device' needs a device-capable algorithm (e.g. "
+            f"kmeans-device), a Lloyd-family name, or a name with a "
+            f"registered '-device' twin, not {name!r}")
     return algorithm, options
 
 
-for _algo in (DeviceLloydFamily(), DeviceConvexClustering(),
-              DeviceClusterpath(), ConvexClustering(), Clusterpath()):
+def resolve_host_request(algorithm, options: Optional[dict] = None):
+    """Map a request onto the host clustering path, the mirror of
+    ``resolve_device_request``: host names pass through, ``kmeans-device``
+    maps back to the host Lloyd name of its ``init`` option, other
+    ``"<name>-device"`` names to their registered ``"<name>"``.  A
+    twin-less device name, or a device-only option such as
+    ``init='warm'``, raises ``ValueError``.  Returns ``(algorithm,
+    options)``."""
+    algo = get_algorithm(algorithm)
+    name = getattr(algo, "name", algorithm)
+    if not (isinstance(name, str) and name.endswith("-device")):
+        return algorithm, options
+    opts = dict(options or {})
+    if name == "kmeans-device":
+        init = opts.pop("init", "kmeans++")
+        host = {v: n for n, v in LLOYD_DEVICE_INIT.items()}.get(init)
+        if host is None:
+            raise ValueError(
+                f"engine='host' cannot run kmeans-device init={init!r}; "
+                f"host Lloyd inits: {sorted(LLOYD_DEVICE_INIT.values())}")
+        return host, (opts or None)
+    base = name[: -len("-device")]
+    if base in _REGISTRY:
+        return base, options
+    raise ValueError(
+        f"engine='host' cannot run device-only algorithm {name!r}: no "
+        f"registered host base {base!r}")
+
+
+for _algo in (
+    LloydFamily(name="kmeans", init="random"),
+    LloydFamily(name="kmeans++", init="kmeans++"),
+    LloydFamily(name="spectral", init="spectral"),
+    DeviceLloydFamily(),
+    GradientClustering(),
+    DeviceGradientClustering(),
+    ConvexClustering(),
+    Clusterpath(),
+    DeviceConvexClustering(),
+    DeviceClusterpath(),
+):
     register_algorithm(_algo)
 del _algo

@@ -10,11 +10,22 @@ steps of its ``scan`` frozen; this loop stops there instead, at the
 cost of one host sync per iteration, with the same centers, labels and
 ``n_iter``.
 
+Two options on top of the plain loop, as in the reference:
+
+  * ``batch_m=b``: minibatch Lloyd.  Every iteration assigns and
+    re-accumulates a without-replacement sample of b rows, drawn by the
+    row sampler (``randperm_rows`` on the generator by default; the
+    parity tests replay the reference's rows); the final labels and
+    inertia are over all rows.  ``batch_m >= m`` is the full loop.
+  * ``aggregator``: a robust center update.  The kernel's labels feed the
+    registry aggregator (its sums go unused), and restarts are scored by
+    the trimmed objective, the sum of the m - t smallest row distances
+    with t = int(min(breakdown, 0.45) * m).
+
 Inertia is computed directly, sum_i ||x_i - c_label(i)||^2.  The
 reference's accumulator formula (``device_kmeans.py:115-121``,
 ``sum ||x||^2 - 2 sum <sums, c> + sum counts ||c||^2``) loses digits to
-cancellation and is not copied.  ``batch_m`` (minibatch Lloyd), the
-spectral init and robust center updates come later.
+cancellation and is not copied.
 """
 from __future__ import annotations
 
@@ -22,22 +33,21 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.clustering.kmeans import (
-    kmeans_plus_plus_init,
-    random_init,
-)
+from repro_torch.core.clustering.kmeans import init_centers as seed_centers
+from repro_torch.core.clustering.kmeans import randperm_rows
 from repro_torch.kernels import ops as kops
 
 
 class DeviceKMeansResult(NamedTuple):
     labels: torch.Tensor          # (m,) int32 cluster assignment
     centers: torch.Tensor         # (k, d) float32 cluster centers
-    inertia: torch.Tensor         # () sum of squared distances to the center
+    inertia: torch.Tensor         # () the restart objective (see above)
     n_iter: int                   # Lloyd iterations actually run
     restart_spread: float = 0.0   # max - min final inertia over restarts
 
 
-def _init_centers(generator, points, k: int, init: str, init_centers):
+def _init_centers(generator, points, k: int, init: str, init_centers,
+                  sampler):
     if init == "warm":
         if init_centers is None:
             raise ValueError("init='warm' requires init_centers")
@@ -47,12 +57,7 @@ def _init_centers(generator, points, k: int, init: str, init_centers):
             raise ValueError(f"init_centers must be ({k}, {points.shape[1]}), "
                              f"got {tuple(centers.shape)}")
         return centers.clone()
-    if init == "kmeans++":
-        return kmeans_plus_plus_init(generator, points, k)
-    if init == "random":
-        return random_init(generator, points, k)
-    raise ValueError(f"unknown init {init!r}; the port has 'kmeans++', "
-                     "'random' and 'warm' (spectral comes later)")
+    return seed_centers(generator, points, k, init, sampler)
 
 
 def direct_inertia(points, centers, labels) -> torch.Tensor:
@@ -60,13 +65,33 @@ def direct_inertia(points, centers, labels) -> torch.Tensor:
     return torch.sum((points - centers[labels.long()]) ** 2)
 
 
+def trimmed_inertia(points, centers, labels, t: int) -> torch.Tensor:
+    """The trimmed k-means objective: the sum of the m - t smallest row
+    distances (the t farthest rows pay nothing)."""
+    d2 = torch.sum((points - centers[labels.long()]) ** 2, dim=1)
+    return torch.sum(torch.topk(d2, d2.shape[0] - t, largest=False,
+                                sorted=False).values)
+
+
 def _lloyd(generator, points, k: int, iters: int, init: str, tol: float,
-           init_centers) -> DeviceKMeansResult:
-    centers = _init_centers(generator, points, k, init, init_centers)
+           init_centers, batch_m: Optional[int], aggregator,
+           sampler) -> DeviceKMeansResult:
+    m = points.shape[0]
+    centers = _init_centers(generator, points, k, init, init_centers,
+                            sampler)
     n_iter = 0
     for _ in range(iters):
-        _, sums, counts = kops.kmeans_assign(points, centers)
-        means = sums / torch.clamp_min(counts, 1.0)[:, None]
+        if batch_m is None:
+            batch = points
+        else:
+            batch = points[sampler(generator, m, batch_m).to(points.device)]
+        labels_b, sums, counts = kops.kmeans_assign(batch, centers)
+        if aggregator is None:
+            means = sums / torch.clamp_min(counts, 1.0)[:, None]
+        else:
+            onehot = torch.nn.functional.one_hot(labels_b.long(), k).to(
+                torch.float32)
+            means = aggregator(batch, labels_b, onehot, counts)
         new_centers = torch.where(counts[:, None] > 0, means, centers)
         moved = torch.max(torch.sum((new_centers - centers) ** 2, dim=1))
         centers = new_centers
@@ -74,9 +99,12 @@ def _lloyd(generator, points, k: int, iters: int, init: str, tol: float,
         if bool(moved < tol):
             break
     labels, _, _ = kops.kmeans_assign(points, centers)
+    trim = min(float(getattr(aggregator, "breakdown", 0.0) or 0.0), 0.45)
+    t = int(trim * m)
+    inertia = (direct_inertia(points, centers, labels) if t == 0
+               else trimmed_inertia(points, centers, labels, t))
     return DeviceKMeansResult(labels=labels, centers=centers,
-                              inertia=direct_inertia(points, centers, labels),
-                              n_iter=n_iter)
+                              inertia=inertia, n_iter=n_iter)
 
 
 def _restart_generator(generator: torch.Generator, i: int) -> torch.Generator:
@@ -89,33 +117,35 @@ def _restart_generator(generator: torch.Generator, i: int) -> torch.Generator:
 
 def device_kmeans(generator: torch.Generator, points: torch.Tensor, k: int,
                   iters: int = 50, init: str = "kmeans++", tol: float = 1e-8,
-                  restarts: int = 1,
-                  init_centers=None) -> DeviceKMeansResult:
+                  restarts: int = 1, batch_m: Optional[int] = None,
+                  aggregator=None, init_centers=None,
+                  sampler=None) -> DeviceKMeansResult:
     """Lloyd's algorithm on the fused assign kernel.
 
-    ``restarts=r`` runs r inits, the caller's generator first, and keeps
-    the lowest inertia (``restart_spread`` reports max - min); a warm
-    start (``init="warm"`` from ``init_centers``) ignores the generator,
-    so it runs once."""
+    ``init``: ``kmeans++`` | ``spectral`` | ``random`` | ``warm`` (from
+    ``init_centers``).  ``restarts=r`` runs r inits, the caller's
+    generator first, and keeps the lowest objective (``restart_spread``
+    reports max - min); spectral seeding and a warm start ignore the
+    generator, so at full batch they run once.  ``batch_m`` samples that
+    many rows an iteration (``>= m`` is the full loop); ``aggregator`` (a
+    registry instance, ``None`` for the kernel's mean) replaces the
+    center update; ``sampler(generator, m, n)`` draws the rows of the
+    random init and of every minibatch."""
     points = points.to(torch.float32).contiguous()
-    if init == "warm":
+    m = points.shape[0]
+    sampler = randperm_rows if sampler is None else sampler
+    if batch_m is not None and batch_m >= m:
+        batch_m = None                      # the full loop
+    if init in ("spectral", "warm") and batch_m is None:
         restarts = 1
     if restarts <= 1:
-        return _lloyd(generator, points, k, iters, init, tol, init_centers)
+        return _lloyd(generator, points, k, iters, init, tol, init_centers,
+                      batch_m, aggregator, sampler)
     runs = [_lloyd(generator if i == 0 else _restart_generator(generator, i),
-                   points, k, iters, init, tol, init_centers)
+                   points, k, iters, init, tol, init_centers, batch_m,
+                   aggregator, sampler)
             for i in range(restarts)]
     inertias = torch.stack([r.inertia for r in runs]).cpu()
     best = int(torch.argmin(inertias))
     return runs[best]._replace(
         restart_spread=float(inertias.max() - inertias.min()))
-
-
-def _check_options(batch_m: Optional[int], m: int, aggregator) -> None:
-    if batch_m is not None and batch_m < m:
-        raise NotImplementedError("minibatch Lloyd (batch_m < m) is not "
-                                  "ported yet")
-    if aggregator is not None and getattr(aggregator, "name",
-                                          aggregator) != "mean":
-        raise NotImplementedError("robust Lloyd center updates are not "
-                                  "ported yet; only the mean")

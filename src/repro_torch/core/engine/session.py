@@ -27,9 +27,15 @@ mutable service (the port of ``repro/core/engine/session.py``).
     clients, one program and ONE host transfer per batch, which also
     feeds the ``drift`` gauge that ``maybe_refinalize`` triggers on.
 
+``finalize(engine="host")`` runs the registry's unfused path instead:
+``odcl.run_clustering`` of the host family (the Lloyd names, ``gradient``,
+``convex``, ``clusterpath``; an explicit ``"<name>-device"`` downgrades
+to its host base) over the snapshot's sketches, on the session's device,
+then the per-cluster reduction and a fresh AdamW state for every client.
+
 Every wait is local to the calling thread's current stream, so a round
 computed on a worker's stream does not stall routes and ingests on
-other threads.  ``engine="host"`` is not ported yet.
+other threads.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from repro_torch.core.clustering.api import (
     is_device_algorithm,
     meta_to_host,
     resolve_device_request,
+    resolve_host_request,
 )
 from repro_torch.core.engine.aggregate import (
     _cluster_program,
@@ -57,6 +64,7 @@ from repro_torch.core.engine.aggregate import (
     materialize_round,
 )
 from repro_torch.core.engine.aggregators import get_aggregator
+from repro_torch.core.engine.device_kmeans import direct_inertia
 from repro_torch.core.engine.staleness import make_staleness_policy
 from repro_torch.core.federated import FederatedState
 from repro_torch.core.sketch import (
@@ -65,7 +73,9 @@ from repro_torch.core.sketch import (
     sketch_stacked,
     sketch_tree,
 )
+from repro_torch.core.odcl import run_clustering
 from repro_torch.device import resolve_device
+from repro_torch.optim import adamw_init
 from repro_torch.utils import tree_leaves, tree_map
 
 
@@ -340,7 +350,8 @@ class AggregationSession:
                                       dtype=l.dtype, device=self.device),
                 wave)
         offset = int(rows[0])
-        with obs.span("session.ingest"):
+        with obs.span("session.ingest", wave=w, offset=offset,
+                      mode="params"):
             self._write_rows(self._sketches, rows,
                              sketch_stacked(wave, projection))
             for buf, l in zip(tree_leaves(self._params), leaves):
@@ -366,7 +377,8 @@ class AggregationSession:
         rows, n_from_free = self._alloc_rows(w, client_ids)
         self._mode = "sketches"    # only after validation
         offset = int(rows[0])
-        with obs.span("session.ingest"):
+        with obs.span("session.ingest", wave=w, offset=offset,
+                      mode="sketches"):
             self._write_rows(self._sketches, rows, sketches)
             self._sync()
         obs.count("session.ingest.clients", w)
@@ -452,10 +464,15 @@ class AggregationSession:
     def finalize(self, *, algorithm="kmeans-device", k: Optional[int] = None,
                  algo_options: Optional[dict] = None, engine: str = "device",
                  aggregator="mean"):
-        """Steps 2-4 over the live rows on the device.  Returns
-        ``(new_state, labels, info)`` (``new_state is None`` for
-        sketch-only sessions).  The arguments are remembered:
-        ``refinalize()`` replays them warm-started."""
+        """Steps 2-4 over the live rows.  Returns ``(new_state, labels,
+        info)`` (``new_state is None`` for sketch-only sessions).
+        ``engine``: ``device`` (the fused programs), ``host`` (the
+        registry's host families) or ``auto`` (device where the algorithm
+        has a device form).  ``aggregator`` names the per-cluster
+        parameter reduction (``mean`` | ``trimmed_mean`` | ``median`` |
+        ``geometric_median`` | an instance) on both engines.  The
+        arguments are remembered: ``refinalize()`` replays them
+        warm-started."""
         return self.finalize_snapshot(
             self.snapshot(), algorithm=algorithm, k=k,
             algo_options=algo_options, engine=engine, aggregator=aggregator)
@@ -494,49 +511,101 @@ class AggregationSession:
         if engine not in ("auto", "host", "device"):
             raise ValueError(f"engine must be auto|host|device, got "
                              f"{engine!r}")
-        if engine == "host":
-            raise NotImplementedError(
-                "engine='host' is not ported yet (ROADMAP queue A, item 3); "
-                "use engine='device'")
         kwargs = dict(algorithm=algorithm, k=k, algo_options=algo_options,
                       engine=engine, aggregator=aggregator)
-        algorithm, algo_options = resolve_device_request(algorithm,
-                                                         algo_options)
+        if engine == "host":
+            # explicit device names downgrade to their host base (or raise
+            # for device-only families)
+            algorithm, algo_options = resolve_host_request(algorithm,
+                                                           algo_options)
+        else:
+            algorithm, algo_options = resolve_device_request(
+                algorithm, algo_options, strict=engine == "device")
         algo = get_algorithm(algorithm)
-        if not is_device_algorithm(algo):
-            algo = device_twin(algo)     # "convex" runs as "convex-device"
+        dev = algo if is_device_algorithm(algo) else device_twin(algo)
+        use_device = engine != "host" and dev is not None
+        if use_device:
+            algo = dev                   # "convex" runs as "convex-device"
         k_eff = k if algo.requires_k else None
         self._adopt(snap)
-        with obs.span("session.refinalize" if warm else "session.finalize"):
-            generator = make_generator(self.cluster_seed, self.device)
-            if self._warm_usable(algo, warm, snap.count):
-                res = _warm_cluster_program(algo, k_eff, algo_options)(
-                    generator, snap.sketches, self._warm_state)
-                mode = "warm"
+        with obs.span("session.refinalize" if warm else "session.finalize",
+                      count=snap.count,
+                      algorithm=getattr(algo, "name", str(algo)),
+                      engine="device" if use_device else "host"):
+            if use_device:
+                out, served = self._finalize_device(
+                    algo, k_eff, algo_options, snap, aggregator, warm)
             else:
-                res = _cluster_program(algo, k_eff, algo_options)(
-                    generator, snap.sketches)
-                mode = "cold"
-            self._cache_warm_state(algo, res, snap.count)
-            if snap.params is None:
-                labels, uniq, first = compact_labels(res.labels)
-                info = {"n_clusters": int(len(uniq)),
-                        "meta": meta_to_host(res.meta), "engine": "device"}
-                out = (None, labels, info)
-            else:
-                new_params = self._average_params(res, snap.params,
-                                                  aggregator, snap.weights)
-                state = FederatedState(params=snap.params, opt_state=None,
-                                       n_clients=snap.count, step=0)
-                new_state, labels, info, uniq, first = materialize_round(
-                    new_params, res, state)
-                out = (new_state, labels, info)
-            info["count"] = snap.count
-            info["refinalize"] = mode if warm else None
-            info["snapshot_clock"] = snap.clock
-            served = self._make_served(out, res, uniq, first, snap)
+                out, served = self._finalize_host(
+                    algo, k_eff, algo_options, snap, aggregator)
         self._finalize_kwargs = kwargs
         return out, served
+
+    def _finalize_device(self, algo, k, algo_options, snap, aggregator,
+                         warm):
+        generator = make_generator(self.cluster_seed, self.device)
+        if self._warm_usable(algo, warm, snap.count):
+            res = _warm_cluster_program(algo, k, algo_options)(
+                generator, snap.sketches, self._warm_state)
+            mode = "warm"
+        else:
+            res = _cluster_program(algo, k, algo_options)(
+                generator, snap.sketches)
+            mode = "cold"
+        self._cache_warm_state(algo, res, snap.count)
+        if snap.params is None:
+            labels, uniq, first = compact_labels(res.labels)
+            info = {"n_clusters": int(len(uniq)),
+                    "meta": meta_to_host(res.meta), "engine": "device"}
+            out = (None, labels, info)
+        else:
+            new_params = self._average_params((res.labels, res.centers),
+                                              snap.params, aggregator,
+                                              snap.weights)
+            state = FederatedState(params=snap.params, opt_state=None,
+                                   n_clients=snap.count, step=0)
+            new_state, labels, info, uniq, first = materialize_round(
+                new_params, res, state)
+            out = (new_state, labels, info)
+        info["count"] = snap.count
+        info["refinalize"] = mode if warm else None
+        info["snapshot_clock"] = snap.clock
+        idx = torch.as_tensor(uniq, dtype=torch.long, device=self.device)
+        # the meta inertia of both device families is the direct sum of
+        # row d^2 to the assigned centers
+        served = self._make_served(out, res.centers[idx].contiguous(),
+                                   res.meta["inertia"], first, snap)
+        return out, served
+
+    def _finalize_host(self, algo, k, algo_options, snap, aggregator):
+        """The registry's unfused path on the session's device: the host
+        family clusters the snapshot's sketches (``run_clustering``, with
+        its Definition-1 margins in the meta), then the per-cluster
+        reduction of the parameters and a fresh AdamW state."""
+        sketches, params, weights = snap.sketches, snap.params, snap.weights
+        with obs.span("session.finalize.cluster", engine="host"):
+            result = run_clustering(
+                make_generator(self.cluster_seed, self.device), sketches,
+                algo, k=k, **(algo_options or {}))
+        labels, _, first = compact_labels(torch.as_tensor(result.labels))
+        info = {"n_clusters": result.n_clusters, "meta": result.meta,
+                "engine": "host", "count": snap.count,
+                "snapshot_clock": snap.clock}
+        centers = torch.as_tensor(result.centers, dtype=torch.float32).to(
+            self.device)
+        labels_t = torch.as_tensor(labels).to(self.device)
+        inertia = direct_inertia(sketches, centers, labels_t)
+        if params is None:
+            out = (None, labels, info)
+            return out, self._make_served(out, centers, inertia, first, snap)
+        with obs.span("session.finalize.mean", engine="host"):
+            new_params = self._average_params((labels_t, centers), params,
+                                              aggregator, weights)
+        new_state = FederatedState(
+            params=new_params, opt_state=adamw_init(new_params, snap.count),
+            n_clients=snap.count, step=0)
+        out = (new_state, labels, info)
+        return out, self._make_served(out, centers, inertia, first, snap)
 
     def _adopt(self, snap: SessionSnapshot) -> None:
         """The snapshot was copied on the snapshotting thread's stream and
@@ -578,37 +647,37 @@ class AggregationSession:
             self._warm_state = state
             self._warm_count = count
 
-    def _average_params(self, res, params, aggregator, weights):
-        """The mean phase: the unweighted program, or the weighted mean
-        where the staleness policy supplies decay weights (only for the
-        ``mean`` aggregator, as in the reference)."""
+    def _average_params(self, clustering, params, aggregator, weights):
+        """The mean phase over ``clustering`` = (labels, centers): the
+        unweighted program, or the weighted mean where the staleness policy
+        supplies decay weights (only for the ``mean`` aggregator, as in
+        the reference)."""
+        labels, centers = clustering
         if weights is None:
-            return _mean_program(aggregator)(res.labels, res.centers, params)
+            return _mean_program(aggregator)(labels, centers, params)
         name = get_aggregator(aggregator).name
         if name != "mean":
             raise ValueError(
                 "staleness weighting (exp_decay) requires the 'mean' "
                 f"aggregator, got {name!r}")
         return _weighted_mean_program()(
-            res.labels, res.centers, params,
+            labels, centers, params,
             torch.as_tensor(np.asarray(weights), dtype=torch.float32,
                             device=self.device))
 
-    def _make_served(self, out, res, uniq, first, snap) -> ServedRound:
+    def _make_served(self, out, centers, inertia, first, snap) -> ServedRound:
         """Bundle a round with its drift anchor: the clustering's mean row
-        inertia, and the mean row scale as the degenerate fallback."""
+        inertia (``inertia``, the direct sum of row d^2 to the assigned
+        centers), and the mean row scale as the degenerate fallback."""
         sk = snap.sketches
         centred = sk - torch.mean(sk, dim=0, keepdim=True)
-        # the meta inertia of both families is the direct sum of row d^2
-        # to the assigned centers
         anchors = torch.stack([
-            res.meta["inertia"].to(torch.float32),
+            inertia.to(torch.float32),
             torch.mean(torch.sum(centred * centred, dim=1)),
         ]).cpu().tolist()
-        idx = torch.as_tensor(uniq, dtype=torch.long, device=self.device)
-        return ServedRound(out=out, centers=res.centers[idx].contiguous(),
+        return ServedRound(out=out, centers=centers,
                            first_idx=np.asarray(first),
-                           n_clusters=int(len(uniq)),
+                           n_clusters=int(len(first)),
                            finalized_d2=anchors[0] / max(snap.count, 1),
                            finalized_scale=anchors[1],
                            clock=snap.clock, count=snap.count)
@@ -639,7 +708,7 @@ class AggregationSession:
         if n == 0:
             raise ValueError("route() needs at least one probe "
                              "(got an empty batch)")
-        with obs.span("session.route"):
+        with obs.span("session.route", n=n):
             out, batch_d2 = _route_program()(pts, served.centers)
         obs.count("session.route.requests", n)
         self._routed_d2_sum += batch_d2

@@ -3,7 +3,8 @@
 The reference (JAX) and the port (PyTorch) draw different numbers from
 the same seed, so a parity test hands the reference's values across as
 numpy arrays: the stacked client parameters, the (n, sketch_dim) JL
-projection, (k, d) init centers, the (n_tables, d) LSH directions
+projection, (k, d) init centers, the rows of the ``random`` init and of
+every minibatch Lloyd iteration, the (n_tables, d) LSH directions
 of the approximate kNN fusion graph, and a decoder LM's parameter tree.
 Both packages then compute the same thing.  Nothing here imports the
 reference.
@@ -65,6 +66,36 @@ def centers_from_numpy(centers, device=None) -> torch.Tensor:
     if c.ndim != 2:
         raise ValueError(f"centers must be (k, d), got {tuple(c.shape)}")
     return c
+
+
+class RowReplay:
+    """A row sampler (``sampler(generator, m, n)``, as ``device_kmeans``
+    and ``kmeans`` take it) that hands out given draws in order and
+    ignores the generator: the reference's ``random`` init rows first
+    (where the run has that init), then one draw per minibatch iteration.
+    ``calls`` counts the draws taken."""
+
+    def __init__(self, *draws):
+        self._draws = [np.asarray(d, np.int64) for d in draws]
+        self.calls = 0
+
+    def __call__(self, generator, m: int, n: int) -> torch.Tensor:
+        if self.calls >= len(self._draws):
+            raise ValueError(f"row draw {self.calls} asked for, only "
+                             f"{len(self._draws)} given")
+        rows = self._draws[self.calls]
+        if rows.shape != (n,) or rows.min() < 0 or rows.max() >= m:
+            raise ValueError(f"row draw {self.calls} is {rows.shape} in "
+                             f"[{rows.min()}, {rows.max()}], not ({n},) "
+                             f"rows of {m}")
+        self.calls += 1
+        return torch.from_numpy(rows.copy()).to(generator.device)
+
+
+def rows_from_numpy(*draws) -> RowReplay:
+    """The reference's row draws (each an (n,) index array) as a row
+    sampler that replays them in order."""
+    return RowReplay(*draws)
 
 
 def directions_from_numpy(directions, device=None) -> torch.Tensor:

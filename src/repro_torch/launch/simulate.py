@@ -2,14 +2,20 @@
 ``repro/launch/simulate.py``'s ``odcl`` path).
 
 Clients are drawn and solved in waves: each wave draws ``wave`` clients'
-covariates and responses from their cluster's ridge model, solves every
-closed-form local ERM in one batched solve, and ingests the wave into an
-``AggregationSession`` (JL sketch on the device). The server round is
-``session.finalize()``: ODCL-KM (``kmeans-device``: kmeans++ seeding,
-Lloyd) or ODCL-CC (``convex-device`` at the paper's E.1 exact lambda,
-the midpoint of the recovery interval (17) of the true clustering;
-``clusterpath-device``, K-free; ``--edges`` picks the fusion graph),
-then the per-cluster parameter mean. ``finalize_repeats`` counts the
+covariates and responses from their cluster's model (``--task ridge``:
+noisy linear responses, closed-form ridge ERMs; ``--task logistic``:
+labels y = +-1 ~ sigmoid(z), 8 Newton steps, d + 1 parameters a client),
+solves every local ERM in one batched solve, and ingests the wave into
+an ``AggregationSession`` (JL sketch on the device). The server round is
+``session.finalize()``: ODCL-KM (``kmeans-device``: kmeans++, spectral
+or random seeding, then Lloyd; the host Lloyd names map onto it),
+gradient clustering (``gradient-device``) or ODCL-CC
+(``convex-device`` at the paper's E.1 exact lambda, the midpoint of the
+recovery interval (17) of the true clustering; ``clusterpath-device``,
+K-free; ``--edges`` picks the fusion graph), then the per-cluster
+parameter reduction (``--aggregator``; a robust one also drives the
+Lloyd center update).  ``--trace PATH`` writes every span and event of
+the run as JSON lines. ``finalize_repeats`` counts the
 finalizes in all: the first is reported alone (``finalize_first_ms``),
 the warm repeats give the finalize percentiles. ``route_probes`` then
 routes fresh, never-seen clients one request at a time (latency
@@ -32,6 +38,8 @@ per request, then batched across callers.
       --edges knn --clients 512 --device cpu
   python -m repro_torch.launch.simulate --clients 4096 --reupload-frac 0.25 \
       --churn 64 --max-age 3 --refinalize-threshold 1.5 --device cpu
+  python -m repro_torch.launch.simulate --task logistic --init spectral \
+      --aggregator trimmed_mean --trace trace.jsonl --device cpu
 """
 from __future__ import annotations
 
@@ -43,12 +51,22 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.clustering.api import LLOYD_DEVICE_INIT, list_algorithms
+from repro_torch.core.clustering.api import (
+    LLOYD_DEVICE_INIT,
+    device_twin,
+    get_algorithm,
+    is_device_algorithm,
+    list_algorithms,
+)
 from repro_torch.core.clustering.convex import lambda_interval
+from repro_torch.core.engine.aggregators import (
+    list_aggregators,
+    make_aggregator,
+)
 from repro_torch.core.engine.edges import list_edge_sets
 from repro_torch.core.engine.session import AggregationSession
 from repro_torch.core.engine.staleness import make_staleness_policy
-from repro_torch.core.erm import batched_ridge_erm
+from repro_torch.core.erm import batched_logistic_erm, batched_ridge_erm
 from repro_torch.core.federated import (
     cluster_agreement,
     params_bytes_per_client,
@@ -83,29 +101,80 @@ def wave_ridge_erm(generator: torch.Generator, optima, labels, *, n: int,
     return batched_ridge_erm(x, y, reg)
 
 
+def wave_logistic_erm(generator: torch.Generator, optima, labels, *, n: int,
+                      reg: float = 1e-6, newton_iters: int = 8):
+    """One wave of the logistic task: labels y = +-1 with P(y = 1) =
+    sigmoid(x . optimum), every client's damped-Newton ERM.  Returns the
+    (wave, d + 1) stack of local models (w, b)."""
+    w, d = labels.shape[0], optima.shape[1]
+    x = torch.randn((w, n, d), generator=generator, device=optima.device)
+    z = torch.einsum("wnd,wd->wn", x, optima[labels])
+    u = torch.rand((w, n), generator=generator, device=optima.device)
+    y = 2.0 * (u < torch.sigmoid(z)).to(torch.float32) - 1.0
+    return batched_logistic_erm(x, y, reg, newton_iters)
+
+
+def wave_erm(generator: torch.Generator, optima, labels, *, n: int,
+             task: str = "ridge"):
+    """One wave of step 1 for ``task`` (``ridge`` | ``logistic``)."""
+    if task == "ridge":
+        return wave_ridge_erm(generator, optima, labels, n=n)
+    if task == "logistic":
+        return wave_logistic_erm(generator, optima, labels, n=n)
+    raise ValueError(f"unknown task {task!r}")
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()
 
 
 def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
-             wave: int = 4096, sketch_dim: int = 64,
+             wave: int = 4096, task: str = "ridge", sketch_dim: int = 64,
              algorithm: str = "kmeans-device", init: str = "kmeans++",
              kmeans_iters: int = 50, restarts: int = 1,
              cc_iters: int = 300, edges: str = "complete", knn_k: int = 8,
-             seed: int = 0, route_probes: int = 0, finalize_repeats: int = 1,
+             aggregator: str = "mean", trim_beta: float = 0.1,
+             seed: int = 0, trace: str | None = None,
+             route_probes: int = 0, finalize_repeats: int = 1,
              reupload_frac: float = 0.0, churn: int = 0,
              max_age: int | None = None,
              refinalize_threshold: float | None = None,
              mutation_rounds: int = 3, drift_scale: float = 2.0,
              qps_callers: int = 0, qps_duration: float = 2.0,
              device=None) -> dict:
-    """Stream a K-cluster federation of ``clients`` ridge clients into an
-    ``AggregationSession``, run the one-shot round, and return a summary
-    (per-phase wall clock, purity, MSE, serving latencies).  Runs on CUDA
-    unless ``device="cpu"``."""
+    """Stream a K-cluster federation of ``clients`` ridge or logistic
+    clients into an ``AggregationSession``, run the one-shot round, and
+    return a summary (per-phase wall clock, purity, MSE of the ridge
+    task, serving latencies).  ``trace`` attaches a JSONL sink for the
+    run.  Runs on CUDA unless ``device="cpu"``."""
     dev = resolve_device(device)
-    obs.reset()
+    obs.reset()                       # per-run aggregates; sinks survive
+    trace_sink = obs.add_sink(obs.JsonlSink(trace)) if trace else None
+    try:
+        return _simulate(
+            dev, clients=clients, clusters=clusters, dim=dim,
+            samples=samples, wave=wave, task=task, sketch_dim=sketch_dim,
+            algorithm=algorithm, init=init, kmeans_iters=kmeans_iters,
+            restarts=restarts, cc_iters=cc_iters, edges=edges, knn_k=knn_k,
+            aggregator=aggregator, trim_beta=trim_beta, seed=seed,
+            route_probes=route_probes, finalize_repeats=finalize_repeats,
+            reupload_frac=reupload_frac, churn=churn, max_age=max_age,
+            refinalize_threshold=refinalize_threshold,
+            mutation_rounds=mutation_rounds, drift_scale=drift_scale,
+            qps_callers=qps_callers, qps_duration=qps_duration)
+    finally:
+        if trace_sink is not None:
+            obs.remove_sink(trace_sink)
+            trace_sink.close()
+
+
+def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
+              sketch_dim, algorithm, init, kmeans_iters, restarts, cc_iters,
+              edges, knn_k, aggregator, trim_beta, seed, route_probes,
+              finalize_repeats, reupload_frac, churn, max_age,
+              refinalize_threshold, mutation_rounds, drift_scale,
+              qps_callers, qps_duration) -> dict:
     gen = make_generator(seed, dev)
     optima = staggered_optima(gen, clusters, dim)
     true_labels = torch.arange(clients, device=dev) % clusters
@@ -116,12 +185,13 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
     capacity = clients + (churn * mutation_rounds if mutated else 0)
     session = AggregationSession(capacity, sketch_dim=sketch_dim, seed=seed,
                                  device=dev)
+    agg = make_aggregator(aggregator, beta=trim_beta)
     t_erm = t_ingest = 0.0
     for start in range(0, clients, wave):
         w = min(wave, clients - start)
         t0 = time.perf_counter()
-        theta_w = wave_ridge_erm(gen, optima, true_labels[start:start + w],
-                                 n=samples)
+        theta_w = wave_erm(gen, optima, true_labels[start:start + w],
+                           n=samples, task=task)
         _sync(dev)
         t1 = time.perf_counter()
         session.ingest({"theta": theta_w},
@@ -143,18 +213,24 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
     else:
         algo_options = {"init": init, "iters": kmeans_iters,
                         "restarts": restarts}
+        if agg.name != "mean":
+            # robust Lloyd: the aggregator also replaces the center update
+            algo_options["aggregator"] = agg
     if convex_family:
         algo_options.update({"edges": edges, "knn_k": knn_k})
     t1 = time.perf_counter()
     new_state, labels, info = session.finalize(
-        algorithm=algorithm, k=clusters, algo_options=algo_options)
+        algorithm=algorithm, k=clusters, algo_options=algo_options,
+        aggregator=agg)
     _sync(dev)
     t_agg = time.perf_counter() - t1
 
     truth = true_labels.cpu().numpy()
     purity = cluster_agreement(labels, truth)
-    served = new_state.params["theta"]
-    mse = float(torch.mean((served - optima[true_labels]) ** 2))
+    mse = None
+    if task == "ridge":
+        served = new_state.params["theta"]
+        mse = float(torch.mean((served - optima[true_labels]) ** 2))
 
     serving = None
     if mutated or route_probes > 0 or finalize_repeats > 1:
@@ -164,7 +240,7 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
         for _ in range(max(0, finalize_repeats - 1)):
             tf = time.perf_counter()
             session.finalize(algorithm=algorithm, k=clusters,
-                             algo_options=algo_options)
+                             algo_options=algo_options, aggregator=agg)
             _sync(dev)
             h_fin.observe((time.perf_counter() - tf) * 1e3)
         serving = {"finalize_first_ms": t_agg * 1e3,
@@ -178,7 +254,8 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
         if route_probes > 0:
             # fresh never-seen clients from the same population
             probe_truth = torch.arange(route_probes, device=dev) % clusters
-            theta_p = wave_ridge_erm(gen, optima, probe_truth, n=samples)
+            theta_p = wave_erm(gen, optima, probe_truth, n=samples,
+                               task=task)
             _sync(dev)
             session.route(params={"theta": theta_p[0]})        # warmup
             # one client per request: each call's latency, and its label
@@ -218,19 +295,20 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
                 clusters=clusters, reupload_frac=reupload_frac, churn=churn,
                 max_age=max_age, refinalize_threshold=refinalize_threshold,
                 mutation_rounds=mutation_rounds, drift_scale=drift_scale,
-                finalize_repeats=finalize_repeats))
+                finalize_repeats=finalize_repeats, task=task))
 
     qps_server = None
     if qps_callers > 0:
         qps_server = _qps(session, gen, optima, clusters=clusters,
                           samples=samples, callers=qps_callers,
-                          duration_s=qps_duration)
+                          duration_s=qps_duration, task=task)
 
     return {
         "clients": clients, "clusters": clusters, "dim": dim,
-        "samples": samples, "wave": wave, "task": "ridge",
+        "samples": samples, "wave": wave, "task": task,
         "sketch_dim": sketch_dim, "seed": seed, "method": "odcl",
         "algorithm": algorithm, "init": init, "restarts": restarts,
+        "aggregator": agg.name,
         "lam": info["meta"]["lam"],
         "edges": edges if convex_family else None,
         "knn_k": knn_k if convex_family else None,
@@ -255,7 +333,7 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
 
 def _mutate(session, gen, optima, true_labels, *, samples, clusters,
             reupload_frac, churn, max_age, refinalize_threshold,
-            mutation_rounds, drift_scale, finalize_repeats) -> dict:
+            mutation_rounds, drift_scale, finalize_repeats, task) -> dict:
     """The drifted-population mutation loop (the reference's): keyed
     re-uploads and joiners drawn around SHIFTED optima, then drifted
     probes routed as one batch to move the drift gauge, then the
@@ -270,20 +348,20 @@ def _mutate(session, gen, optima, true_labels, *, samples, clusters,
     for r in range(mutation_rounds):
         if n_re > 0:
             sel = (np.arange(n_re) + r * n_re) % clients
-            theta_m = wave_ridge_erm(
+            theta_m = wave_erm(
                 gen, shifted, true_labels[torch.as_tensor(sel, device=dev)],
-                n=samples)
+                n=samples, task=task)
             session.ingest({"theta": theta_m}, client_ids=sel.tolist())
         if churn > 0:
             lab_c = torch.arange(churn, device=dev) % clusters
-            theta_c = wave_ridge_erm(gen, shifted, lab_c, n=samples)
+            theta_c = wave_erm(gen, shifted, lab_c, n=samples, task=task)
             session.ingest({"theta": theta_c},
                            client_ids=[("joiner", r, i)
                                        for i in range(churn)])
     n_probe = 4096
-    theta_p = wave_ridge_erm(gen, shifted,
-                             torch.arange(n_probe, device=dev) % clusters,
-                             n=samples)
+    theta_p = wave_erm(gen, shifted,
+                       torch.arange(n_probe, device=dev) % clusters,
+                       n=samples, task=task)
     session.route(session.sketch_params({"theta": theta_p}))
     drift_after = session.drift
     refinalize_fired = None
@@ -318,16 +396,16 @@ def _mutate(session, gen, optima, true_labels, *, samples, clusters,
 
 
 def _qps(session, gen, optima, *, clusters, samples, callers,
-         duration_s) -> dict:
+         duration_s, task) -> dict:
     """The ``RouteServer`` over the finalized session: ``callers``
     closed-loop threads per request, then batched across callers."""
     from repro_torch.serving.loadgen import closed_loop, warm_route_buckets
     from repro_torch.serving.server import RouteServer
 
     n_probe = 1024
-    theta_q = wave_ridge_erm(
+    theta_q = wave_erm(
         gen, optima, torch.arange(n_probe, device=optima.device) % clusters,
-        n=samples)
+        n=samples, task=task)
     probes = session.sketch_params({"theta": theta_q}).cpu().numpy()
     warm_route_buckets(session, probes[0], 64)
     server = RouteServer(session, max_batch=64, max_wait_ms=0.5)
@@ -351,6 +429,16 @@ def _qps(session, gen, optima, *, clusters, samples, callers,
     }
 
 
+def _device_runnable_algorithms() -> list:
+    """Registry names the device engine runs: device-capable algorithms,
+    names with a registered '-device' twin, and the Lloyd host names the
+    shared resolver maps onto kmeans-device inits."""
+    return [n for n in list_algorithms()
+            if n in LLOYD_DEVICE_INIT
+            or is_device_algorithm(get_algorithm(n))
+            or device_twin(get_algorithm(n)) is not None]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--clients", type=int, default=4096)
@@ -360,10 +448,11 @@ def main(argv=None):
                     help="data points per client (n)")
     ap.add_argument("--wave", type=int, default=4096,
                     help="clients drawn+solved+ingested per wave")
+    ap.add_argument("--task", choices=("ridge", "logistic"), default="ridge")
     ap.add_argument("--sketch-dim", type=int, default=64)
     ap.add_argument("--algorithm", default="kmeans-device",
-                    choices=sorted({*list_algorithms(), *LLOYD_DEVICE_INIT}))
-    ap.add_argument("--init", choices=("kmeans++", "random"),
+                    choices=_device_runnable_algorithms())
+    ap.add_argument("--init", choices=("kmeans++", "spectral", "random"),
                     default="kmeans++")
     ap.add_argument("--kmeans-iters", type=int, default=50)
     ap.add_argument("--restarts", type=int, default=1)
@@ -376,7 +465,15 @@ def main(argv=None):
                          "E = C*k) or 'knn-approx' (LSH candidates)")
     ap.add_argument("--knn-k", type=int, default=8,
                     help="neighbours per client for the kNN fusion graphs")
+    ap.add_argument("--aggregator", default="mean",
+                    choices=list(list_aggregators()),
+                    help="per-cluster step-3 reduction (a robust one also "
+                         "drives the Lloyd center update)")
+    ap.add_argument("--trim-beta", type=float, default=0.1,
+                    help="trim fraction for --aggregator trimmed_mean")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write every obs span/event of the run as JSONL")
     ap.add_argument("--route-probes", type=int, default=0)
     ap.add_argument("--finalize-repeats", type=int, default=1)
     ap.add_argument("--reupload-frac", type=float, default=0.0,
@@ -402,11 +499,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
     summary = simulate(
         clients=args.clients, clusters=args.clusters, dim=args.dim,
-        samples=args.samples, wave=args.wave, sketch_dim=args.sketch_dim,
+        samples=args.samples, wave=args.wave, task=args.task,
+        sketch_dim=args.sketch_dim,
         algorithm=args.algorithm, init=args.init,
         kmeans_iters=args.kmeans_iters, restarts=args.restarts,
         cc_iters=args.cc_iters, edges=args.edges, knn_k=args.knn_k,
-        seed=args.seed, route_probes=args.route_probes,
+        aggregator=args.aggregator, trim_beta=args.trim_beta,
+        seed=args.seed, trace=args.trace, route_probes=args.route_probes,
         finalize_repeats=args.finalize_repeats,
         reupload_frac=args.reupload_frac, churn=args.churn,
         max_age=args.max_age, refinalize_threshold=args.refinalize_threshold,
@@ -414,12 +513,15 @@ def main(argv=None):
         device=args.device)
     ph = summary["phases"]
     print(f"[simulate] C={summary['clients']} K={summary['clusters']} "
-          f"wave={summary['wave']} algo={summary['algorithm']} "
-          f"edges={summary['edges'] or '-'} device={summary['device_name']}")
+          f"task={summary['task']} wave={summary['wave']} "
+          f"algo={summary['algorithm']} edges={summary['edges'] or '-'} "
+          f"agg={summary['aggregator']} device={summary['device_name']}")
     print(f"[simulate] local ERMs {ph['local_erm_s']:.3f}s  ingest "
           f"{ph['ingest_s']:.3f}s  server round {ph['aggregate_s']:.3f}s")
+    mse = summary["mse"]
     print(f"[simulate] recovered K'={summary['n_clusters_recovered']} "
-          f"purity={summary['purity']:.3f} mse={summary['mse']:.3g} "
+          f"purity={summary['purity']:.3f} "
+          f"mse={'-' if mse is None else format(mse, '.3g')} "
           f"n_iter={summary['meta']['n_iter']} lam={summary['lam']}")
     sv = summary["serving"]
     if sv is not None and sv["finalize_p50_ms"] is not None:
@@ -444,6 +546,8 @@ def main(argv=None):
               f"{qs['direct_qps']:.0f}/s  batched {qs['batched_qps']:.0f}/s "
               f"p50={qs['batched_p50_ms']:.3f}ms "
               f"p99={qs['batched_p99_ms']:.3f}ms")
+    if args.trace:
+        print(f"[simulate] trace -> {args.trace}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=2)

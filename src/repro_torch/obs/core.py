@@ -1,22 +1,28 @@
 """Dependency-free telemetry core: spans, counters, gauges, histograms.
 
-The port's copy of the parts of ``repro/obs/core.py`` that its engine
-uses, so its spans and counters keep the reference's names.  Everything
-here is plain stdlib (no torch, no numpy), so the instrumented hot paths
-(``core/engine/session.py``, ``core/engine/aggregate.py``) pay a dict
-update and a ``perf_counter`` call and nothing else.
+The port's copy of ``repro/obs/core.py`` (``Registry.merge`` comes with
+the hierarchy), so its spans and counters keep the reference's names.
+Everything here is plain stdlib (no torch, no numpy), so the
+instrumented hot paths (``core/engine/session.py``,
+``core/engine/aggregate.py``) pay a dict update and a ``perf_counter``
+call and nothing else.
 
   * ``Registry``: counters (monotonic sums), gauges (last-write
     scalars) and histograms (raw-value series with numpy-convention
-    percentiles).
-  * ``Registry.span(name)``: context manager; on exit the duration
-    lands in the ``"<name>.ms"`` histogram.
+    percentiles), plus a thread-local span stack for nested timing.
+  * ``Registry.span(name, **fields)``: context manager; on exit the
+    duration lands in the ``"<name>.ms"`` histogram and a ``"span"``
+    event (its fields, ``parent``/``depth`` from the nesting stack and
+    ``ms``) goes to every attached sink.  The yielded dict carries the
+    measured ``ms`` after the block.
+  * sinks (``obs/sinks.py``): anything with ``emit(event: dict)``;
+    ``JsonlSink`` appends events as JSON lines (``simulate --trace``).
   * ``Registry.snapshot()``: the aggregates as one dict, which
     ``launch/simulate.py`` returns in its summary.
 
 A process-global registry backs the module-level functions (``span`` /
-``count`` / ``gauge`` / ``observe`` / ``snapshot`` / ``reset``), which
-is what the engine modules call.
+``count`` / ``gauge`` / ``observe`` / ``event`` / ``snapshot`` /
+``reset`` / ``add_sink``), which is what the engine modules call.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import contextlib
 import math
 import threading
 import time
-from typing import Iterable, Optional
+from typing import Any, Iterable, Optional
 
 
 class Histogram:
@@ -73,15 +79,18 @@ class Histogram:
 
 
 class Registry:
-    """Counters + gauges + histograms.  Mutations are guarded by a lock
-    (the engine is single-threaded today, but a serving loop need not
-    be)."""
+    """Counters + gauges + histograms + sinks + a span stack.  Mutations
+    are guarded by a lock (the route server's threads share the global
+    registry); the span stack is per thread.  ``reset()`` clears the
+    aggregates and keeps the attached sinks."""
 
     def __init__(self):
         self._lock = threading.Lock()
+        self._local = threading.local()
         self.counters: dict[str, float] = {}
         self.gauges: dict[str, float] = {}
         self.histograms: dict[str, Histogram] = {}
+        self._sinks: list[Any] = []
 
     # ----------------------------------------------------------- metrics
 
@@ -102,14 +111,64 @@ class Registry:
 
     # ------------------------------------------------------------- spans
 
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
     @contextlib.contextmanager
-    def span(self, name: str):
-        """Time a block: its duration lands in ``"<name>.ms"``."""
+    def span(self, name: str, **fields: Any):
+        """Time a block: its duration lands in ``"<name>.ms"`` and a
+        ``"span"`` event with ``fields`` and the nesting (``parent``,
+        ``depth``) goes to the sinks.  The yielded dict gains ``"ms"``."""
+        stack = self._stack()
+        info = {"name": name, **fields}
+        if stack:
+            info["parent"] = stack[-1]
+        info["depth"] = len(stack)
+        stack.append(name)
         t0 = time.perf_counter()
         try:
-            yield
+            yield info
         finally:
-            self.observe(f"{name}.ms", (time.perf_counter() - t0) * 1e3)
+            ms = (time.perf_counter() - t0) * 1e3
+            stack.pop()
+            info["ms"] = ms
+            self.observe(f"{name}.ms", ms)
+            self.event("span", **info)
+
+    # ------------------------------------------------------------- sinks
+
+    def add_sink(self, sink: Any) -> Any:
+        """Attach anything with ``emit(event: dict)`` (and optionally
+        ``close()``).  Returns the sink."""
+        with self._lock:
+            self._sinks.append(sink)
+        return sink
+
+    def remove_sink(self, sink: Any) -> None:
+        with self._lock:
+            if sink in self._sinks:
+                self._sinks.remove(sink)
+
+    def event(self, kind: str, **fields: Any) -> dict:
+        """Emit one structured event to every sink.  Returns the event."""
+        evt = {"event": kind, "ts": time.time(), **fields}
+        with self._lock:
+            sinks = list(self._sinks)
+        for sink in sinks:
+            sink.emit(evt)
+        return evt
+
+    def close_sinks(self) -> None:
+        """Detach every sink and close those that can be closed."""
+        with self._lock:
+            sinks, self._sinks = list(self._sinks), []
+        for sink in sinks:
+            close = getattr(sink, "close", None)
+            if callable(close):
+                close()
 
     # ---------------------------------------------------------- snapshot
 
@@ -124,7 +183,7 @@ class Registry:
             }
 
     def reset(self) -> None:
-        """Drop all aggregates."""
+        """Drop all aggregates; attached sinks stay attached."""
         with self._lock:
             self.counters.clear()
             self.gauges.clear()
@@ -136,8 +195,8 @@ class Registry:
 GLOBAL = Registry()
 
 
-def span(name: str):
-    return GLOBAL.span(name)
+def span(name: str, **fields: Any):
+    return GLOBAL.span(name, **fields)
 
 
 def count(name: str, value: float = 1.0) -> None:
@@ -150,6 +209,22 @@ def gauge(name: str, value: float) -> None:
 
 def observe(name: str, value: float) -> None:
     GLOBAL.observe(name, value)
+
+
+def event(kind: str, **fields: Any) -> dict:
+    return GLOBAL.event(kind, **fields)
+
+
+def add_sink(sink: Any) -> Any:
+    return GLOBAL.add_sink(sink)
+
+
+def remove_sink(sink: Any) -> None:
+    GLOBAL.remove_sink(sink)
+
+
+def close_sinks() -> None:
+    GLOBAL.close_sinks()
 
 
 def snapshot() -> dict:

@@ -70,7 +70,10 @@ def test_assign_plan_refuses_centers_that_fill_shared_memory():
     (1_048_576, 8, 64, "stream"), (1, 1, 16, "stream"), (5, 16, 4, "stream"),
     (5, 17, 4, "tiled"), (4097, 8, 200, "stream"), (7, 8, 5, "tiled"),
     (1024, 16_384, 32, "tiled"), (4096, 4096, 32, "tiled"),
-    (1, 257, 64, "tiled")])
+    (1, 257, 64, "tiled"),
+    # spectral seeding's traversal, and the small feature dims around it
+    (1_048_576, 8, 8, "stream"), (4097, 3, 4, "stream"),
+    (4097, 5, 8, "stream"), (7, 8, 12, "stream"), (4097, 5, 5, "tiled")])
 def test_pairwise_variant_follows_k_and_d(m, k, d, variant):
     name, rows, stages = tpairwise.pairwise_plan(m, k, d)
     assert name == variant

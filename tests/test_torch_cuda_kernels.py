@@ -146,6 +146,33 @@ def test_pairwise_variants_match_plain_and_repeat_bit_for_bit(cuda_device, m,
         **dict.fromkeys(after, 0), variant: 2}
 
 
+# small feature dims: a row of d = 4, 8 or 12 floats fills 16 to 48 bytes
+# of each 128-byte line of the TMA box (BOX_COLS = 32), the rest zero
+# filled; the spectral seeding's farthest-point traversal runs at
+# (m, 8) x (8, 8).  k = 5 with d = 5 goes to the tiled kernel.
+SMALL_D = [(m, k, d) for d in (4, 8, 12) for k in (3, 5, 8)
+           for m in (1, 7, 4097)] + [(1_048_576, 8, 8), (4097, 5, 5)]
+
+
+@pytest.mark.parametrize("m,k,d", SMALL_D)
+def test_pairwise_small_d_matches_plain_with_the_planned_variant(
+        cuda_device, m, k, d):
+    a, b = _draw(5 * m + 3 * k + d, cuda_device, (m, d), (k, d))
+    variant = tpairwise.pairwise_plan(m, k, d)[0]
+    assert variant == ("tiled" if d % 4 else "stream")
+    before = dict(tpairwise.pairwise_sqdist.by_variant)
+    got = tpairwise.pairwise_sqdist(a, b)
+    torch.cuda.synchronize()
+    want = tpairwise.pairwise_sqdist_ref(a, b)
+    scale = (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
+    assert float(((got - want).abs() - (1e-5 * want.abs() + 1e-4 * scale))
+                 .max()) <= 0.0
+    assert torch.equal(tpairwise.pairwise_sqdist(a, b), got)
+    after = tpairwise.pairwise_sqdist.by_variant
+    assert {v: after[v] - before[v] for v in after} == {
+        **dict.fromkeys(after, 0), variant: 2}
+
+
 def test_streaming_variants_read_unaligned_rows(cuda_device):
     # rows 4 bytes off the TMA's 16-byte grid go through an aligned copy
     pts, cts = _blobs(3, cuda_device, 4097, 8, 64)

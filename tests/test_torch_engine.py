@@ -127,15 +127,16 @@ def test_random_init_and_bad_options():
                         restarts=4)
     assert cluster_agreement(res.labels.numpy(), truth) == 1.0
     with pytest.raises(ValueError, match="unknown init"):
-        device_kmeans(make_generator(1, CPU), x, 3, init="spectral")
+        device_kmeans(make_generator(1, CPU), x, 3, init="bogus")
     with pytest.raises(ValueError, match="init_centers"):
         device_kmeans(make_generator(1, CPU), x, 3, init="warm")
+    # spectral seeding, minibatch and robust center updates are ported
+    res = device_kmeans(make_generator(1, CPU), x, 3, init="spectral")
+    assert cluster_agreement(res.labels.numpy(), truth) == 1.0
     algo = get_algorithm("kmeans-device")
-    with pytest.raises(NotImplementedError, match="minibatch"):
-        algo.device_call(make_generator(1, CPU), x, k=3, batch_m=10)
-    with pytest.raises(NotImplementedError, match="robust"):
-        algo.device_call(make_generator(1, CPU), x, k=3,
-                         aggregator="trimmed_mean")
+    for opts in ({"batch_m": 10}, {"aggregator": "trimmed_mean"}):
+        got = algo.device_call(make_generator(1, CPU), x, k=3, **opts)
+        assert cluster_agreement(got.labels.numpy(), truth) == 1.0
 
 
 def test_device_meta_contract_and_lloyd_name_mapping():
@@ -401,7 +402,8 @@ def test_registries_round_trip():
         api.unregister_algorithm("kmeans-device-twin")
     with pytest.raises(KeyError, match="unknown algorithm"):
         api.get_algorithm("kmeans-device-twin")
-    assert aggregators.list_aggregators() == ("mean",)
+    assert aggregators.list_aggregators() == (
+        "geometric_median", "mean", "median", "trimmed_mean")
     copy = aggregators.MeanAggregator(name="mean-copy")
     aggregators.register_aggregator(copy)
     try:

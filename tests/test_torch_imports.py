@@ -5,7 +5,8 @@
 * The dispatch in ``kernels/ops.py`` has no environment switch and no
   ``try`` that could send CUDA work to the plain versions.
 * Entry points called without ``device=`` on a machine without CUDA
-  raise instead of running on the CPU.
+  raise instead of running on the CPU (the host clustering families and
+  ``odcl`` too, when handed numpy points).
 * A CUDA tensor handed to ``ops`` never reaches the plain version.
 * No file of the port names PyTorch's fused attention: the prefill's
   attention is the port's own kernel.
@@ -16,6 +17,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.core import federated as tfederated
+from repro_torch.core import odcl as todcl
+from repro_torch.core.clustering import api as tapi
 from repro_torch.core.engine.aggregate import one_shot_aggregate_device
 from repro_torch.core.engine.session import AggregationSession
 from repro_torch.device import resolve_device
@@ -63,7 +67,11 @@ def test_port_files_exist():
                 "launch/serve.py", "interop.py",
                 "core/engine/staleness.py", "serving/__init__.py",
                 "serving/batching.py", "serving/server.py",
-                "serving/loadgen.py", "kernels/_counts.py"):
+                "serving/loadgen.py", "kernels/_counts.py",
+                "core/clustering/admissible.py", "core/clustering/gradient.py",
+                "core/clustering/kmeans.py", "core/engine/aggregators.py",
+                "core/odcl.py", "core/erm.py", "optim/adamw.py",
+                "obs/sinks.py"):
         assert (PORT / rel).exists(), rel
     assert len(PORT_FILES) > 10 and PORT_FILES[-1].exists()
 
@@ -115,6 +123,20 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         tsimulate.main(["--clients", "8", "--clusters", "2", "--churn", "2",
                         "--qps-callers", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsimulate.main(["--clients", "8", "--clusters", "2", "--task",
+                        "logistic", "--init", "spectral", "--aggregator",
+                        "median", "--trace", "unused.jsonl"])
+    thetas = torch.zeros((6, 3)).numpy()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        todcl.odcl(thetas, algorithm="spectral", k=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        todcl.run_clustering(None, thetas, "kmeans", k=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tapi.get_algorithm("gradient")(None, thetas, k=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfederated.one_shot_aggregate(state, algorithm="spectral", k=2,
+                                      engine="host")
     with pytest.raises(RuntimeError, match="CUDA"):
         tloadgen.main(["--clients", "64", "--duration", "0.1"])
     with pytest.raises(RuntimeError, match="CUDA"):

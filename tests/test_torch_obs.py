@@ -1,6 +1,8 @@
 """The port's telemetry copy: histogram percentiles follow numpy's
-convention, spans land in ``"<name>.ms"``, and counters/gauges sum and
-overwrite (no GPU, no JAX)."""
+convention, spans land in ``"<name>.ms"``, counters/gauges sum and
+overwrite, spans carry their fields and nesting to the sinks as the
+reference's do, and ``simulate --trace`` writes the session's spans as
+JSON lines (no GPU)."""
 import numpy as np
 import pytest
 
@@ -37,3 +39,78 @@ def test_registry_spans_counters_gauges():
     assert snap["counters"] == {"c": 3.0} and snap["gauges"] == {"g": 5.0}
     reg.reset()
     assert reg.snapshot() == {"counters": {}, "gauges": {}, "histograms": {}}
+
+
+# ------------------------------------------------- sinks and span fields
+
+def test_span_fields_nesting_and_events_match_reference():
+    """The same spans in the reference's registry and the port's give the
+    same events (timestamps and durations aside)."""
+    from repro import obs as jobs
+
+    events = {}
+    for name, mod in (("port", obs), ("ref", jobs)):
+        reg = mod.Registry()
+        sink = reg.add_sink(mod.ListSink())
+        with reg.span("session.finalize", count=7, algorithm="spectral",
+                      engine="host") as info:
+            with reg.span("session.finalize.cluster", engine="host"):
+                reg.event("note", value=3)
+        assert info["ms"] >= 0.0
+        events[name] = [{k: v for k, v in e.items() if k not in ("ts", "ms")}
+                        for e in sink.events]
+        assert all(e["event"] != "span" or e["ms"] >= 0.0
+                   for e in sink.events)
+    assert events["port"] == events["ref"]
+    assert events["port"][1] == {
+        "event": "span", "name": "session.finalize.cluster", "engine": "host",
+        "parent": "session.finalize", "depth": 1}
+
+
+def test_sinks_attach_detach_and_close(tmp_path, capsys):
+    reg = obs.Registry()
+    path = tmp_path / "trace.jsonl"
+    jsonl = reg.add_sink(obs.JsonlSink(str(path)))
+    seen = reg.add_sink(obs.ListSink())
+    console = reg.add_sink(obs.ConsoleSink(registry=reg))
+    with reg.span("a", n=np.int64(3)):
+        reg.count("c", 2)
+    reg.reset()                          # aggregates go, sinks stay
+    reg.gauge("g", 1.5)
+    reg.observe("h", 2.0)
+    reg.event("e", x=np.float32(0.5))
+    reg.remove_sink(seen)
+    reg.event("after")
+    reg.close_sinks()
+    reg.event("closed")                  # no sink left to receive it
+    got = obs.read_jsonl(str(path))
+    assert [e["event"] for e in got] == ["span", "e", "after"]
+    assert got[0]["n"] == 3 and got[1]["x"] == 0.5
+    assert [e["event"] for e in seen.events] == ["span", "e"]
+    err = capsys.readouterr().err
+    assert "[obs] 3 events" in err and "gauge   g = 1.5" in err
+    assert "hist    h: n=1" in err
+    assert jsonl._f.closed
+
+
+def test_simulate_trace_holds_the_session_spans(tmp_path):
+    from repro_torch.launch.simulate import main
+
+    path = tmp_path / "trace.jsonl"
+    out = main(["--clients", "512", "--clusters", "4", "--wave", "200",
+                "--device", "cpu", "--trace", str(path)])
+    events = obs.read_jsonl(str(path))
+    spans = [e for e in events if e["event"] == "span"]
+    ingest = [e for e in spans if e["name"] == "session.ingest"]
+    assert [e["wave"] for e in ingest] == [200, 200, 112]
+    assert [e["offset"] for e in ingest] == [0, 200, 400]
+    assert all(e["mode"] == "params" and e["depth"] == 0 for e in ingest)
+    (fin,) = [e for e in spans if e["name"] == "session.finalize"]
+    assert fin["count"] == 512 and fin["algorithm"] == "kmeans-device"
+    assert fin["engine"] == "device" and fin["ms"] > 0
+    inner = {e["name"] for e in spans if e.get("parent") == "session.finalize"}
+    assert inner == {"session.finalize.cluster.execute",
+                     "session.finalize.mean.execute"}
+    assert out["obs"]["histograms"]["session.finalize.ms"]["count"] == 1
+    # the sink is detached after the run
+    assert obs.GLOBAL._sinks == []

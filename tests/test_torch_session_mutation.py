@@ -413,11 +413,16 @@ def test_drift_degenerate_zero_inertia_uses_scale_fallback():
 # ------------------------------------------------- engines / atomicity
 
 def test_engine_host_is_not_ported_yet():
+    # engine="host" is ported now: the host family runs, with the device
+    # round's partition
     pts, _ = make_blobs(12, [8, 8], 6)
     t = tsession(len(pts), 6)
     t.ingest({"theta": torch.from_numpy(pts)}, client_ids=range(len(pts)))
-    with pytest.raises(NotImplementedError, match="queue A, item 3"):
-        t.finalize(algorithm="kmeans-device", k=2, engine="host")
+    _, host_labels, host_info = t.finalize(algorithm="kmeans-device", k=2,
+                                           engine="host")
+    assert host_info["engine"] == "host"
+    _, dev_labels, _ = t.finalize(algorithm="kmeans-device", k=2)
+    assert same_partition(host_labels, dev_labels)
     with pytest.raises(ValueError, match="auto\\|host\\|device"):
         t.finalize(algorithm="kmeans-device", k=2, engine="tpu")
     _, labels, info = t.finalize(algorithm="kmeans-device", k=2,
