@@ -51,7 +51,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
       (8, 64) for n = 1, 2, 4 ... 64: labels equal on every row, sums
       within the tolerance above, each n launching the variant its plan
       names;
-    and every kernel's repeat run bit-identical;
+    and every kernel's repeat run bit-identical; this slice adds
+    ``kmeans_assign`` and ``pairwise_sqdist`` at one shard of the
+    hierarchical round, (32 768, 64) x (8, 64) (its top level's (256, 64)
+    x (8, 64) is the small-m threshold above), and at the Section 5
+    federation's (100, 20) x (10, 20) and (100, 20) x (100, 20), each
+    launching its planned variant, and ``group_ball_proj`` at its host
+    AMA's (4950, 20);
  3. small rounds on the card against the same rounds on the CPU (the
     plain versions), with the same inputs: the ODCL-KM round (identical
     partitions and route labels, parameters within rtol 1e-5) and four
@@ -74,6 +80,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     ``gradient-device`` on the card (purity 1.0); a logistic wave: 8
     Newton steps on both devices from the same (x, y) within 1e-4 of
     max|theta|, and the same partition of the CPU's models on both;
+ 3e. this slice's paths, card vs CPU, at m = 4096: the scenarios' masks,
+    drifted and Zipf labels and keyed bits identical; the DP rows, the
+    noise attack's rows and the normal draws within rtol 1e-6; the
+    partitions of drift, longtail, Byzantine sign-flip, spoof, DP at
+    epsilon 64 and the hierarchical round at S = 4 the same up to a
+    renaming (parameters within rtol 1e-5); the Section 5 methods table
+    (ODCL-KM with 8 kmeans++ restarts, ODCL-CC, IFCA, the baselines and
+    oracles) the same, models within rtol 1e-5;
  3c. the LM serving model, card vs CPU: qwen2-0.5b at full width cut to
     2 layers, fp32, the same weights on both; b = 1, a prompt of 4160
     (past the 4096 window), 8 greedy tokens (the card's, fed to both):
@@ -149,17 +163,50 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     overlap across clusters) and ``simulate --trace`` at C = 4096, whose
     JSONL trace must hold the ``session.ingest`` and ``session.finalize``
     spans with their fields;
- 5. one JSON line ``{"kernels": [...]}``: per kernel its launches on the
-    main paths (in all, by path, and by variant), its largest error
+ 4f. this slice's paths at the main path's size (ridge clients,
+    C = 1 048 576, sketch 64, dim 16, k = 8, kmeans++, waves of one
+    shard): ``simulate --shards 32`` (purity 1.0, K' = 8, served mse
+    < 1e-2, comm bytes {268 435 456, 66 560}, 32 level-0 finalizes and one
+    level-1 finalize, the shards' Lloyd on the stream assign and the top
+    level's on the small one; level-0, level-1 and finalize ms printed);
+    the hierarchical session at S = 1 against the flat session on the
+    same clients (labels and served models bit-equal); ``--scenario
+    drift`` (purity 1.0 against the drifted labels; migrated count
+    printed); ``longtail`` (the run's occupancy equals the scenario's
+    numpy Zipf counts); ``byzantine`` sign-flip at f = 0.1 with the mean
+    and the trimmed mean (honest_frac within 0.9 +- five binomial sigma;
+    every attacker's upload exactly -theta; purity and mse printed);
+    the spoof (the attackers' rows one shared vector, the others and the
+    parameters untouched); ``dp`` at epsilon 64 (no clipped row beyond
+    the clip, the noise's std within 1 % of sigma); and the hierarchy at
+    S = 32 under dp, whose sketch rows must equal the flat session's;
+    each run's launches by variant printed;
+ 4g. the paper's Section 5 comparison on the card:
+    ``make_linear_regression_federation(seed=0)`` (m = 100, K = 10,
+    n = 100, d = 20) through ODCL-KM (one kmeans++ seeding, and 8
+    kmeans++ restarts), ODCL-CC (clusterpath), IFCA (near-optima init,
+    200 rounds), global ERM, local ERM, oracle averaging and the cluster
+    oracle: ODCL-KM with restarts recovers the true partition and its
+    mse equals oracle averaging's within 1e-5 relative; the single
+    seeding with keys 0..63 recovers it for at least 40 of them (0.84 a
+    key in both packages on the CPU), each with the oracle's mse; each
+    method's nmse, comm rounds, ms and launches printed;
+ 5. one JSON line ``{"kernels": [...]}``, its times taken right after
+    the build, before phase 2 (where the profiler starts after no other
+    phase), its counts added after phase 4g: per kernel its launches on
+    the main paths (in all, by path, and by variant), its largest error
     against the plain version, and at each of its main shapes (the
     Lloyd, batch-route, single-route and minibatch shapes of
-    kmeans_assign and its
+    kmeans_assign, a shard's and the top level's of the hierarchical
+    round (with the launches of phase 4f's ``--shards 32``), and its
     flush buckets 1, 4, 8, 16 and 64 with the serving paths' flushes at each,
     from the server's ``serving.flush_size``, and beside bucket 1 the
     direct rows' per-request routes; the
     kmeans++ shape (also the host Lloyd's and gradient clustering's), a
-    kNN tile and the spectral shape of pairwise_sqdist, the last two with
-    the launches of the phase-4e finalize that runs them; the three dual
+    kNN tile and the spectral shape of pairwise_sqdist, the last with
+    the launches of the phase-4e finalize that runs it, and the Section 5
+    federation's two shapes with phase 4g's ODCL launches (and the
+    restarts' kmeans_assign at the first); the three dual
     shapes of the batched group prox) the card's own time for one call
     (``ms``: the durations of the device work that 20 calls launched,
     traced by torch.profiler, over 20), the caller's time (``call_ms``:
@@ -178,7 +225,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
  6. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds, after phase 5, traced runs under ``torch.profiler``:
+``--profile`` adds, after phase 5's line, traced runs under ``torch.profiler``:
 a second run of the main path, one finalize of the convex path on the
 complete graph at C = 4096, two serve calls (phase 4c's prompts, 1
 token, then 16), and one second of phase 4d's 16-caller closed loop,
@@ -301,6 +348,32 @@ SLICE7_PATHS = [
      ("pairwise_sqdist",), True),
 ]
 TRACE_C = 4096
+# phase 4f: the two-level round at the main path's size, S = 32 shards of
+# 32 768 clients each (the README's S = 32 row at C = 1 048 576), waves of
+# one shard (a wave never straddles a shard edge, so the DP noise blocks,
+# keyed by a wave's offset, are the flat session's); the top level
+# clusters M = 32 x 8 = 256 shard centers, exactly kmeans_assign's small-m
+# threshold
+HIER_SHARDS = 32
+SHARD_M = MAIN_M // HIER_SHARDS
+TOP_M = HIER_SHARDS * MAIN_K
+# the scenarios of phases 3e and 4f, each with its options
+SCENARIO_DRIFT = {"drift_frac": 0.5}
+SCENARIO_ZIPF = {"zipf_a": 1.2}
+SCENARIO_BYZ = {"frac": 0.1}
+SCENARIO_DP = {"epsilon": 64.0}
+# phase 4g: the paper's Section 5 federation (m = 100 users, K = 10, n = 100
+# samples, d = 20, Appendix E.1 optima); kmeans++ and the host Lloyd take
+# (100, 20) x (<= 10, 20) distances, ODCL-CC's fusion (100, 20) x (100, 20),
+# its host AMA E = 4950 edges of d = 20
+PAPER_M, PAPER_K, PAPER_D = 100, 10, 20
+PAPER_E = PAPER_M * (PAPER_M - 1) // 2
+IFCA_ROUNDS = 200
+# one kmeans++ seeding recovers the Section 5 partition for 0.84 of keys
+# in both packages (tests/test_torch_methods.py, 500 keys on the CPU);
+# phase 4g seeds it with keys 0..63 on the card and fails below 40
+# recoveries, 4.8 binomial sigma under the 54 expected
+SEEDING_KEYS, SEEDING_MIN = 64, 40
 
 
 def fail(msg: str):
@@ -452,7 +525,6 @@ def compare_assign(kmeans_assign, pairwise_l2, pts, cts) -> tuple:
 def phase_kernels(pairwise_l2, kmeans_assign, ops) -> dict:
     # the main path's three shapes (Lloyd over all rows, a batch of
     # routes, one route), then ragged m in {1, 7, 4097}, k in {1, 8, 257},
-    # d in {16, 64, 200}
     # d in {16, 64, 200}; then the convex paths' routes against the K'
     # centers in the sketch space of 32, a batch of 4096 and one
     shapes = [(MAIN_M, MAIN_K, MAIN_D), (ROUTE_M, MAIN_K, MAIN_D),
@@ -461,9 +533,15 @@ def phase_kernels(pairwise_l2, kmeans_assign, ops) -> dict:
               (ROUTE_M, 8, 32), (1, 8, 32),
               # minibatch Lloyd's batch (phase 4e)
               (BATCH_M, MAIN_K, MAIN_D),
-              # both sides of kmeans_assign's small-m threshold
+              # both sides of kmeans_assign's small-m threshold (256 is
+              # also the hierarchical top level's M, phase 4f)
               (kmeans_assign.SMALL_M, 8, 64), (kmeans_assign.SMALL_M + 1, 8, 64),
-              (kmeans_assign.SMALL_M - 1, 8, 36)]
+              (kmeans_assign.SMALL_M - 1, 8, 36),
+              # one shard of the hierarchical round (phase 4f)
+              (SHARD_M, MAIN_K, MAIN_D),
+              # the Section 5 federation (phase 4g): kmeans++ and Lloyd
+              # against 10 centers, ODCL-CC's fusion test against all 100
+              (PAPER_M, PAPER_K, PAPER_D), (PAPER_M, PAPER_M, PAPER_D)]
     errs = {}
     for i, (m, k, d) in enumerate(shapes):
         a, b = draw(100 + i, (m, d), (k, d))
@@ -604,6 +682,13 @@ def phase_prox_kernels(group_prox, pairwise_l2, ops) -> dict:
         errs["group_ball_proj"] = max(errs["group_ball_proj"], err)
         print(f"[chip_smoke] group_ball_proj at ({HOST_E},32), {name} "
               f"radius: max abs err {err:.3g}", flush=True)
+    # the host AMA of the Section 5 federation (phase 4g)
+    v, r = prox_rows(212, 1, PAPER_E, PAPER_D)
+    err = compare_prox(group_prox.group_ball_proj,
+                       group_prox.group_ball_proj_ref, v[0], 0.75)
+    errs["group_ball_proj"] = max(errs["group_ball_proj"], err)
+    print(f"[chip_smoke] group_ball_proj at ({PAPER_E},{PAPER_D}), scalar "
+          f"radius: max abs err {err:.3g}", flush=True)
     for b in (1, 3):
         for e in (1, 7, 1031):
             for d in (1, 16, 32, 200):
@@ -768,13 +853,25 @@ def phase_convex_rounds() -> None:
 
 # ------------------------------------------------------------ phase 3d
 
-def renaming(a, b) -> dict:
-    """The bijection of label ids that takes partition ``a`` to ``b``;
-    fails unless there is one (the two partitions are the same)."""
+def label_map(a, b):
+    """The bijection of label ids that takes partition ``a`` to ``b``, or
+    None where there is none (the two partitions differ)."""
     fwd, bwd = {}, {}
     for x, y in zip(np.asarray(a).tolist(), np.asarray(b).tolist()):
-        check(fwd.setdefault(x, y) == y and bwd.setdefault(y, x) == x,
-              "the card's partition differs from the CPU's")
+        if fwd.setdefault(x, y) != y or bwd.setdefault(y, x) != x:
+            return None
+    return fwd
+
+
+def same_partition(a, b) -> bool:
+    """Whether two label vectors are one partition up to a renaming."""
+    return label_map(a, b) is not None
+
+
+def renaming(a, b) -> dict:
+    """``label_map(a, b)``; fails unless the two partitions are the same."""
+    fwd = label_map(a, b)
+    check(fwd is not None, "the card's partition differs from the CPU's")
     return fwd
 
 
@@ -905,6 +1002,223 @@ def phase_slice7_rounds() -> None:
     print(f"[chip_smoke] 3d logistic wave at m={SMALL_M}: Newton card vs "
           f"CPU max abs diff {err:.3g} (max|theta| {big:.3g}); partitions "
           "equal", flush=True)
+
+
+# ------------------------------------------------------------ phase 3e
+
+def scenario_thetas(seed: int, labels: np.ndarray, k: int = 8) -> np.ndarray:
+    """Clients around k optima (as ``clustered_thetas``) under the given
+    true labels (a scenario's drifted or Zipf occupancy)."""
+    rng = np.random.default_rng(seed)
+    optima = rng.normal(size=(k, 16)) * 20.0
+    return (optima[labels] + 0.3 * rng.normal(size=(len(labels), 16))).astype(
+        np.float32)
+
+
+def scenario_key() -> int:
+    """The scenario key ``simulate`` folds from seed 0."""
+    from repro_torch.utils import prng
+
+    return prng.fold_in(prng.key(0), 0x5ce0)
+
+
+def scenarios() -> dict:
+    from repro_torch.scenarios import (
+        ByzantineScenario, DPScenario, DriftScenario, LongtailScenario)
+
+    return {"drift": DriftScenario(**SCENARIO_DRIFT),
+            "longtail": LongtailScenario(**SCENARIO_ZIPF),
+            "byzantine": ByzantineScenario(**SCENARIO_BYZ),
+            "noise": ByzantineScenario(**SCENARIO_BYZ, attack="noise"),
+            "spoof": ByzantineScenario(**SCENARIO_BYZ, attack="spoof"),
+            "dp": DPScenario(**SCENARIO_DP)}
+
+
+def sketch_hook(scen, key):
+    """The session's ``sketch_transform`` for a scenario (or ``None``)."""
+    if scen is None or not scen.transforms_sketches:
+        return None
+    return lambda sk, off: scen.sketch_transform(key, sk, off)
+
+
+def paper_federation_erm(device):
+    """The Section 5 ridge solver (reg 1e-8) on ``device``."""
+    from repro_torch.core.erm import batched_ridge_erm
+
+    def erm(xs, ys):
+        return batched_ridge_erm(torch.from_numpy(xs).to(device),
+                                 torch.from_numpy(ys).to(device), 1e-8)
+
+    return erm
+
+
+def paper_methods(fed, device) -> list:
+    """The paper's Section 5 cast over ``fed`` on ``device``, each as
+    (name, method): ODCL-KM (kmeans++, one seeding; and kmeans++ seeding
+    with 8 restarts kept by the lowest inertia), ODCL-CC (clusterpath, 8
+    rungs of 200 AMA iterations, as examples/quickstart.py), IFCA (200
+    gradient rounds from the optima plus N(0, 1) noise drawn on the CPU,
+    so both devices start alike), global ERM, local ERM, oracle averaging
+    and the cluster oracle."""
+    from repro_torch.core.erm import ridge_erm
+    from repro_torch.core.ifca import ifca_init_near_optima
+    from repro_torch.core.methods import (
+        IFCA, ODCL, ClusterOracle, GlobalERM, LocalOnly, OracleAveraging)
+    from repro_torch.core.sketch import make_generator
+
+    def sq_loss(t, x, y):
+        r = x @ t - y
+        return torch.mean(r * r)
+
+    def solve(x, y):
+        return ridge_erm(torch.from_numpy(x).to(device),
+                         torch.from_numpy(y).to(device), 1e-8)
+
+    theta0 = ifca_init_near_optima(make_generator(0, "cpu"), fed.optima, 1.0)
+    return [
+        ("odcl-kmeans++", ODCL("kmeans++", k=PAPER_K, device=device)),
+        ("odcl-kmeans++ restarts 8", ODCL(
+            "kmeans-device", k=PAPER_K, device=device,
+            options={"init": "kmeans++", "restarts": 8})),
+        ("odcl-clusterpath", ODCL("clusterpath", device=device,
+                                  options={"n_lambdas": 8, "iters": 200})),
+        ("ifca", IFCA(k=PAPER_K, loss_fn=sq_loss,
+                      grad_fn=torch.func.grad(sq_loss), init=theta0,
+                      rounds=IFCA_ROUNDS, device=device)),
+        ("global-erm", GlobalERM()),
+        ("local-only", LocalOnly()),
+        ("oracle-averaging", OracleAveraging(true_labels=fed.true_labels)),
+        ("cluster-oracle", ClusterOracle(solve_fn=solve,
+                                         true_labels=fed.true_labels)),
+    ]
+
+
+def phase_slice8_rounds() -> None:
+    """Phase 3e: this slice's paths, card against CPU, at m = 4096.  The
+    scenarios' masks and labels bit for bit (the counter-based draws of
+    ``utils/prng.py``); the DP rows, the noise attack's rows and the raw
+    normal draws within rtol 1e-6 / atol 1e-6 of their largest magnitude;
+    the partitions of drift, longtail, Byzantine sign-flip, spoof, DP at
+    epsilon 64 (each from the CPU's kmeans++ seed rows) and of the
+    hierarchical round at S = 4 (each device's own kmeans++) the same up
+    to a renaming, models within rtol 1e-5 / atol 1e-5 max|theta|; the
+    Section 5 methods table the same (labels identical, or up to a
+    renaming where each device seeds kmeans++ itself; models within
+    rtol 1e-5 / atol 1e-5 max|model|)."""
+    from repro_torch.core.clustering.kmeans import kmeans_plus_plus_init
+    from repro_torch.core.engine.hierarchy import HierarchicalSession
+    from repro_torch.core.engine.session import AggregationSession
+    from repro_torch.core.federated import cluster_agreement
+    from repro_torch.core.sketch import make_generator
+    from repro_torch.data import make_linear_regression_federation
+    from repro_torch.utils import prng
+
+    m, key, scen = SMALL_M, scenario_key(), scenarios()
+    base = np.arange(m) % 8
+    got = {}
+    for dev in ("cpu", "cuda"):
+        b = torch.from_numpy(base).to(dev)
+        got[dev] = {
+            "honest mask": scen["byzantine"].honest_mask(key, m, device=dev),
+            "drift labels": scen["drift"].wave_labels(key, b, 0, m, 8),
+            "longtail labels": scen["longtail"].population(key, m, 8,
+                                                           device=dev),
+            "keyed bits": prng.bits(key, torch.arange(m, device=dev))}
+    for name, want in got["cpu"].items():
+        check(torch.equal(got["cuda"][name].cpu(), want),
+              f"3e {name}: the card's differ from the CPU's")
+    thetas, truth, _, proj = clustered_thetas(19, m, 8)
+    sk = torch.from_numpy(thetas @ proj)
+    th = torch.from_numpy(thetas)
+    rows = {dev: {"dp rows": scen["dp"].sketch_transform(key, sk.to(dev), 0),
+                  "noise rows": scen["noise"].corrupt_uploads(
+                      key, th.to(dev), None, 0, m),
+                  "normal draws": prng.normal(key, (m, 64), device=dev)}
+            for dev in ("cpu", "cuda")}
+    errs = {}
+    for name, want in rows["cpu"].items():
+        scale = float(want.abs().max())
+        err = float((rows["cuda"][name].cpu() - want).abs().max())
+        check(torch.allclose(rows["cuda"][name].cpu(), want, rtol=1e-6,
+                             atol=1e-6 * scale),
+              f"3e {name}: the card's differ from the CPU's by {err}")
+        errs[name] = err
+    print(f"[chip_smoke] 3e scenarios at m={m}: masks, labels and keyed bits "
+          f"card == CPU; max abs diffs {json.dumps(errs)}", flush=True)
+
+    def session(dev, shards, hook):
+        kw = dict(sketch_dim=32, projection=torch.from_numpy(proj),
+                  sketch_transform=hook, device=dev)
+        if shards > 1:
+            return HierarchicalSession(m, shards=shards, **kw)
+        return AggregationSession(m, **kw)
+
+    drift = got["cpu"]["drift labels"].numpy()
+    longtail = got["cpu"]["longtail labels"].numpy()
+    cases = [("drift", scenario_thetas(20, drift), drift, None, 1),
+             ("longtail", scenario_thetas(21, longtail), longtail, None, 1),
+             ("byzantine sign_flip", thetas, truth, scen["byzantine"], 1),
+             ("byzantine spoof", thetas, truth, scen["spoof"], 1),
+             ("dp epsilon 64", thetas, truth, scen["dp"], 1),
+             ("hierarchical S=4", thetas, truth, None, 4)]
+    for name, pts, labels_true, sc, shards in cases:
+        sess = {}
+        for dev in ("cpu", "cuda"):
+            sess[dev] = session(dev, shards, sketch_hook(sc, key))
+            t = torch.from_numpy(pts).to(dev)
+            for lo in range(0, m, 1024):
+                w = t[lo:lo + 1024]
+                if sc is not None:
+                    w = sc.corrupt_uploads(key, w, None, lo, m)
+                sess[dev].ingest({"theta": w})
+        opts = {"init": "kmeans++", "iters": 50}
+        if shards == 1:
+            seeds = kmeans_plus_plus_init(make_generator(0, "cpu"),
+                                          sess["cpu"].sketches, 8)
+            opts = {"init": "warm", "init_centers": seeds, "iters": 50}
+        out = {dev: sess[dev].finalize(k=8, algo_options=opts)
+               for dev in ("cpu", "cuda")}
+        (cs, cl, _), (gs, gl, gi) = out["cpu"], out["cuda"]
+        renaming(cl, gl)
+        cp = cs.params["theta"].cpu().numpy()
+        gp = gs.params["theta"].cpu().numpy()
+        check(np.allclose(gp, cp, rtol=1e-5,
+                          atol=1e-5 * float(np.abs(cp).max())),
+              f"3e {name}: averaged parameters differ")
+        print(f"[chip_smoke] 3e {name} at m={m}: card == CPU up to a "
+              f"renaming ({gi['n_clusters']} clusters, purity "
+              f"{cluster_agreement(gl, labels_true):.4f})", flush=True)
+
+    fed = make_linear_regression_federation(seed=0)
+    table = {}
+    for dev in ("cpu", "cuda"):
+        erm = paper_federation_erm(dev)
+        table[dev] = {name: method.fit(0, fed.xs, fed.ys, erm)
+                      for name, method in paper_methods(fed, dev)}
+    single = {}
+    for name, want in table["cpu"].items():
+        res = table["cuda"][name]
+        if name == "odcl-kmeans++":
+            # one kmeans++ seeding from each device's own generator: either
+            # may land in a local optimum, so its recovery is printed
+            single = {dev: bool(same_partition(table[dev][name].labels,
+                                               fed.true_labels))
+                      for dev in table}
+            continue
+        if name == "odcl-kmeans++ restarts 8":
+            renaming(want.labels, res.labels)
+        else:
+            check(np.array_equal(res.labels, want.labels),
+                  f"3e methods {name}: labels differ")
+        scale = float(np.abs(want.user_models).max())
+        check(np.allclose(res.user_models, want.user_models, rtol=1e-5,
+                          atol=1e-5 * scale),
+              f"3e methods {name}: models differ by "
+              f"{float(np.abs(res.user_models - want.user_models).max())}")
+    print(f"[chip_smoke] 3e methods table (Section 5, m={PAPER_M}): card == "
+          f"CPU for {sorted(set(table['cpu']) - {'odcl-kmeans++'})}; one "
+          f"kmeans++ seeding recovers the partition: {json.dumps(single)}",
+          flush=True)
 
 
 # --------------------------------------------------- --profile only
@@ -1862,6 +2176,312 @@ def phase_slice7(simulate, ops, card: str) -> tuple:
     return by_path, shape_launches
 
 
+def by_variant(launches: dict) -> dict:
+    """The launches of one run by wrapper and variant (those non-zero)."""
+    return {k: v for k, v in launches.items() if v}
+
+
+def span_ms(summary_obs: dict, name: str) -> dict:
+    h = summary_obs["histograms"].get(f"{name}.ms", {})
+    return {"count": h.get("count", 0), "sum_ms": h.get("sum"),
+            "p50_ms": h.get("p50")}
+
+
+def phase_slice8(simulate, ops, card: str) -> tuple:
+    """Phase 4f: this slice's paths at the main path's size (ridge
+    clients, C = 1 048 576, sketch 64, dim 16, k = 8, kmeans++), each
+    with the launch counts set to 0 just before and read just after.
+    Returns (launches by path, the launches at the new phase-5 shapes)."""
+    from repro_torch.core.engine.hierarchy import HierarchicalSession
+    from repro_torch.core.engine.session import AggregationSession
+    from repro_torch.core.federated import cluster_agreement
+    from repro_torch.core.sketch import make_generator
+    from repro_torch.launch.simulate import staggered_optima, wave_ridge_erm
+
+    base = dict(clients=MAIN_M, clusters=8, dim=16, samples=64,
+                sketch_dim=MAIN_D, wave=SHARD_M, device="cuda")
+    by_path, shape_launches = {}, {}
+
+    def run(name, **kw):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = simulate(**base, **kw)
+        launches = read_counts(ops)
+        by_path[f"4f {name}"] = launches
+        row = {"name": name, "run_s": time.perf_counter() - t0,
+               "purity": out["purity"], "purity_all": out["purity_all"],
+               "honest_frac": out["honest_frac"], "mse": out["mse"],
+               "n_clusters": out["n_clusters_recovered"],
+               "phases": out["phases"], "scenario": out["scenario"],
+               "scenario_options": out["scenario_options"],
+               "aggregator": out["aggregator"], "shards": out["shards"],
+               "launches": by_variant(launches)}
+        return out, launches, row
+
+    # the two-level round, S = 32
+    out, launches, row = run(f"shards {HIER_SHARDS}", shards=HIER_SHARDS)
+    spans = {n: span_ms(out["obs"], n)
+             for n in ("hierarchy.finalize", "hierarchy.level0",
+                       "hierarchy.level1", "session.finalize")}
+    want_bytes = {"level0": MAIN_M * MAIN_D * 4,
+                  "level1": TOP_M * (MAIN_D + 1) * 4}
+    check(out["purity"] == 1.0 and out["n_clusters_recovered"] == 8,
+          f"4f shards: purity {out['purity']}, K' "
+          f"{out['n_clusters_recovered']}")
+    check(out["mse"] < 1e-2, f"4f shards: served mse {out['mse']}")
+    check(out["comm_level_bytes"] == want_bytes,
+          f"4f shards: comm bytes {out['comm_level_bytes']} != {want_bytes}")
+    check(spans["session.finalize"]["count"] == HIER_SHARDS + 1 and
+          spans["hierarchy.level0"]["count"] == 1 and
+          spans["hierarchy.level1"]["count"] == 1,
+          f"4f shards: finalize spans {spans}")
+    check(launches["pairwise_sqdist"] > 0 and
+          launches["kmeans_assign.stream"] > 0 and
+          launches["kmeans_assign.small"] > 0,
+          f"4f shards: launches {by_variant(launches)} (the shards' Lloyd "
+          "on the stream assign, the top level's on the small one)")
+    shape_launches["shard"] = launches["kmeans_assign.stream"]
+    shape_launches["top"] = launches["kmeans_assign.small"]
+    print(json.dumps({"slice8_path": {
+        **row, "comm_level_bytes": out["comm_level_bytes"],
+        "level0_ms": spans["hierarchy.level0"]["sum_ms"],
+        "level1_ms": spans["hierarchy.level1"]["sum_ms"],
+        "finalize_ms": spans["hierarchy.finalize"]["sum_ms"],
+        "session_finalizes": spans["session.finalize"]["count"],
+        "card": card}}), flush=True)
+
+    # one federation, built once, for the session-level checks
+    gen = make_generator(0, torch.device("cuda"))
+    optima = staggered_optima(gen, 8, 16)
+    truth = torch.arange(MAIN_M, device="cuda") % 8
+    thetas = torch.cat([wave_ridge_erm(gen, optima, truth[lo:lo + SHARD_M],
+                                       n=64)
+                        for lo in range(0, MAIN_M, SHARD_M)])
+    truth_np = truth.cpu().numpy()
+    key, scen = scenario_key(), scenarios()
+
+    def fill(sess, corrupt=None):
+        for lo in range(0, MAIN_M, SHARD_M):
+            w = thetas[lo:lo + SHARD_M]
+            if corrupt is not None:
+                w = corrupt.corrupt_uploads(key, w, None, lo, MAIN_M)
+            sess.ingest({"theta": w})
+        torch.cuda.synchronize()
+        return sess
+
+    def flat(sc=None):
+        return fill(AggregationSession(MAIN_M, sketch_dim=MAIN_D,
+                                       sketch_transform=sketch_hook(sc, key),
+                                       device="cuda"))
+
+    opts = {"init": "kmeans++", "iters": 50}
+    # shards = 1 delegates: bit-equal to the flat session on the same clients
+    plain = flat()
+    ops.reset_launch_counts()
+    f_state, f_labels, _ = plain.finalize(k=8, algo_options=opts)
+    one = fill(HierarchicalSession(MAIN_M, shards=1, sketch_dim=MAIN_D,
+                                   device="cuda"))
+    h_state, h_labels, h_info = one.finalize(k=8, algo_options=opts)
+    by_path["4f shards 1 and flat"] = read_counts(ops)
+    check(np.array_equal(h_labels, f_labels) and torch.equal(
+        h_state.params["theta"], f_state.params["theta"]),
+          "4f shards=1: labels or served models differ from the flat round")
+    check(h_info["shards"] == 1, f"4f shards=1: info {h_info}")
+    print(json.dumps({"slice8_path": {
+        "name": "shards 1 against the flat session", "bit_equal": True,
+        "purity": cluster_agreement(h_labels, truth_np),
+        "launches": by_variant(by_path["4f shards 1 and flat"]),
+        "card": card}}), flush=True)
+    del one, h_state, f_state
+
+    # drift: purity against the drifted labels, and the migrated count
+    out, _, row = run("drift", scenario="drift",
+                      scenario_options=SCENARIO_DRIFT)
+    drifted = scen["drift"].wave_labels(key, truth, 0, MAIN_M, 8)
+    migrated = int((drifted != truth).sum())
+    check(out["purity"] == 1.0, f"4f drift: purity {out['purity']}")
+    check(0 < migrated < MAIN_M // 2, f"4f drift: {migrated} migrated")
+    print(json.dumps({"slice8_path": {**row, "migrated": migrated,
+                                      "card": card}}), flush=True)
+
+    # longtail: the run's occupancy (its true labels counted on the card)
+    # is the scenario's numpy Zipf counts, which the CPU tests hold to the
+    # reference's bit for bit at this size
+    out, _, row = run("longtail", scenario="longtail",
+                      scenario_options=SCENARIO_ZIPF)
+    want = np.bincount(scen["longtail"].population(
+        key, MAIN_M, 8, device="cpu").numpy(), minlength=8).tolist()
+    check(out["occupancy"] == want,
+          f"4f longtail: occupancy {out['occupancy']} != {want}")
+    print(json.dumps({"slice8_path": {**row, "occupancy": out["occupancy"],
+                                      "card": card}}), flush=True)
+
+    # byzantine sign flip, f = 0.1, with the mean and the trimmed mean
+    sigma = 5.0 * np.sqrt(0.1 * 0.9 / MAIN_M)
+    for agg in ("mean", "trimmed_mean"):
+        out, _, row = run(f"byzantine sign_flip {agg}", scenario="byzantine",
+                          scenario_options=SCENARIO_BYZ, aggregator=agg)
+        check(abs(out["honest_frac"] - 0.9) <= sigma,
+              f"4f byzantine: honest_frac {out['honest_frac']} outside "
+              f"0.9 +- {sigma:.4g}")
+        print(json.dumps({"slice8_path": {**row, "card": card}}), flush=True)
+    honest = scen["byzantine"].honest_mask(key, MAIN_M, device="cuda")
+    flipped = scen["byzantine"].corrupt_uploads(key, thetas, None, 0, MAIN_M)
+    check(torch.equal(flipped[~honest], -thetas[~honest]) and
+          torch.equal(flipped[honest], thetas[honest]),
+          "4f byzantine: an attacker's upload is not exactly -theta, or an "
+          "honest one changed")
+    del flipped
+
+    # spoof: the attackers' rows are one shared vector, the rest untouched
+    spoof = flat(scen["spoof"])
+    bad = ~scen["spoof"].honest_mask(key, MAIN_M, device="cuda")
+    rows = spoof.sketches
+    check(bool((rows[bad] == rows[bad][:1]).all()),
+          "4f spoof: the attackers' rows are not one shared vector")
+    check(torch.equal(rows[~bad], plain.sketches[~bad]),
+          "4f spoof: an honest row changed")
+    check(torch.equal(spoof.state().params["theta"], thetas),
+          "4f spoof: the parameters changed")
+    ops.reset_launch_counts()
+    _, labels, _ = spoof.finalize(k=8, algo_options=opts)
+    by_path["4f byzantine spoof"] = read_counts(ops)
+    keep = (~bad).cpu().numpy()
+    print(json.dumps({"slice8_path": {
+        "name": "byzantine spoof", "attackers": int(bad.sum()),
+        "purity": cluster_agreement(labels[keep], truth_np[keep]),
+        "purity_all": cluster_agreement(labels, truth_np),
+        "launches": by_variant(by_path["4f byzantine spoof"]),
+        "card": card}}), flush=True)
+    del spoof, rows
+
+    # dp, epsilon 64: clipped rows inside the ball, the noise's spread
+    dp = scen["dp"]
+    noised = flat(dp)
+    clipped = dp.clip_rows(plain.sketches)
+    norm_max = float(torch.linalg.vector_norm(clipped, dim=1).max())
+    check(norm_max <= dp.clip * (1.0 + 1e-6),
+          f"4f dp: a clipped row's norm {norm_max} exceeds {dp.clip}")
+    spread = float(torch.std(noised.sketches - clipped))
+    check(abs(spread / dp.sigma - 1.0) <= 0.01,
+          f"4f dp: noise std {spread} against sigma {dp.sigma}")
+    ops.reset_launch_counts()
+    _, labels, _ = noised.finalize(k=8, algo_options=opts)
+    by_path["4f dp"] = read_counts(ops)
+    print(json.dumps({"slice8_path": {
+        "name": "dp", "epsilon": dp.epsilon, "delta": dp.delta,
+        "clip": dp.clip, "sigma": dp.sigma, "noise_std": spread,
+        "clipped_norm_max": norm_max,
+        "purity": cluster_agreement(labels, truth_np),
+        "launches": by_variant(by_path["4f dp"]), "card": card}}),
+        flush=True)
+    del clipped, plain
+
+    # the hierarchy under dp: each shard keys its hook by global row, so
+    # its rows are the flat session's
+    hier = fill(HierarchicalSession(MAIN_M, shards=HIER_SHARDS,
+                                    sketch_dim=MAIN_D,
+                                    sketch_transform=sketch_hook(dp, key),
+                                    device="cuda"))
+    check(torch.equal(hier.sketches, noised.sketches),
+          f"4f shards {HIER_SHARDS} dp: the sketch rows differ from the flat "
+          "session's")
+    ops.reset_launch_counts()
+    _, labels, info = hier.finalize(k=8, algo_options=opts)
+    by_path[f"4f shards {HIER_SHARDS} dp"] = read_counts(ops)
+    print(json.dumps({"slice8_path": {
+        "name": f"shards {HIER_SHARDS} dp", "rows_equal_flat": True,
+        "purity": cluster_agreement(labels, truth_np),
+        "n_clusters": info["n_clusters"],
+        "launches": by_variant(by_path[f"4f shards {HIER_SHARDS} dp"]),
+        "card": card}}), flush=True)
+    del hier, noised, thetas
+    torch.cuda.empty_cache()
+    return by_path, shape_launches
+
+
+def phase_paper_methods(ops, card: str) -> tuple:
+    """Phase 4g: the paper's Section 5 comparison on the card: the
+    federation of ``make_linear_regression_federation(seed=0)`` through
+    every method of ``paper_methods``.  ODCL-KM with 8 kmeans++ restarts
+    must recover the true partition and its mse must equal oracle
+    averaging's within 1e-5 relative (with the partition exact, the
+    cluster mean is the oracle average).  One kmeans++ seeding lands in a
+    local optimum for some keys (0.16 of them, in both packages), so it
+    runs with keys 0..SEEDING_KEYS-1: at least SEEDING_MIN must recover
+    the partition, each of them with the oracle's mse.  Returns (launches
+    by method, the launches at the paper's phase-5 shapes)."""
+    from repro_torch.data import make_linear_regression_federation
+
+    fed = make_linear_regression_federation(seed=0)
+    erm = paper_federation_erm("cuda")
+    res, by_path, rows = {}, {}, []
+    for name, method in paper_methods(fed, "cuda"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res[name] = method.fit(0, fed.xs, fed.ys, erm)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(ops)
+        by_path[f"4g {name}"] = launches
+        r = res[name]
+        rows.append({"method": name, "nmse": r.nmse(fed.optima,
+                                                    fed.true_labels),
+                     "mse": r.mse(fed.optima, fed.true_labels),
+                     "comm_rounds": r.comm_rounds,
+                     "n_clusters": r.n_clusters, "fit_ms": ms,
+                     "true_partition": bool(same_partition(
+                         r.labels, fed.true_labels)),
+                     "launches": by_variant(launches)})
+    oracle = res["oracle-averaging"].mse(fed.optima, fed.true_labels)
+    km = res["odcl-kmeans++ restarts 8"]
+    check(same_partition(km.labels, fed.true_labels),
+          "4g ODCL-KM: not the true partition")
+
+    def oracle_mse(name, r):
+        mse = r.mse(fed.optima, fed.true_labels)
+        check(abs(mse - oracle) <= 1e-5 * oracle,
+              f"4g {name}: mse {mse} != oracle averaging's {oracle}")
+
+    oracle_mse("odcl-kmeans++ restarts 8", km)
+    single = dict(paper_methods(fed, "cuda"))["odcl-kmeans++"]
+    ops.reset_launch_counts()
+    recovered = []
+    for key in range(SEEDING_KEYS):
+        r = single.fit(key, fed.xs, fed.ys, erm)
+        if same_partition(r.labels, fed.true_labels):
+            oracle_mse(f"odcl-kmeans++ key {key}", r)
+            recovered.append(key)
+    by_path[f"4g odcl-kmeans++ keys 0-{SEEDING_KEYS - 1}"] = read_counts(ops)
+    check(len(recovered) >= SEEDING_MIN,
+          f"4g odcl-kmeans++: {len(recovered)} of {SEEDING_KEYS} keys "
+          f"recover the partition, fewer than {SEEDING_MIN}")
+    for kernel, names in (("pairwise_sqdist", ("odcl-kmeans++",
+                                               "odcl-kmeans++ restarts 8",
+                                               "odcl-clusterpath")),
+                          ("group_ball_proj", ("odcl-clusterpath",))):
+        for name in names:
+            check(by_path[f"4g {name}"][kernel] > 0,
+                  f"4g {name}: launched no {kernel}")
+    print(json.dumps({"paper_methods": {
+        "federation": {"m": fed.m, "K": fed.K, "n": fed.n,
+                       "d": int(fed.xs.shape[-1]), "D": fed.D},
+        "oracle_mse": oracle, "rows": rows,
+        "kmeans++_keys_recovered": len(recovered),
+        "kmeans++_keys": SEEDING_KEYS,
+        "kmeans++_keys_missed": sorted(set(range(SEEDING_KEYS))
+                                       - set(recovered)),
+        "card": card}}), flush=True)
+    # (100, 20) x (<= 10, 20) runs on the stream variant, the fusion test's
+    # (100, 20) x (100, 20) on the tiled one; the device Lloyd's assign of
+    # the restarts at (100, 20) x (10, 20) on the small one
+    odcl = [p for n, p in by_path.items() if n.startswith("4g odcl")]
+    return by_path, {
+        "paper kmeans++": sum(p["pairwise_sqdist.stream"] for p in odcl),
+        "paper fusion": sum(p["pairwise_sqdist.tiled"] for p in odcl),
+        "paper lloyd": sum(p["kmeans_assign"] for p in odcl)}
+
+
 def ptxas_instances(usage: dict) -> dict:
     """ptxas registers and spill bytes by kernel instance, keyed by a
     readable name (``flash_attention_tc<1,128>``) in place of the mangled
@@ -1876,7 +2496,7 @@ def ptxas_instances(usage: dict) -> dict:
     return named
 
 
-def flash_kernel_row(flash, launches, errs, card: str) -> dict:
+def flash_kernel_row(flash, card: str) -> dict:
     """Phase 5's flash_attention row at the serving shape: the tensor-core
     kernel on all 4 batch rows, the CUDA-core kernel on the same inputs in
     fp32, the plain version on batch row 0 (its fp32 logits would need
@@ -1916,8 +2536,7 @@ def flash_kernel_row(flash, launches, errs, card: str) -> dict:
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:75",
-            "launches": launches["flash_attention"],
-            "max_abs_err": errs["flash_attention"], "ms": kern["ms"],
+            "launches": None, "max_abs_err": None, "ms": kern["ms"],
             "call_ms": kern["call_ms"], "ms_fp32_kernel": fp32["ms"],
             "call_ms_fp32_kernel": fp32["call_ms"],
             "design": "wgmma+TMA, split-P",
@@ -1938,7 +2557,7 @@ def flash_kernel_row(flash, launches, errs, card: str) -> dict:
 
 # ------------------------------------------------------------ phase 5
 
-def prox_kernel_rows(group_prox, launches, errs) -> list:
+def prox_kernel_rows(group_prox) -> list:
     """Phase 5 rows of the two group-prox kernels: the batched one at the
     convex paths' three dual shapes (the row's own numbers at the first,
     the kNN graph at C = 16 384), the unbatched one at the host AMA's
@@ -1988,8 +2607,8 @@ def prox_kernel_rows(group_prox, launches, errs) -> list:
              "src/repro/kernels/group_prox.py:39")):
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/group_prox.cu",
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": main["ms"],
+                     "replaces": replaces, "launches": None,
+                     "max_abs_err": None, "ms": main["ms"],
                      "call_ms": main["call_ms"], "plain_ms": main["plain_ms"],
                      "bound_ms": main["bound_ms"],
                      "bound_by": main["bound_by"],
@@ -2021,12 +2640,22 @@ ASSIGN_SHAPES = [("lloyd", MAIN_M, MAIN_K, MAIN_D),
                  ("flush 16", 16, MAIN_K, MAIN_D),
                  ("flush 64", 64, MAIN_K, MAIN_D),
                  # minibatch Lloyd's batch (phase 4e)
-                 ("minibatch", BATCH_M, MAIN_K, MAIN_D)]
+                 ("minibatch", BATCH_M, MAIN_K, MAIN_D),
+                 # the hierarchical round (phase 4f): one shard's Lloyd,
+                 # and the top level's over the 256 shard centers
+                 ("shard", SHARD_M, MAIN_K, MAIN_D),
+                 ("top", TOP_M, MAIN_K, MAIN_D),
+                 # ODCL-KM's 8 restarts on the Section 5 federation (4g)
+                 ("paper lloyd", PAPER_M, PAPER_K, PAPER_D)]
 # the kmeans++ shape is also the host Lloyd's and gradient clustering's
 # assignment (phase 4e); spectral: the farthest-point traversal
 PAIRWISE_SHAPES = [("kmeans++", MAIN_M, MAIN_K, MAIN_D),
                    ("knn tile", 1024, 16_384, 32),
-                   ("spectral", MAIN_M, MAIN_K, SPECTRAL_D)]
+                   ("spectral", MAIN_M, MAIN_K, SPECTRAL_D),
+                   # the Section 5 federation (phase 4g): kmeans++ and the
+                   # host Lloyd, then ODCL-CC's fusion test
+                   ("paper kmeans++", PAPER_M, PAPER_K, PAPER_D),
+                   ("paper fusion", PAPER_M, PAPER_M, PAPER_D)]
 
 
 def one_kernel(timing: dict, kernel: str, what: str) -> None:
@@ -2051,19 +2680,12 @@ def ptxas_named(usage: dict) -> dict:
     return named
 
 
-def kernel_rows(pairwise_l2, kmeans_assign, launches, errs,
-                flushes: dict, direct_routes: int,
-                shape_launches: dict) -> list:
+def kernel_rows(pairwise_l2, kmeans_assign) -> list:
     """Phase 5 rows of the two slice-1 kernels, one entry a shape: device
     ms and call ms of the kernel, the plain version and the library call,
     the bound, and the variant the wrapper picked; each kernel
-    instance's ptxas registers and spill bytes.  A flush bucket's entry
-    also carries the serving paths' flushes that launched at it
-    (``flushes``, from the route server's ``serving.flush_size``); bucket
-    1 also gives the direct rows' per-request routes, one launch at m = 1
-    each, which are not flushes.  The spectral and minibatch entries
-    carry the launches of phase 4e's finalize that runs them
-    (``shape_launches``)."""
+    instance's ptxas registers and spill bytes.  ``add_counts`` fills in
+    the launches once the paths have run."""
     from repro_torch.kernels import _build
 
     rows = []
@@ -2087,9 +2709,7 @@ def kernel_rows(pairwise_l2, kmeans_assign, launches, errs,
             "traces": kern["traces"],
             "plain_ms": plain["ms"], "library_ms": lib["ms"],
             "library_call_ms": lib["call_ms"], "bound_ms": b_ms,
-            "bound_by": b_by,
-            **({"launches": shape_launches[cls]}
-               if cls in shape_launches else {})})
+            "bound_by": b_by})
         del a, b
     for i, (cls, m, k, d) in enumerate(ASSIGN_SHAPES):
         a, b = draw(17 + i, (m, d), (k, d))
@@ -2107,13 +2727,7 @@ def kernel_rows(pairwise_l2, kmeans_assign, launches, errs,
             "device_ops_per_call": kern["device_ops_per_call"],
             "traces": kern["traces"],
             "plain_ms": plain["ms"], "library_ms": None, "bound_ms": b_ms,
-            "bound_by": b_by,
-            **({"launches": flushes.get(m, 0)}
-               if cls.startswith("flush") else {}),
-            **({"direct_route_launches": direct_routes}
-               if cls == "flush 1" else {}),
-            **({"launches": shape_launches[cls]}
-               if cls in shape_launches else {})})
+            "bound_by": b_by})
         del a, b, pts
     for name, src, replaces, library in (
             ("pairwise_sqdist", "src/repro_torch/kernels/csrc/pairwise_l2.cu",
@@ -2125,14 +2739,65 @@ def kernel_rows(pairwise_l2, kmeans_assign, launches, errs,
         main = at[name][0]
         rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": main["ms"],
+            "replaces": replaces, "launches": None, "max_abs_err": None,
+            "ms": main["ms"],
             "call_ms": main["call_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "library": library,
             "ptxas": ptxas_named(_build.ptxas_usage(src.split("/")[-1][:-3])),
             "shape": main["shape"], "at_shapes": at[name]})
     return rows
+
+
+def phase_timings(card: str) -> list:
+    """Phase 5's timings, taken first, while no earlier phase has run in
+    the process (after phases 2-4g, ``torch.profiler`` lost kernel
+    records in some runs): every kernel at its shapes.  The launch counts
+    and errors come later (``add_counts``)."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import group_prox, kmeans_assign, pairwise_l2
+
+    t0 = time.perf_counter()
+    rows = (kernel_rows(pairwise_l2, kmeans_assign)
+            + prox_kernel_rows(group_prox) + [flash_kernel_row(flash, card)])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] phase 5 timings in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return rows
+
+
+def add_counts(rows: list, by_path: dict, errs: dict, flushes: dict,
+               direct_routes: int, shape_launches: dict) -> None:
+    """Phase 5: each row's launches on the paths (``by_path``: by wrapper
+    and variant), its error from phase 2, and each shape entry's
+    launches: a flush bucket's flushes (``flushes``, from the route
+    server's ``serving.flush_size``; bucket 1 also gives the direct
+    rows' per-request routes, one launch at m = 1 each, which are not
+    flushes) and the launches at the shapes of phases 4e-4g
+    (``shape_launches``)."""
+    for row in rows:
+        name = row["name"]
+        row["launches"] = sum(n[name] for n in by_path.values())
+        row["max_abs_err"] = errs[name]
+        row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
+        variants = [key.split(".", 1)[1] for key in by_path["kmeans-device"]
+                    if key.startswith(name + ".")]
+        if variants:
+            row["launches_by_variant"] = {
+                v: sum(n[f"{name}.{v}"] for n in by_path.values())
+                for v in variants}
+            row["launches_by_variant_by_path"] = {
+                p: {v: n[f"{name}.{v}"] for v in variants}
+                for p, n in by_path.items()}
+        for at in row.get("at_shapes", []):
+            cls = at.get("class", "")
+            if name == "kmeans_assign" and cls.startswith("flush"):
+                at["launches"] = flushes.get(int(cls.split()[1]), 0)
+                if cls == "flush 1":
+                    at["direct_route_launches"] = direct_routes
+            elif cls in shape_launches:
+                at["launches"] = shape_launches[cls]
 
 
 def main() -> None:
@@ -2151,6 +2816,7 @@ def main() -> None:
     from repro_torch.kernels import group_prox, kmeans_assign, ops, pairwise_l2
     from repro_torch.launch.simulate import simulate
 
+    t_all = time.perf_counter()
     card = card_line()
     print(f"[chip_smoke] {card}", flush=True)
     t0 = time.perf_counter()
@@ -2158,6 +2824,7 @@ def main() -> None:
     print(f"[chip_smoke] kernels built in {time.perf_counter() - t0:.1f}s "
           f"({json.dumps(built)})", flush=True)
 
+    rows = phase_timings(card)
     errs = phase_kernels(pairwise_l2, kmeans_assign, ops)
     phase_flush_buckets(pairwise_l2, kmeans_assign, ops)
     errs.update(phase_prox_kernels(group_prox, pairwise_l2, ops))
@@ -2165,6 +2832,7 @@ def main() -> None:
     phase_small_round()
     phase_convex_rounds()
     phase_slice7_rounds()
+    phase_slice8_rounds()
     phase_serve_card_vs_cpu()
 
     ops.reset_launch_counts()
@@ -2197,27 +2865,18 @@ def main() -> None:
         ops, card)
     slice7, shape_launches = phase_slice7(simulate, ops, card)
     by_path.update(slice7)
-    total = {name: sum(p[name] for p in by_path.values())
-             for name in ops.WRAPPERS}
-    rows = (kernel_rows(pairwise_l2, kmeans_assign, total, errs,
-                        flushes, direct_routes, shape_launches)
-            + prox_kernel_rows(group_prox, total, errs)
-            + [flash_kernel_row(flash, total, errs, card)])
-    for row in rows:
-        name = row["name"]
-        row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
-        variants = [key.split(".", 1)[1] for key in by_path["kmeans-device"]
-                    if key.startswith(name + ".")]
-        if variants:
-            row["launches_by_variant"] = {
-                v: sum(n[f"{name}.{v}"] for n in by_path.values())
-                for v in variants}
-            row["launches_by_variant_by_path"] = {
-                p: {v: n[f"{name}.{v}"] for v in variants}
-                for p, n in by_path.items()}
+    slice8, launches = phase_slice8(simulate, ops, card)
+    by_path.update(slice8)
+    shape_launches.update(launches)
+    paper, launches = phase_paper_methods(ops, card)
+    by_path.update(paper)
+    shape_launches.update(launches)
+    add_counts(rows, by_path, errs, flushes, direct_routes, shape_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     if args.profile:
         phase_traces(simulate, generate)
+    print(f"[chip_smoke] every phase passed in "
+          f"{time.perf_counter() - t_all:.1f}s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

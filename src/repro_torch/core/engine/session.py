@@ -9,7 +9,9 @@ mutable service (the port of ``repro/core/engine/session.py``).
     a capacity-sized copy per wave).  With ``client_ids=`` the wave is
     keyed: a host-side slot table maps client ids to buffer rows, a
     returning client's row is replaced in place, and ``count`` means live
-    clients, not uploads.
+    clients, not uploads.  A ``sketch_transform`` hook (a scenario's
+    sketch channel: the DP release, the colluding spoof) rewrites each
+    wave's sketch rows before they are written.
   * staleness: a logical clock advances by one per wave and stamps every
     written row; a policy (``engine/staleness.py``: ``none`` | ``max_age``
     | ``exp_decay``) evicts aged rows onto a free list, which new clients
@@ -124,12 +126,22 @@ class AggregationSession:
         (``"none"`` | ``"max_age=3"`` | ``"exp_decay=2.0"``).
       projection: an explicit (n, sketch_dim) projection in place of the
         one drawn from ``seed`` (how tests carry the reference's across).
+      sketch_transform: an optional ``(sketches, offset) -> sketches``
+        hook applied to every wave's (w, sketch_dim) rows before they are
+        written (the scenarios' sketch channel: the DP release, the
+        colluding spoof).  ``offset`` is the wave's first target row plus
+        ``row_base``.
+      row_base: the global index of this session's row 0, added to the
+        hook's offset (a shard of ``HierarchicalSession`` starts at its
+        first global client, so a hook keyed by client index sees the
+        index the flat session would).
       device: where the buffers live; CUDA unless ``"cpu"`` is asked for.
     """
 
     def __init__(self, capacity: int, *, sketch_dim: int = 256,
                  seed: int = 0, cluster_seed: Optional[int] = None,
-                 staleness="none", projection=None, device=None):
+                 staleness="none", projection=None, sketch_transform=None,
+                 row_base: int = 0, device=None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.device = resolve_device(device)
@@ -139,6 +151,8 @@ class AggregationSession:
         self.cluster_seed = self.seed if cluster_seed is None else int(
             cluster_seed)
         self.staleness = make_staleness_policy(staleness)
+        self._sketch_transform = sketch_transform
+        self.row_base = int(row_base)
         self._projection = (None if projection is None else
                             torch.as_tensor(projection).to(self.device,
                                                            torch.float32))
@@ -310,6 +324,13 @@ class AggregationSession:
         obs.gauge("session.slots.live", float(self._count))
         obs.gauge("session.slots.free", float(self.capacity - self._count))
 
+    def _transform(self, sketches: torch.Tensor, rows: np.ndarray):
+        """The sketch hook over a wave bound for ``rows`` (keyed by its
+        first row, as the reference keys keyed waves by ``rows[0]``)."""
+        if self._sketch_transform is None:
+            return sketches
+        return self._sketch_transform(sketches, self.row_base + int(rows[0]))
+
     def _write_rows(self, buf: torch.Tensor, rows: np.ndarray,
                     values: torch.Tensor) -> None:
         start = int(rows[0])
@@ -352,8 +373,8 @@ class AggregationSession:
         offset = int(rows[0])
         with obs.span("session.ingest", wave=w, offset=offset,
                       mode="params"):
-            self._write_rows(self._sketches, rows,
-                             sketch_stacked(wave, projection))
+            self._write_rows(self._sketches, rows, self._transform(
+                sketch_stacked(wave, projection), rows))
             for buf, l in zip(tree_leaves(self._params), leaves):
                 self._write_rows(buf, rows, l)
             self._sync()
@@ -379,7 +400,8 @@ class AggregationSession:
         offset = int(rows[0])
         with obs.span("session.ingest", wave=w, offset=offset,
                       mode="sketches"):
-            self._write_rows(self._sketches, rows, sketches)
+            self._write_rows(self._sketches, rows,
+                             self._transform(sketches, rows))
             self._sync()
         obs.count("session.ingest.clients", w)
         obs.count("session.ingest.bytes",

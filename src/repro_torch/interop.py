@@ -3,9 +3,11 @@
 The reference (JAX) and the port (PyTorch) draw different numbers from
 the same seed, so a parity test hands the reference's values across as
 numpy arrays: the stacked client parameters, the (n, sketch_dim) JL
-projection, (k, d) init centers, the rows of the ``random`` init and of
-every minibatch Lloyd iteration, the (n_tables, d) LSH directions
-of the approximate kNN fusion graph, and a decoder LM's parameter tree.
+projection, (k, d) init centers (and IFCA's initial models), the rows of
+the ``random`` init and of every minibatch Lloyd iteration, the
+(n_tables, d) LSH directions of the approximate kNN fusion graph, a
+scenario's draws (its Bernoulli masks and Gaussian blocks), and a
+decoder LM's parameter tree.
 Both packages then compute the same thing.  Nothing here imports the
 reference.
 """
@@ -61,7 +63,8 @@ def projection_from_numpy(projection, device=None) -> torch.Tensor:
 
 
 def centers_from_numpy(centers, device=None) -> torch.Tensor:
-    """(k, d) centers (for ``init="warm"``) as fp32 tensors."""
+    """(k, d) centers (for ``init="warm"``, or IFCA's initial models) as
+    fp32 tensors."""
     c = tensor_from_numpy(centers, device, torch.float32)
     if c.ndim != 2:
         raise ValueError(f"centers must be (k, d), got {tuple(c.shape)}")
@@ -96,6 +99,47 @@ def rows_from_numpy(*draws) -> RowReplay:
     """The reference's row draws (each an (n,) index array) as a row
     sampler that replays them in order."""
     return RowReplay(*draws)
+
+
+class DrawReplay:
+    """A scenario's draws (the ``mask`` / ``normal`` interface of
+    ``utils.prng.KeyedDraws``) handed out from given arrays, ignoring the
+    keys: ``masks[tag]`` is the (C,) bool coin of every global client
+    index under that role tag, indexed by the indices asked for;
+    ``normals[tag]`` a Gaussian block drawn once (the spoof vector) and
+    ``normals[(tag, offset)]`` one drawn for the wave at ``offset`` (the
+    noise attack, the DP release).  ``calls`` counts the draws taken."""
+
+    def __init__(self, masks=None, normals=None):
+        self._masks = {t: np.asarray(m, bool)
+                       for t, m in (masks or {}).items()}
+        self._normals = {t: np.asarray(n, np.float32)
+                         for t, n in (normals or {}).items()}
+        self.calls = 0
+
+    def mask(self, key, tag, idx, p) -> torch.Tensor:
+        if tag not in self._masks:
+            raise ValueError(f"no mask given for tag {tag:#x}")
+        self.calls += 1
+        coins = torch.from_numpy(self._masks[tag].copy()).to(idx.device)
+        return coins[idx]
+
+    def normal(self, key, tag, shape, *, offset=None, device,
+               dtype=torch.float32) -> torch.Tensor:
+        at = tag if offset is None else (tag, int(offset))
+        if at not in self._normals:
+            raise ValueError(f"no normal block given for {at}")
+        block = self._normals[at]
+        if block.shape != tuple(shape):
+            raise ValueError(f"normal block {at} is {block.shape}, "
+                             f"asked for {tuple(shape)}")
+        self.calls += 1
+        return torch.from_numpy(block.copy()).to(device, dtype)
+
+
+def draws_from_numpy(masks=None, normals=None) -> DrawReplay:
+    """The reference's scenario draws as a scenario's ``draws=``."""
+    return DrawReplay(masks, normals)
 
 
 def directions_from_numpy(directions, device=None) -> torch.Tensor:

@@ -32,6 +32,18 @@ gauge and ``maybe_refinalize`` warm-starts a re-finalize
 runs the ``RouteServer`` over the finalized session: closed-loop callers
 per request, then batched across callers.
 
+``scenario`` runs the federation through an adversity scenario
+(``repro_torch.scenarios``, options from one flat ``scenario_options``
+set): its population and drift hooks reshape the true labels (which are
+then scored), ``corrupt_uploads`` attacks each wave's ERMs before upload,
+and its sketch hook (the DP release, the colluding spoof) runs inside the
+session's ingest.  ``purity`` and ``mse`` count the honest clients only
+(``purity_all`` every client).  ``shards > 1`` runs the two-level
+hierarchical round (``core/engine/hierarchy.py``): one finalize per
+shard of ceil(C / shards) clients, then one over the shards' centers;
+``comm_level_bytes`` gives both levels' bytes.  It is anonymous-only and
+one-shot-only, so it refuses the mutation knobs and ``qps_callers``.
+
   python -m repro_torch.launch.simulate --clients 4096 --clusters 8
   python -m repro_torch.launch.simulate --clients 4096 --device cpu
   python -m repro_torch.launch.simulate --algorithm convex-device \
@@ -40,6 +52,10 @@ per request, then batched across callers.
       --churn 64 --max-age 3 --refinalize-threshold 1.5 --device cpu
   python -m repro_torch.launch.simulate --task logistic --init spectral \
       --aggregator trimmed_mean --trace trace.jsonl --device cpu
+  python -m repro_torch.launch.simulate --scenario byzantine \
+      --byzantine-frac 0.1 --aggregator trimmed_mean --device cpu
+  python -m repro_torch.launch.simulate --shards 4 --scenario dp \
+      --dp-epsilon 64 --device cpu
 """
 from __future__ import annotations
 
@@ -64,6 +80,7 @@ from repro_torch.core.engine.aggregators import (
     make_aggregator,
 )
 from repro_torch.core.engine.edges import list_edge_sets
+from repro_torch.core.engine.hierarchy import HierarchicalSession
 from repro_torch.core.engine.session import AggregationSession
 from repro_torch.core.engine.staleness import make_staleness_policy
 from repro_torch.core.erm import batched_logistic_erm, batched_ridge_erm
@@ -74,6 +91,8 @@ from repro_torch.core.federated import (
 )
 from repro_torch.core.sketch import make_generator
 from repro_torch.device import resolve_device
+from repro_torch.scenarios import build_scenario, list_scenarios
+from repro_torch.utils import prng
 
 
 def staggered_optima(generator: torch.Generator, K: int, d: int):
@@ -131,9 +150,11 @@ def _sync(dev: torch.device) -> None:
 
 def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
              wave: int = 4096, task: str = "ridge", sketch_dim: int = 64,
+             shards: int = 1,
              algorithm: str = "kmeans-device", init: str = "kmeans++",
              kmeans_iters: int = 50, restarts: int = 1,
              cc_iters: int = 300, edges: str = "complete", knn_k: int = 8,
+             scenario=None, scenario_options: dict | None = None,
              aggregator: str = "mean", trim_beta: float = 0.1,
              seed: int = 0, trace: str | None = None,
              route_probes: int = 0, finalize_repeats: int = 1,
@@ -149,12 +170,26 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
     task, serving latencies).  ``trace`` attaches a JSONL sink for the
     run.  Runs on CUDA unless ``device="cpu"``."""
     dev = resolve_device(device)
+    mutated = (reupload_frac > 0 or churn > 0 or max_age is not None
+               or refinalize_threshold is not None)
+    if shards > 1 and mutated:
+        # the hierarchical server is anonymous-only: keyed mutation needs
+        # the flat session's single buffer
+        raise ValueError("--shards > 1 is incompatible with the mutation "
+                         "knobs (--reupload-frac/--churn/--max-age/"
+                         "--refinalize-threshold): keyed slots need the "
+                         "flat session")
+    if shards > 1 and qps_callers > 0:
+        raise ValueError("--qps-callers needs the flat session's one-shot "
+                         "round (shards=1)")
     obs.reset()                       # per-run aggregates; sinks survive
     trace_sink = obs.add_sink(obs.JsonlSink(trace)) if trace else None
     try:
         return _simulate(
             dev, clients=clients, clusters=clusters, dim=dim,
             samples=samples, wave=wave, task=task, sketch_dim=sketch_dim,
+            shards=shards, scenario=scenario,
+            scenario_options=scenario_options, mutated=mutated,
             algorithm=algorithm, init=init, kmeans_iters=kmeans_iters,
             restarts=restarts, cc_iters=cc_iters, edges=edges, knn_k=knn_k,
             aggregator=aggregator, trim_beta=trim_beta, seed=seed,
@@ -170,28 +205,53 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
 
 
 def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
-              sketch_dim, algorithm, init, kmeans_iters, restarts, cc_iters,
+              sketch_dim, shards, scenario, scenario_options, mutated,
+              algorithm, init, kmeans_iters, restarts, cc_iters,
               edges, knn_k, aggregator, trim_beta, seed, route_probes,
               finalize_repeats, reupload_frac, churn, max_age,
               refinalize_threshold, mutation_rounds, drift_scale,
               qps_callers, qps_duration) -> dict:
     gen = make_generator(seed, dev)
     optima = staggered_optima(gen, clusters, dim)
-    true_labels = torch.arange(clients, device=dev) % clusters
+    scen = (build_scenario(scenario, **(scenario_options or {}))
+            if scenario is not None else None)
+    scen_key = prng.fold_in(prng.key(seed), 0x5ce0)
+    if scen is not None:
+        # the hooks are deterministic per global index, so applying the
+        # drift hook to the whole index range once equals per-wave calls
+        true_labels = scen.wave_labels(
+            scen_key, scen.population(scen_key, clients, clusters,
+                                      device=dev), 0, clients, clusters)
+        honest = scen.honest_mask(scen_key, clients, device=dev).cpu().numpy()
+    else:
+        true_labels = torch.arange(clients, device=dev) % clusters
+        honest = np.ones(clients, bool)
+    sketch_hook = (
+        (lambda sk, off: scen.sketch_transform(scen_key, sk, off))
+        if scen is not None and scen.transforms_sketches else None)
 
     # mutation mode: keyed slots (client ids) and room for the joiners
-    mutated = (reupload_frac > 0 or churn > 0 or max_age is not None
-               or refinalize_threshold is not None)
     capacity = clients + (churn * mutation_rounds if mutated else 0)
-    session = AggregationSession(capacity, sketch_dim=sketch_dim, seed=seed,
-                                 device=dev)
+    if shards > 1:
+        session = HierarchicalSession(capacity, shards=shards,
+                                      sketch_dim=sketch_dim, seed=seed,
+                                      sketch_transform=sketch_hook,
+                                      device=dev)
+    else:
+        session = AggregationSession(capacity, sketch_dim=sketch_dim,
+                                     seed=seed, sketch_transform=sketch_hook,
+                                     device=dev)
     agg = make_aggregator(aggregator, beta=trim_beta)
     t_erm = t_ingest = 0.0
     for start in range(0, clients, wave):
         w = min(wave, clients - start)
         t0 = time.perf_counter()
-        theta_w = wave_erm(gen, optima, true_labels[start:start + w],
-                           n=samples, task=task)
+        lab_w = true_labels[start:start + w]
+        theta_w = wave_erm(gen, optima, lab_w, n=samples, task=task)
+        if scen is not None:
+            # step-1 attack: Byzantine clients replace their upload
+            theta_w = scen.corrupt_uploads(scen_key, theta_w, lab_w, start,
+                                           clients)
         _sync(dev)
         t1 = time.perf_counter()
         session.ingest({"theta": theta_w},
@@ -226,11 +286,16 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
     t_agg = time.perf_counter() - t1
 
     truth = true_labels.cpu().numpy()
-    purity = cluster_agreement(labels, truth)
+    purity_all = cluster_agreement(labels, truth)
+    # the score that matters under attack: agreement on the honest
+    # clients only (attackers have no "right" cluster)
+    purity = (cluster_agreement(labels[honest], truth[honest])
+              if honest.any() else purity_all)
     mse = None
     if task == "ridge":
-        served = new_state.params["theta"]
-        mse = float(torch.mean((served - optima[true_labels]) ** 2))
+        keep = torch.as_tensor(honest, device=dev)
+        served = new_state.params["theta"][keep]
+        mse = float(torch.mean((served - optima[true_labels[keep]]) ** 2))
 
     serving = None
     if mutated or route_probes > 0 or finalize_repeats > 1:
@@ -308,6 +373,13 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
         "samples": samples, "wave": wave, "task": task,
         "sketch_dim": sketch_dim, "seed": seed, "method": "odcl",
         "algorithm": algorithm, "init": init, "restarts": restarts,
+        "shards": shards, "comm_level_bytes": info.get("comm_level_bytes"),
+        "scenario": getattr(scen, "name", None),
+        "scenario_options": scenario_options or None,
+        "honest_frac": float(np.mean(honest)),
+        # clients per true cluster (after a scenario's population/drift)
+        "occupancy": torch.bincount(true_labels.long(),
+                                    minlength=clusters).tolist(),
         "aggregator": agg.name,
         "lam": info["meta"]["lam"],
         "edges": edges if convex_family else None,
@@ -323,6 +395,7 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
                    "total_s": t_erm + t_ingest + t_agg},
         "n_clusters_recovered": info["n_clusters"],
         "purity": purity,
+        "purity_all": purity_all,
         "mse": mse,
         "meta": {"engine": info["engine"], **info["meta"]},
         "serving": serving,
@@ -450,6 +523,10 @@ def main(argv=None):
                     help="clients drawn+solved+ingested per wave")
     ap.add_argument("--task", choices=("ridge", "logistic"), default="ridge")
     ap.add_argument("--sketch-dim", type=int, default=64)
+    ap.add_argument("--shards", type=int, default=1,
+                    help="level-0 shards of the two-level hierarchical "
+                         "round (1 = the flat session; >1 clusters each "
+                         "shard, then the shards' centers)")
     ap.add_argument("--algorithm", default="kmeans-device",
                     choices=_device_runnable_algorithms())
     ap.add_argument("--init", choices=("kmeans++", "spectral", "random"),
@@ -465,6 +542,27 @@ def main(argv=None):
                          "E = C*k) or 'knn-approx' (LSH candidates)")
     ap.add_argument("--knn-k", type=int, default=8,
                     help="neighbours per client for the kNN fusion graphs")
+    ap.add_argument("--scenario", default=None,
+                    help="adversity scenario over the client population: "
+                         f"one of {list(list_scenarios())} or a "
+                         "'+'-composed spec (e.g. 'longtail+byzantine')")
+    ap.add_argument("--byzantine-frac", type=float, default=None,
+                    help="attacker fraction for --scenario byzantine")
+    ap.add_argument("--byzantine-attack", default=None,
+                    choices=("sign_flip", "noise", "spoof"),
+                    help="attack mode for --scenario byzantine")
+    ap.add_argument("--byzantine-scale", type=float, default=None,
+                    help="noise/spoof magnitude for --scenario byzantine")
+    ap.add_argument("--dp-epsilon", type=float, default=None,
+                    help="privacy budget for --scenario dp")
+    ap.add_argument("--dp-delta", type=float, default=None,
+                    help="delta for --scenario dp")
+    ap.add_argument("--dp-clip", type=float, default=None,
+                    help="sketch L2 clip (sensitivity) for --scenario dp")
+    ap.add_argument("--drift-frac", type=float, default=None,
+                    help="migrating-client fraction for --scenario drift")
+    ap.add_argument("--zipf-a", type=float, default=None,
+                    help="Zipf exponent for --scenario longtail")
     ap.add_argument("--aggregator", default="mean",
                     choices=list(list_aggregators()),
                     help="per-cluster step-3 reduction (a robust one also "
@@ -497,10 +595,18 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, help="write the summary JSON here")
     args = ap.parse_args(argv)
+    # one flat option set; each scenario keeps the fields it declares
+    scenario_options = {k: v for k, v in {
+        "frac": args.byzantine_frac, "attack": args.byzantine_attack,
+        "scale": args.byzantine_scale, "epsilon": args.dp_epsilon,
+        "delta": args.dp_delta, "clip": args.dp_clip,
+        "drift_frac": args.drift_frac, "zipf_a": args.zipf_a,
+    }.items() if v is not None}
     summary = simulate(
         clients=args.clients, clusters=args.clusters, dim=args.dim,
         samples=args.samples, wave=args.wave, task=args.task,
-        sketch_dim=args.sketch_dim,
+        sketch_dim=args.sketch_dim, shards=args.shards,
+        scenario=args.scenario, scenario_options=scenario_options or None,
         algorithm=args.algorithm, init=args.init,
         kmeans_iters=args.kmeans_iters, restarts=args.restarts,
         cc_iters=args.cc_iters, edges=args.edges, knn_k=args.knn_k,
@@ -514,13 +620,22 @@ def main(argv=None):
     ph = summary["phases"]
     print(f"[simulate] C={summary['clients']} K={summary['clusters']} "
           f"task={summary['task']} wave={summary['wave']} "
-          f"algo={summary['algorithm']} edges={summary['edges'] or '-'} "
+          f"algo={summary['algorithm']} shards={summary['shards']} "
+          f"edges={summary['edges'] or '-'} "
+          f"scenario={summary['scenario'] or '-'} "
           f"agg={summary['aggregator']} device={summary['device_name']}")
     print(f"[simulate] local ERMs {ph['local_erm_s']:.3f}s  ingest "
           f"{ph['ingest_s']:.3f}s  server round {ph['aggregate_s']:.3f}s")
+    clb = summary["comm_level_bytes"]
+    if clb is not None:
+        print(f"[simulate] hierarchy: level0 {clb['level0'] / 1e6:.2f}MB "
+              f"(client uploads)  level1 {clb['level1'] / 1e6:.4f}MB "
+              f"(shard centers)")
     mse = summary["mse"]
     print(f"[simulate] recovered K'={summary['n_clusters_recovered']} "
           f"purity={summary['purity']:.3f} "
+          f"(all={summary['purity_all']:.3f}, "
+          f"honest={summary['honest_frac']:.3f}) "
           f"mse={'-' if mse is None else format(mse, '.3g')} "
           f"n_iter={summary['meta']['n_iter']} lam={summary['lam']}")
     sv = summary["serving"]

@@ -424,3 +424,55 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         tflash.flash_attention(q, q.bfloat16(), q.bfloat16())
     with pytest.raises(ValueError, match="window"):
         tflash.flash_attention(q, q, q, window=-1)
+
+
+# the hierarchical round's shapes: one shard's Lloyd at C / 32 rows and
+# the top level's over the 32 x 8 shard centers (the small-m threshold);
+# the Section 5 federation's kmeans++ / host Lloyd (stream) and ODCL-CC
+# fusion test (tiled)
+HIERARCHY_SHAPES = [(32_768, 8, 64), (256, 8, 64)]
+PAPER_SHAPES = [(100, 10, 20), (100, 100, 20)]
+
+
+@pytest.mark.parametrize("m,k,d", HIERARCHY_SHAPES + PAPER_SHAPES)
+def test_hierarchy_and_paper_shapes_match_plain_with_the_planned_variant(
+        cuda_device, m, k, d):
+    pts, cts = _blobs(7 * m + k + d, cuda_device, m, k, d)
+    before = {"assign": dict(tassign.kmeans_assign.by_variant),
+              "pairwise": dict(tpairwise.pairwise_sqdist.by_variant)}
+    got = tpairwise.pairwise_sqdist(pts, cts)
+    lab, sums, cnt = tassign.kmeans_assign(pts, cts)
+    torch.cuda.synchronize()
+    want = tpairwise.pairwise_sqdist_ref(pts, cts)
+    scale = (pts * pts).sum(1)[:, None] + (cts * cts).sum(1)[None, :]
+    assert float(((got - want).abs() - (1e-5 * want.abs() + 1e-4 * scale))
+                 .max()) <= 0.0
+    clear = _clear_rows(pts, cts)
+    wl, _, _ = tassign.kmeans_assign_ref(pts, cts)
+    assert torch.equal(lab[clear], wl[clear])
+    ws = torch.nn.functional.one_hot(lab.long(), k).float().T @ pts
+    assert torch.equal(cnt, torch.bincount(lab.long(), minlength=k).float())
+    torch.testing.assert_close(sums, ws, rtol=1e-5, atol=1e-4)
+    after = {"assign": tassign.kmeans_assign.by_variant,
+             "pairwise": tpairwise.pairwise_sqdist.by_variant}
+    planned = {"assign": tassign.assign_plan(m, k, d).variant,
+               "pairwise": tpairwise.pairwise_plan(m, k, d)[0]}
+    for name in after:
+        assert {v: after[name][v] - before[name][v] for v in after[name]} == {
+            **dict.fromkeys(after[name], 0), planned[name]: 1}
+    if (m, k, d) == (256, 8, 64):
+        assert planned["assign"] == "small"
+    if (m, k, d) == (100, 100, 20):
+        assert planned["pairwise"] == "tiled"
+
+
+def test_group_prox_at_the_paper_host_ama_shape(cuda_device):
+    """ODCL-CC's host AMA on the Section 5 federation: E = 4950 edges of
+    d = 20, one scalar radius."""
+    (v,) = _draw(4950, cuda_device, (4950, 20))
+    got = tprox.group_ball_proj(v, 0.75)
+    torch.cuda.synchronize()
+    want = tprox.group_ball_proj_ref(v, 0.75)
+    norm = torch.linalg.vector_norm(v, dim=1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-6 * want.abs() + 1e-7 * norm).all())
+    assert torch.equal(tprox.group_ball_proj(v, 0.75), got)

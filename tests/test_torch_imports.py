@@ -71,7 +71,11 @@ def test_port_files_exist():
                 "core/clustering/admissible.py", "core/clustering/gradient.py",
                 "core/clustering/kmeans.py", "core/engine/aggregators.py",
                 "core/odcl.py", "core/erm.py", "optim/adamw.py",
-                "obs/sinks.py"):
+                "obs/sinks.py", "utils/prng.py", "scenarios/__init__.py",
+                "scenarios/api.py", "scenarios/library.py",
+                "data/__init__.py", "data/synthetic.py",
+                "core/engine/hierarchy.py", "core/oracles.py",
+                "core/theory.py", "core/ifca.py", "core/methods.py"):
         assert (PORT / rel).exists(), rel
     assert len(PORT_FILES) > 10 and PORT_FILES[-1].exists()
 
@@ -167,6 +171,35 @@ def test_entry_points_raise_without_cuda(no_cuda):
         tserve.generate(model, cfg, prompts, 2)
     assert tserve.generate(model, cfg, prompts, 2,
                            device="cpu")[0].shape == (1, 6)
+
+
+def test_slice8_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.core.engine.hierarchy import (
+        HierarchicalSession, hierarchical_one_shot_aggregate)
+    from repro_torch.core.methods import IFCA, ODCL
+    from repro_torch.scenarios import ByzantineScenario, LongtailScenario
+    from repro_torch.utils import prng
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HierarchicalSession(8, shards=2)
+    state = state_from_numpy({"theta": torch.zeros((4, 2)).numpy()}, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hierarchical_one_shot_aggregate(state, shards=2, k=2)
+    for argv in (["--scenario", "byzantine", "--byzantine-frac", "0.2"],
+                 ["--shards", "2"],
+                 ["--shards", "2", "--scenario", "dp", "--dp-epsilon", "8"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tsimulate.main(["--clients", "8", "--clusters", "2"] + argv)
+    pts = torch.zeros((6, 3)).numpy()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ODCL(k=2).fit(0, None, None, erm=lambda xs, ys: pts)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IFCA(k=2, loss_fn=None, grad_fn=None).fit(0, pts[None], pts[None, :, 0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ByzantineScenario().honest_mask(prng.key(0), 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LongtailScenario().population(prng.key(0), 8, 2)
+    assert HierarchicalSession(8, shards=2, device="cpu").shards == 2
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
