@@ -30,11 +30,11 @@ from repro_torch.core.engine.aggregators import (
     cluster_aggregate_tree,
     get_aggregator,
 )
-from repro_torch.core.federated import FederatedState
-from repro_torch.core.sketch import jl_projection, make_generator, sketch_stacked
+from repro_torch.core.federated import FederatedState, _leaf_filter_for
+from repro_torch.core.sketch import make_generator, sketch_stacked
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.utils import tree_leaves, tree_map, tree_size
+from repro_torch.utils import tree_leaves, tree_map
 
 
 def _average_clusters(labels, centers, params, aggregator):
@@ -201,7 +201,7 @@ def materialize_round(new_params, res, state: FederatedState):
     return new_state, labels, info, uniq, first
 
 
-def one_shot_aggregate_device(state: FederatedState, *,
+def one_shot_aggregate_device(state: FederatedState, cfg=None, *,
                               algorithm="kmeans-device",
                               k: Optional[int] = None,
                               algo_options: Optional[dict] = None,
@@ -213,23 +213,23 @@ def one_shot_aggregate_device(state: FederatedState, *,
                               device=None):
     """The one-shot round on one device.  Returns (state, labels, info).
 
-    ``seed`` draws the JL projection (or pass ``projection=`` (n,
-    sketch_dim) explicitly); ``cluster_seed`` (default ``seed``) seeds the
-    clustering's generator.  Runs on CUDA unless ``device="cpu"``; the
-    parameters are moved there."""
+    ``seed`` draws the JL projection block by block as the sketch streams
+    (or pass ``projection=``, an (n, sketch_dim) matrix);
+    ``cluster_seed`` (default ``seed``) seeds the clustering's
+    generator.  ``cfg`` (the clients' ``ModelConfig``) picks the
+    router-invariant sketch of an MoE model.  Runs on CUDA unless
+    ``device="cpu"``; the parameters are moved there."""
     dev = resolve_device(device)
     algo = resolve_device_algorithm(algorithm)
     aggregator = get_aggregator(aggregator)
     params = tree_map(lambda l: torch.as_tensor(l).to(dev), state.params)
-    if projection is None:
-        n = tree_size(params) // state.n_clients
-        projection = jl_projection(n, sketch_dim, seed=seed, device=dev)
-    projection = projection.to(dev, torch.float32)
     generator = make_generator(seed if cluster_seed is None
                                else cluster_seed, dev)
 
     def round_fn(params):
-        sketches = sketch_stacked(params, projection)
+        sketches = sketch_stacked(params, projection, sketch_dim=sketch_dim,
+                                  seed=seed,
+                                  leaf_filter=_leaf_filter_for(cfg))
         new_params, res = _cluster_and_average(
             algo, algo_options or {}, k, generator, sketches, params,
             aggregator)

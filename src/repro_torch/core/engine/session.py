@@ -68,10 +68,12 @@ from repro_torch.core.engine.aggregate import (
 from repro_torch.core.engine.aggregators import get_aggregator
 from repro_torch.core.engine.device_kmeans import direct_inertia
 from repro_torch.core.engine.staleness import make_staleness_policy
-from repro_torch.core.federated import FederatedState
+from repro_torch.core.federated import FederatedState, _leaf_filter_for
 from repro_torch.core.sketch import (
+    SKETCH_BLOCK,
     jl_projection,
     make_generator,
+    sketch_leaves,
     sketch_stacked,
     sketch_tree,
 )
@@ -126,6 +128,8 @@ class AggregationSession:
         (``"none"`` | ``"max_age=3"`` | ``"exp_decay=2.0"``).
       projection: an explicit (n, sketch_dim) projection in place of the
         one drawn from ``seed`` (how tests carry the reference's across).
+        Without one, S is cached whole for clients of up to 65 536 values
+        and streamed block by block past that.
       sketch_transform: an optional ``(sketches, offset) -> sketches``
         hook applied to every wave's (w, sketch_dim) rows before they are
         written (the scenarios' sketch channel: the DP release, the
@@ -135,13 +139,15 @@ class AggregationSession:
         hook's offset (a shard of ``HierarchicalSession`` starts at its
         first global client, so a hook keyed by client index sees the
         index the flat session would).
+      cfg: the clients' ``ModelConfig``, if any: an MoE model is sketched
+        on its router-invariant leaves, as in the reference.
       device: where the buffers live; CUDA unless ``"cpu"`` is asked for.
     """
 
     def __init__(self, capacity: int, *, sketch_dim: int = 256,
                  seed: int = 0, cluster_seed: Optional[int] = None,
                  staleness="none", projection=None, sketch_transform=None,
-                 row_base: int = 0, device=None):
+                 row_base: int = 0, cfg=None, device=None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.device = resolve_device(device)
@@ -156,6 +162,7 @@ class AggregationSession:
         self._projection = (None if projection is None else
                             torch.as_tensor(projection).to(self.device,
                                                            torch.float32))
+        self._leaf_filter = _leaf_filter_for(cfg)
         self._sketches = torch.zeros((self.capacity, self.sketch_dim),
                                      dtype=torch.float32, device=self.device)
         self._params = None            # stacked buffer, allocated lazily
@@ -226,8 +233,13 @@ class AggregationSession:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def _ensure_projection(self, n: int) -> torch.Tensor:
+    def _ensure_projection(self, n: int):
+        """The projection for clients of n values: the one given, the
+        whole S cached for n <= 65 536 (one block), else ``None``: the
+        sketch streams S from ``seed``."""
         if self._projection is None:
+            if n > SKETCH_BLOCK:
+                return None
             self._projection = jl_projection(n, self.sketch_dim,
                                              seed=self.seed,
                                              device=self.device)
@@ -236,6 +248,17 @@ class AggregationSession:
                 f"clients flatten to {n} values but the projection is "
                 f"{tuple(self._projection.shape)}")
         return self._projection
+
+    def _width(self, tree, stacked: bool = True) -> int:
+        """Values a client contributes to its sketch."""
+        return sum((l[0] if stacked else l).numel()
+                   for l in sketch_leaves(tree, self._leaf_filter))
+
+    def _sketch_wave(self, wave) -> torch.Tensor:
+        """(w, sketch_dim) sketches of a stacked wave, streamed."""
+        return sketch_stacked(wave, self._ensure_projection(self._width(wave)),
+                              sketch_dim=self.sketch_dim, seed=self.seed,
+                              leaf_filter=self._leaf_filter)
 
     def _to_device(self, tree):
         return tree_map(lambda l: torch.as_tensor(l).to(self.device), tree)
@@ -362,8 +385,7 @@ class AggregationSession:
         leaves = tree_leaves(wave)
         w = self._validate_params_wave(wave, leaves)
         rows, n_from_free = self._alloc_rows(w, client_ids)
-        n = sum(l[0].numel() for l in leaves)
-        projection = self._ensure_projection(n)
+        self._ensure_projection(self._width(wave))   # a mismatch raises
         self._mode = "params"      # only after validation
         if self._params is None:
             self._params = tree_map(
@@ -374,7 +396,7 @@ class AggregationSession:
         with obs.span("session.ingest", wave=w, offset=offset,
                       mode="params"):
             self._write_rows(self._sketches, rows, self._transform(
-                sketch_stacked(wave, projection), rows))
+                self._sketch_wave(wave), rows))
             for buf, l in zip(tree_leaves(self._params), leaves):
                 self._write_rows(buf, rows, l)
             self._sync()
@@ -719,10 +741,10 @@ class AggregationSession:
             raise ValueError("pass exactly one of sketch or params=")
         if params is not None:
             params = self._to_device(params)
-            sketch = sketch_tree(params, self.sketch_dim,
+            sketch = sketch_tree(params, self.sketch_dim, seed=self.seed,
                                  projection=self._ensure_projection(
-                                     sum(l.numel()
-                                         for l in tree_leaves(params))))
+                                     self._width(params, stacked=False)),
+                                 leaf_filter=self._leaf_filter)
         pts = torch.as_tensor(sketch).to(self.device, torch.float32)
         single = pts.ndim == 1
         pts = (pts[None] if single else pts).contiguous()
@@ -750,8 +772,7 @@ class AggregationSession:
         if int(leaves[0].shape[0]) == 0:
             raise ValueError("sketch_params() needs at least one client "
                              "row (got an empty wave)")
-        n = sum(l[0].numel() for l in leaves)
-        return sketch_stacked(wave, self._ensure_projection(n))
+        return self._sketch_wave(wave)
 
     def cluster_model(self, cluster_id: int):
         """The averaged model of one recovered cluster (no client axis)."""

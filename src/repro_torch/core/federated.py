@@ -1,55 +1,172 @@
-"""The federation's stacked state, the one-shot round over it, and its
-accounting (the port's counterparts of ``FederatedState`` and
-``one_shot_aggregate`` in ``repro/core/federated.py``, and of
-``cluster_agreement`` / the comm-bytes rule in
-``repro/core/federated_methods.py``)."""
+"""Algorithm 1 over a federation of deep models (the port of
+``repro/core/federated.py``): the stacked state, the local phase, the
+one-shot round and its accounting (also ``cluster_agreement`` and the
+comm-bytes rule of ``repro/core/federated_methods.py``).
+
+Parameters carry a leading client axis C on every leaf.  The local
+phase (``launch.steps.make_local_train_step``) runs each client's step
+on views of its slices, with no cross-client work; the round sketches
+every client's parameters (streamed JL projection), clusters the
+(C, sketch_dim) matrix through the admissible registry and averages the
+full parameters within each recovered cluster.
+
+Training advances a state's tensors in place: ``local_training`` and the
+round's fresh AdamW moments reuse the buffers of the state they are
+given (at qwen2-0.5b, C = 8, the fp32 moments alone take 32 GB).
+"""
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.utils import tree_leaves, tree_map, tree_size
+from repro_torch.utils import tree_leaves, tree_map
 
 
 class FederatedState(NamedTuple):
     params: dict                 # every leaf has leading client axis C
-    opt_state: Optional[dict]    # AdamW state after a host round, else None
+    opt_state: Optional[dict]    # stacked AdamW state (None: not built)
     n_clients: int
     step: int = 0
 
 
-def one_shot_aggregate(state: FederatedState, *, algorithm="kmeans++", k: Optional[int] = None,
+def init_federation(key, cfg, n_clients: int, same_init: bool = True,
+                    device=None) -> FederatedState:
+    """Stacked per-client parameters (the reference's tree layout) and
+    AdamW moments of zeros, on ``device`` (CUDA unless "cpu").
+
+    ``key``: an int seed or a ``torch.Generator``.  ``same_init=True``
+    starts every client from one init (the common FL setting); False
+    draws C independent inits from the generator in turn (the paper's
+    local ERMs need no shared init, Remark 3)."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models.transformer import init_tree
+    from repro_torch.optim import adamw_init
+
+    dev = resolve_device(device)
+    gen = (key if isinstance(key, torch.Generator)
+           else torch.Generator(device=dev).manual_seed(int(key)))
+    if same_init:
+        p0 = init_tree(cfg, generator=gen, device=dev)
+        params = tree_map(
+            lambda l: l[None].expand((n_clients,) + tuple(l.shape)).clone(),
+            p0)
+    else:
+        inits = [init_tree(cfg, generator=gen, device=dev)
+                 for _ in range(n_clients)]
+        params = tree_map(lambda *ls: torch.stack(ls), *inits)
+    return FederatedState(params=params,
+                          opt_state=adamw_init(params, n_clients),
+                          n_clients=n_clients)
+
+
+def local_training(state: FederatedState, cfg, batches: Iterator,
+                   steps: int, opt_cfg=None,
+                   remat: str = "none") -> tuple:
+    """The local-ERM phase: ``steps`` AdamW steps per client, in place on
+    the state's tensors.  ``batches`` yields dicts of (C, b, s) arrays.
+    Returns (state advanced by ``steps``, [(C,) losses as numpy]).  Each
+    step's time, to its losses on the host, feeds the
+    ``fed.local_step.ms`` histogram."""
+    import time
+
+    from repro_torch import obs
+    from repro_torch.launch.steps import make_local_train_step
+    from repro_torch.optim import adamw_init
+
+    local_step = make_local_train_step(cfg, opt_cfg, remat=remat)
+    params = state.params
+    opt_state = (state.opt_state if state.opt_state is not None
+                 else adamw_init(params, state.n_clients))
+    losses = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, params, opt_state = local_step(params, opt_state,
+                                             next(batches))
+        losses.append(loss.cpu().numpy())
+        obs.observe("fed.local_step.ms", (time.perf_counter() - t0) * 1e3)
+    return FederatedState(params=params, opt_state=opt_state,
+                          n_clients=state.n_clients,
+                          step=state.step + steps), losses
+
+
+def _round_opt_state(state: FederatedState, params) -> Optional[dict]:
+    """The AdamW state a round returns: ``None`` when ``state`` has its
+    own moments, a fresh ``adamw_init`` otherwise."""
+    from repro_torch.optim import adamw_init
+
+    if state.opt_state is not None:
+        return None
+    return adamw_init(params, state.n_clients)
+
+
+def _router_invariant_filter(path: str, leaf) -> bool:
+    """MoE permutation-robust sketch: drop the per-expert tensors, keep
+    the dense path and the router ("/"-joined key path)."""
+    return not (("moe" in path) and ("w_in" in path or "w_out" in path))
+
+
+def _leaf_filter_for(cfg):
+    return (_router_invariant_filter
+            if cfg is not None and getattr(cfg, "is_moe", False) else None)
+
+
+def _flat_cluster_means(leaf, onehot, counts):
+    """(K', n) fp32 per-cluster mean of one stacked leaf."""
+    flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+    return (onehot.T @ flat) / counts[:, None]
+
+
+def cluster_mean_tree(params, onehot, counts):
+    """Step 3 alone: the (K', ...) per-cluster means of a stacked tree
+    (``onehot`` (C, K'), ``counts`` (K'), as given: no floor)."""
+    k = onehot.shape[1]
+    return tree_map(lambda l: _flat_cluster_means(l, onehot, counts).reshape(
+        (k,) + tuple(l.shape[1:])).to(l.dtype), params)
+
+
+def cluster_average_tree(params, onehot, counts):
+    """Steps 3-4: every leaf's per-cluster mean, gathered back per client
+    (``counts`` clamped >= 1 by the caller)."""
+    return tree_map(lambda l: (onehot @ _flat_cluster_means(
+        l, onehot, counts)).reshape(l.shape).to(l.dtype), params)
+
+
+def one_shot_aggregate(state: FederatedState, cfg=None, *,
+                       algorithm="kmeans++", k: Optional[int] = None,
                        algo_options: Optional[dict] = None,
                        assert_separable: bool = False,
                        sketch_dim: int = 256, seed: int = 0,
                        cluster_seed: Optional[int] = None,
                        engine: str = "auto", aggregator="mean",
-                       projection: Optional[torch.Tensor] = None,
+                       projection=None,
                        return_sketches: bool = False, device=None):
     """The single communication round of Algorithm 1 over a stacked
     parameter tree.  Returns ``(new_state, labels, info)``.
 
+    ``cfg`` (the clients' ``ModelConfig``, or ``None`` for shallow
+    models) picks the router-invariant sketch of an MoE model.
     ``engine``: ``"auto"`` runs the fused round
     (``engine.one_shot_aggregate_device``) when the algorithm is
     device-capable or has a registered ``"<name>-device"`` twin, the host
     path otherwise; ``"host"`` / ``"device"`` force one.  The host path
-    sketches every client with the same JL projection (``seed``, or
-    ``projection=``), clusters through ``run_clustering`` (with the
-    Definition-1 margins, ``assert_separable`` among them) and reduces
-    the parameters per cluster through ``aggregator``, on the parameters'
-    device (CUDA unless ``device="cpu"``).  The reference's ``cfg``
-    (the router-invariant sketch of MoE models) comes with
-    ``models/moe.py``."""
+    sketches every client with the same JL projection (drawn from
+    ``seed`` block by block, or ``projection=``), clusters through
+    ``run_clustering`` (with the Definition-1 margins, ``assert_separable``
+    among them) and reduces the parameters per cluster through
+    ``aggregator``, on the parameters' device (CUDA unless
+    ``device="cpu"``).  The given state is not changed.  The new state
+    carries fresh AdamW moments (the reference's ``adamw_init``) when the
+    given state has none, else ``None``: the moments' owner resets its
+    own (``adamw_reset_``), since a second set takes 8 bytes a parameter
+    (32 GB at qwen2-0.5b with 8 clients)."""
     from repro_torch.core.clustering.api import (
         device_twin, get_algorithm, is_device_algorithm)
     from repro_torch.core.engine.aggregators import cluster_aggregate_tree
     from repro_torch.core.odcl import run_clustering
-    from repro_torch.core.sketch import (
-        jl_projection, make_generator, sketch_stacked)
+    from repro_torch.core.sketch import make_generator, sketch_stacked
     from repro_torch.device import resolve_device
-    from repro_torch.optim import adamw_init
 
     if engine not in ("auto", "host", "device"):
         raise ValueError(f"engine must be auto|host|device, got {engine!r}")
@@ -72,18 +189,19 @@ def one_shot_aggregate(state: FederatedState, *, algorithm="kmeans++", k: Option
         from repro_torch.core.engine.aggregate import (
             one_shot_aggregate_device)
 
-        return one_shot_aggregate_device(
-            state, algorithm=dev_algo, k=k, algo_options=algo_options,
+        new_state, labels, info = one_shot_aggregate_device(
+            state, cfg, algorithm=dev_algo, k=k, algo_options=algo_options,
             sketch_dim=sketch_dim, seed=seed, cluster_seed=cluster_seed,
             aggregator=aggregator, projection=projection,
             return_sketches=return_sketches, device=device)
+        return (new_state._replace(
+            opt_state=_round_opt_state(state, new_state.params)),
+            labels, info)
 
     dev = resolve_device(device)
     params = tree_map(lambda l: torch.as_tensor(l).to(dev), state.params)
-    if projection is None:
-        projection = jl_projection(tree_size(params) // state.n_clients,
-                                   sketch_dim, seed=seed, device=dev)
-    sketches = sketch_stacked(params, projection.to(dev, torch.float32))
+    sketches = sketch_stacked(params, projection, sketch_dim=sketch_dim,
+                              seed=seed, leaf_filter=_leaf_filter_for(cfg))
     result = run_clustering(make_generator(cluster_seed, dev), sketches,
                             algo, k=k, assert_separable=assert_separable,
                             **(algo_options or {}))
@@ -95,12 +213,25 @@ def one_shot_aggregate(state: FederatedState, *, algorithm="kmeans++", k: Option
     new_params = cluster_aggregate_tree(params, labels_t, onehot,
                                         torch.sum(onehot, dim=0), aggregator)
     new_state = FederatedState(
-        params=new_params, opt_state=adamw_init(new_params, state.n_clients),
+        params=new_params, opt_state=_round_opt_state(state, new_params),
         n_clients=state.n_clients, step=state.step)
     info = {"n_clusters": n_clusters, "meta": result.meta, "engine": "host"}
     if return_sketches:
         info["sketches"] = sketches.cpu().numpy()
     return new_state, labels, info
+
+
+@torch.no_grad()
+def evaluate_per_client(state: FederatedState, cfg, batch) -> np.ndarray:
+    """(C,) mean loss of each client's model on its own eval batch
+    (``train_loss``: the differentiable attention, run without grad)."""
+    from repro_torch.launch.steps import _as_batch, client_slice
+    from repro_torch.models.transformer import train_loss
+
+    batch = _as_batch(batch, tree_leaves(state.params)[0].device)
+    return np.array([float(train_loss(client_slice(state.params, c), cfg,
+                                      client_slice(batch, c)))
+                     for c in range(state.n_clients)], dtype=np.float32)
 
 
 def params_bytes_per_client(state: FederatedState) -> int:

@@ -3,12 +3,15 @@
 The reference (JAX) and the port (PyTorch) draw different numbers from
 the same seed, so a parity test hands the reference's values across as
 numpy arrays: the stacked client parameters, the (n, sketch_dim) JL
-projection, (k, d) init centers (and IFCA's initial models), the rows of
+projection (or its blocks), (k, d) init centers (and IFCA's initial
+models, and the noise of its ``perturb`` init), the rows of
 the ``random`` init and of every minibatch Lloyd iteration, the
 (n_tables, d) LSH directions of the approximate kNN fusion graph, a
 scenario's draws (its Bernoulli masks and Gaussian blocks), and a
-decoder LM's parameter tree.
-Both packages then compute the same thing.  Nothing here imports the
+decoder LM's parameter tree and a federation of them with its AdamW
+state.  ``module_state_dict`` maps the reference's (and the port's
+checkpoint) keys onto the port's ``Transformer`` modules.  Both packages
+then compute the same thing.  Nothing here imports the
 reference.
 """
 from __future__ import annotations
@@ -22,7 +25,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import MLP
 from repro_torch.models.transformer import (
     DecoderLayer, Transformer, require_ported, torch_dtype)
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import tree_leaves, tree_leaves_with_path, tree_map
 
 
 def tensor_from_numpy(arr, device=None, dtype=None) -> torch.Tensor:
@@ -47,9 +50,44 @@ def params_from_numpy(params, device=None) -> dict:
 
 def state_from_numpy(params, device=None) -> FederatedState:
     """A stacked client-parameter tree -> the port's ``FederatedState``."""
+    return federation_from_numpy(params, device=device)
+
+
+def federation_from_numpy(params, opt_state=None, step: int = 0,
+                          device=None) -> FederatedState:
+    """A stacked federation (the reference's ``FederatedState``: params
+    and, if given, the vmapped AdamW state ``{"mu", "nu", "step"}``)
+    -> the port's, on ``device``."""
     tensors = params_from_numpy(params, device)
-    return FederatedState(params=tensors, opt_state=None,
-                          n_clients=int(tree_leaves(tensors)[0].shape[0]))
+    opt = None
+    if opt_state is not None:
+        opt = params_from_numpy(opt_state, device)
+        opt["step"] = opt["step"].to(torch.int32)
+    return FederatedState(params=tensors, opt_state=opt,
+                          n_clients=int(tree_leaves(tensors)[0].shape[0]),
+                          step=int(step))
+
+
+def perturb_noise_from_numpy(noise, device=None):
+    """The reference IFCA's ``init="perturb"`` draws (a tree of (k, ...)
+    standard normals, one ``normal(split(key, n_leaves)[i])`` a leaf,
+    before ``init_scale``) as ``IFCAFederated(perturb_noise=...)``."""
+    return params_from_numpy(noise, device)
+
+
+def module_state_dict(params) -> dict:
+    """A single-model parameter tree (the reference's keys, every layer
+    weight stacked on L) -> the port ``Transformer``'s state dict:
+    ``layers/attn/wq`` row i becomes ``layers.i.attn.wq``."""
+    out = {}
+    for path, leaf in tree_leaves_with_path(params):
+        parts = path.split("/")
+        if parts[0] == "layers":
+            for i in range(leaf.shape[0]):
+                out[".".join(["layers", str(i)] + parts[1:])] = leaf[i]
+        else:
+            out[".".join(parts)] = leaf
+    return out
 
 
 def projection_from_numpy(projection, device=None) -> torch.Tensor:

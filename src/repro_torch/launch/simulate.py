@@ -1,5 +1,5 @@
-"""Large-C client simulation of the one-shot ODCL round (the port of
-``repro/launch/simulate.py``'s ``odcl`` path).
+"""Large-C client simulation of the one-shot ODCL round and the
+iterative baselines (the port of ``repro/launch/simulate.py``).
 
 Clients are drawn and solved in waves: each wave draws ``wave`` clients'
 covariates and responses from their cluster's model (``--task ridge``:
@@ -44,6 +44,12 @@ shard of ceil(C / shards) clients, then one over the shards' centers;
 ``comm_level_bytes`` gives both levels' bytes.  It is anonymous-only and
 one-shot-only, so it refuses the mutation knobs and ``qps_callers``.
 
+``method`` (``--method``, any of ``list_federated_methods()``) other than
+``odcl`` runs that method over ``session.state()``, the streamed-in
+federation as a stacked state, for ``rounds`` rounds with no local step
+(the shallow clients are at their local optima): IFCA assigns by sketch
+through ``kmeans_assign`` from k spread clients; no serving follows.
+
   python -m repro_torch.launch.simulate --clients 4096 --clusters 8
   python -m repro_torch.launch.simulate --clients 4096 --device cpu
   python -m repro_torch.launch.simulate --algorithm convex-device \
@@ -56,6 +62,8 @@ one-shot-only, so it refuses the mutation knobs and ``qps_callers``.
       --byzantine-frac 0.1 --aggregator trimmed_mean --device cpu
   python -m repro_torch.launch.simulate --shards 4 --scenario dp \
       --dp-epsilon 64 --device cpu
+  python -m repro_torch.launch.simulate --method ifca --rounds 5 \
+      --clients 4096 --device cpu
 """
 from __future__ import annotations
 
@@ -88,6 +96,10 @@ from repro_torch.core.federated import (
     cluster_agreement,
     params_bytes_per_client,
     sketch_round_bytes,
+)
+from repro_torch.core.federated_methods import (
+    build_federated_method,
+    list_federated_methods,
 )
 from repro_torch.core.sketch import make_generator
 from repro_torch.device import resolve_device
@@ -156,7 +168,8 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
              cc_iters: int = 300, edges: str = "complete", knn_k: int = 8,
              scenario=None, scenario_options: dict | None = None,
              aggregator: str = "mean", trim_beta: float = 0.1,
-             seed: int = 0, trace: str | None = None,
+             seed: int = 0, method: str = "odcl", rounds: int = 5,
+             trace: str | None = None,
              route_probes: int = 0, finalize_repeats: int = 1,
              reupload_frac: float = 0.0, churn: int = 0,
              max_age: int | None = None,
@@ -179,9 +192,12 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
                          "knobs (--reupload-frac/--churn/--max-age/"
                          "--refinalize-threshold): keyed slots need the "
                          "flat session")
-    if shards > 1 and qps_callers > 0:
+    if shards > 1 and method != "odcl":
+        raise ValueError(f"--shards > 1 only runs the one-shot round "
+                         f"(method='odcl'), got method={method!r}")
+    if qps_callers > 0 and (shards > 1 or method != "odcl"):
         raise ValueError("--qps-callers needs the flat session's one-shot "
-                         "round (shards=1)")
+                         "round (shards=1, method='odcl')")
     obs.reset()                       # per-run aggregates; sinks survive
     trace_sink = obs.add_sink(obs.JsonlSink(trace)) if trace else None
     try:
@@ -193,6 +209,7 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
             algorithm=algorithm, init=init, kmeans_iters=kmeans_iters,
             restarts=restarts, cc_iters=cc_iters, edges=edges, knn_k=knn_k,
             aggregator=aggregator, trim_beta=trim_beta, seed=seed,
+            method=method, rounds=rounds,
             route_probes=route_probes, finalize_repeats=finalize_repeats,
             reupload_frac=reupload_frac, churn=churn, max_age=max_age,
             refinalize_threshold=refinalize_threshold,
@@ -207,7 +224,8 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
 def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
               sketch_dim, shards, scenario, scenario_options, mutated,
               algorithm, init, kmeans_iters, restarts, cc_iters,
-              edges, knn_k, aggregator, trim_beta, seed, route_probes,
+              edges, knn_k, aggregator, trim_beta, seed, method, rounds,
+              route_probes,
               finalize_repeats, reupload_frac, churn, max_age,
               refinalize_threshold, mutation_rounds, drift_scale,
               qps_callers, qps_duration) -> dict:
@@ -279,9 +297,30 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
     if convex_family:
         algo_options.update({"edges": edges, "knn_k": knn_k})
     t1 = time.perf_counter()
-    new_state, labels, info = session.finalize(
-        algorithm=algorithm, k=clusters, algo_options=algo_options,
-        aggregator=agg)
+    comm_level_bytes = None
+    if method == "odcl":
+        # the streaming server round over the session's sketches
+        new_state, labels, info = session.finalize(
+            algorithm=algorithm, k=clusters, algo_options=algo_options,
+            aggregator=agg)
+        comm_rounds = 1.0
+        comm_bytes = sketch_round_bytes(
+            clients, sketch_dim, params_bytes_per_client(new_state))
+        n_clusters = info["n_clusters"]
+        meta = {"engine": info["engine"], **info["meta"]}
+        comm_level_bytes = info.get("comm_level_bytes")
+    else:
+        # iterative methods: sketch-space rounds over the streamed-in
+        # federation, its clients' models standing (no local steps)
+        fed_method = build_federated_method(
+            method, algorithm=algorithm, engine="device", k=clusters,
+            algo_options=algo_options, aggregator=agg,
+            sketch_dim=sketch_dim, seed=seed, local_steps=0, rounds=rounds,
+            assign="sketch", init="clients")
+        res = fed_method.run(seed, session.state(), None, None)
+        new_state, labels = res.state, res.labels
+        comm_rounds, comm_bytes = res.comm_rounds, res.comm_bytes
+        n_clusters, meta = res.n_clusters, res.meta
     _sync(dev)
     t_agg = time.perf_counter() - t1
 
@@ -298,7 +337,8 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
         mse = float(torch.mean((served - optima[true_labels[keep]]) ** 2))
 
     serving = None
-    if mutated or route_probes > 0 or finalize_repeats > 1:
+    if method == "odcl" and (mutated or route_probes > 0
+                             or finalize_repeats > 1):
         # warm finalizes only: the first one above also pays first-call
         # set-up (allocator growth, kernel loading)
         h_fin = obs.Histogram()
@@ -371,9 +411,9 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
     return {
         "clients": clients, "clusters": clusters, "dim": dim,
         "samples": samples, "wave": wave, "task": task,
-        "sketch_dim": sketch_dim, "seed": seed, "method": "odcl",
+        "sketch_dim": sketch_dim, "seed": seed, "method": method,
         "algorithm": algorithm, "init": init, "restarts": restarts,
-        "shards": shards, "comm_level_bytes": info.get("comm_level_bytes"),
+        "shards": shards, "comm_level_bytes": comm_level_bytes,
         "scenario": getattr(scen, "name", None),
         "scenario_options": scenario_options or None,
         "honest_frac": float(np.mean(honest)),
@@ -381,23 +421,21 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
         "occupancy": torch.bincount(true_labels.long(),
                                     minlength=clusters).tolist(),
         "aggregator": agg.name,
-        "lam": info["meta"]["lam"],
+        "lam": meta.get("lam"),
         "edges": edges if convex_family else None,
         "knn_k": knn_k if convex_family else None,
         "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
-        "comm_rounds": 1.0,
-        "comm_bytes": sketch_round_bytes(
-            clients, sketch_dim, params_bytes_per_client(new_state)),
+        "comm_rounds": comm_rounds, "comm_bytes": comm_bytes,
         "phases": {"local_erm_s": t_erm, "ingest_s": t_ingest,
                    "aggregate_s": t_agg,
                    "total_s": t_erm + t_ingest + t_agg},
-        "n_clusters_recovered": info["n_clusters"],
+        "n_clusters_recovered": n_clusters,
         "purity": purity,
         "purity_all": purity_all,
         "mse": mse,
-        "meta": {"engine": info["engine"], **info["meta"]},
+        "meta": meta,
         "serving": serving,
         "qps_server": qps_server,
         "obs": obs.snapshot(),
@@ -569,6 +607,12 @@ def main(argv=None):
                          "drives the Lloyd center update)")
     ap.add_argument("--trim-beta", type=float, default=0.1,
                     help="trim fraction for --aggregator trimmed_mean")
+    ap.add_argument("--method", default="odcl",
+                    choices=list(list_federated_methods()),
+                    help="registered federated method to run over the "
+                         "streamed-in federation")
+    ap.add_argument("--rounds", type=int, default=5,
+                    help="communication rounds (ifca / fedavg)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write every obs span/event of the run as JSONL")
@@ -611,7 +655,8 @@ def main(argv=None):
         kmeans_iters=args.kmeans_iters, restarts=args.restarts,
         cc_iters=args.cc_iters, edges=args.edges, knn_k=args.knn_k,
         aggregator=args.aggregator, trim_beta=args.trim_beta,
-        seed=args.seed, trace=args.trace, route_probes=args.route_probes,
+        seed=args.seed, method=args.method, rounds=args.rounds,
+        trace=args.trace, route_probes=args.route_probes,
         finalize_repeats=args.finalize_repeats,
         reupload_frac=args.reupload_frac, churn=args.churn,
         max_age=args.max_age, refinalize_threshold=args.refinalize_threshold,
@@ -623,7 +668,9 @@ def main(argv=None):
           f"algo={summary['algorithm']} shards={summary['shards']} "
           f"edges={summary['edges'] or '-'} "
           f"scenario={summary['scenario'] or '-'} "
-          f"agg={summary['aggregator']} device={summary['device_name']}")
+          f"agg={summary['aggregator']} method={summary['method']} "
+          f"rounds={summary['comm_rounds']:g} "
+          f"device={summary['device_name']}")
     print(f"[simulate] local ERMs {ph['local_erm_s']:.3f}s  ingest "
           f"{ph['ingest_s']:.3f}s  server round {ph['aggregate_s']:.3f}s")
     clb = summary["comm_level_bytes"]
@@ -637,7 +684,8 @@ def main(argv=None):
           f"(all={summary['purity_all']:.3f}, "
           f"honest={summary['honest_frac']:.3f}) "
           f"mse={'-' if mse is None else format(mse, '.3g')} "
-          f"n_iter={summary['meta']['n_iter']} lam={summary['lam']}")
+          f"n_iter={summary['meta'].get('n_iter')} lam={summary['lam']} "
+          f"comm={summary['comm_bytes'] / 1e6:.2f}MB")
     sv = summary["serving"]
     if sv is not None and sv["finalize_p50_ms"] is not None:
         print(f"[simulate] finalize: first {sv['finalize_first_ms']:.3f}ms, "

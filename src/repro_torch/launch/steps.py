@@ -1,0 +1,133 @@
+"""Training steps (the port of ``repro/launch/steps.py``).
+
+  * ``make_train_step``       one model: loss, gradients, AdamW.
+  * ``make_local_train_step`` the paper's local-ERM phase over a stacked
+    federation (every leaf has a leading client axis C): each client's
+    step runs on views of its slices of the stacked parameters and
+    moments, so gradients never cross the client axis and no step
+    copies C whole models.
+  * ``make_aggregate_step``   the one-shot clustered aggregation as one
+    call: sketch, k-means, per-cluster parameter mean.
+  * ``make_eval_batch``       a held-out per-client batch.
+
+Steps update the parameters and the AdamW state IN PLACE (the reference
+returns new arrays): at qwen2-0.5b a second copy of C models and their
+fp32 moments would not fit beside the first on one card.  Each returns
+``(loss, params, opt_state)`` with the same tensors it was given.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import train_loss
+from repro_torch.optim import AdamWConfig, adamw_update_
+from repro_torch.utils import tree_leaves, tree_map
+
+
+def _as_batch(batch: dict, device) -> dict:
+    """A batch of numpy arrays or tensors -> int64 tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device, torch.long)
+            for k, v in batch.items()}
+
+
+def _live_leaf(leaf: torch.Tensor, per_layer: bool):
+    """A leaf autograd differentiates: a detached view, or for a weight
+    stacked on L one view a layer (the forward reads the layers one by
+    one; a gradient taken of the stacked leaf would zero-fill and add a
+    full-size buffer for every layer)."""
+    if per_layer:
+        return [leaf[i].detach().requires_grad_(True)
+                for i in range(leaf.shape[0])]
+    return leaf.detach().requires_grad_(True)
+
+
+def _one_model_step(params, opt_state, batch, cfg, opt_cfg, remat):
+    """Loss and gradients of one model, then AdamW in place."""
+    live = {k: tree_map(lambda l, k=k: _live_leaf(l, k == "layers"), v)
+            for k, v in params.items()}
+    loss = train_loss(live, cfg, batch, remat=remat)
+    it = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    grads = {k: tree_map(lambda l, k=k: (
+                 torch.stack([next(it) for _ in range(l.shape[0])])
+                 if k == "layers" else next(it)), v)
+             for k, v in params.items()}
+    adamw_update_(params, grads, opt_state, opt_cfg)
+    return loss.detach()
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
+                    remat: str = "full") -> Callable:
+    """``train_step(params, opt_state, batch) -> (loss, params,
+    opt_state)`` for one model."""
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def train_step(params, opt_state, batch):
+        batch = _as_batch(batch, tree_leaves(params)[0].device)
+        loss = _one_model_step(params, opt_state, batch, cfg, opt_cfg, remat)
+        return loss, params, opt_state
+
+    return train_step
+
+
+def client_slice(tree, c: int):
+    """Client ``c``'s model: a view of every stacked leaf (the step leaf
+    of a stacked AdamW state becomes a 0-d view)."""
+    return tree_map(lambda l: l[c], tree)
+
+
+def make_local_train_step(cfg: ModelConfig,
+                          opt_cfg: AdamWConfig | None = None,
+                          remat: str = "full") -> Callable:
+    """ODCL's local phase: ``local_step(params_c, opt_state_c, batch_c) ->
+    ((C,) losses, params_c, opt_state_c)`` over stacked parameters,
+    moments and (C, b, s) batches, one client after another."""
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def local_step(params_c, opt_state_c, batch_c):
+        batch_c = _as_batch(batch_c, tree_leaves(params_c)[0].device)
+        c = int(tree_leaves(params_c)[0].shape[0])
+        losses = [_one_model_step(client_slice(params_c, i),
+                                  client_slice(opt_state_c, i),
+                                  client_slice(batch_c, i), cfg, opt_cfg,
+                                  remat)
+                  for i in range(c)]
+        return torch.stack(losses), params_c, opt_state_c
+
+    return local_step
+
+
+def make_aggregate_step(cfg: ModelConfig, k: int, sketch_dim: int = 256,
+                        kmeans_iters: int = 32) -> Callable:
+    """The one-shot clustered aggregation as one call:
+    ``aggregate_step(params_c, seed) -> (new_params, labels)``.  Sketches
+    every client (the JL projection drawn from ``seed``, streamed),
+    clusters the (C, sketch_dim) matrix with k-means++ and Lloyd, and
+    replaces every client's parameters with its cluster's mean."""
+    from repro_torch.core.clustering.kmeans import kmeans
+    from repro_torch.core.federated import cluster_average_tree
+    from repro_torch.core.sketch import make_generator, sketch_stacked
+
+    def aggregate_step(params_c, seed: int):
+        sketches = sketch_stacked(params_c, sketch_dim=sketch_dim, seed=seed)
+        res = kmeans(make_generator(seed, sketches.device), sketches, k,
+                     iters=kmeans_iters)
+        onehot = torch.nn.functional.one_hot(
+            torch.as_tensor(res.labels, device=sketches.device).long(),
+            k).to(torch.float32)
+        counts = torch.clamp_min(torch.sum(onehot, dim=0), 1.0)
+        return cluster_average_tree(params_c, onehot, counts), res.labels
+
+    return aggregate_step
+
+
+def make_eval_batch(stream, *, n_clients: int, batch: int, seq_len: int,
+                    step: int = 999_999) -> dict:
+    """A held-out per-client eval batch from a ``ClusteredTokenStream``,
+    drawn at a step far beyond any training step."""
+    toks = np.stack([stream.sample(c, batch, seq_len, step=step)
+                     for c in range(n_clients)])
+    return {"tokens": toks[:, :, :-1], "labels": toks[:, :, 1:]}

@@ -1,11 +1,15 @@
 """The dense decoder LM of the reference's ``models`` package, in PyTorch
-(prefill through the hand-written flash-attention kernel)."""
+(prefill through the hand-written flash-attention kernel; training
+through the differentiable attention)."""
 from repro_torch.models.transformer import (
     DecodeCache,
     decode_step,
     forward,
     init_decode_cache,
     init_params,
+    init_tree,
+    model_view,
+    train_loss,
 )
 
 __all__ = [
@@ -14,4 +18,7 @@ __all__ = [
     "forward",
     "init_decode_cache",
     "init_params",
+    "init_tree",
+    "model_view",
+    "train_loss",
 ]

@@ -1,11 +1,15 @@
 """Attention: GQA projections, block attention, ring-buffer positions.
 
-Prefill (and the full forward) runs ``attention``, which goes through
-``kernels.ops.flash_attention``: the hand-written Hopper kernel on a
-CUDA tensor, its plain PyTorch version on a CPU tensor.  The kernel's
-tiling replaces both of the reference's jnp paths (the chunked
+Serving's prefill (and its full forward) runs ``attention``, which goes
+through ``kernels.ops.flash_attention``: the hand-written Hopper kernel
+on a CUDA tensor, its plain PyTorch version on a CPU tensor.  The
+kernel's tiling replaces both of the reference's jnp paths (the chunked
 online-softmax scan and the direct einsum), which compute the same
-function.  Decode reads the ring-buffer cache in
+function.  The kernel has no backward, as the reference's Pallas kernel
+has none, so training runs ``train_attention``: the reference's two jnp
+paths in plain, differentiable PyTorch, with its dispatch rule.  The
+caller's path picks one (``transformer.train_loss`` the second), never a
+caught failure.  Decode reads the ring-buffer cache in
 ``transformer._attn_decode``.
 """
 from __future__ import annotations
@@ -79,6 +83,86 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"attention: q_offset {q_offset} differs from "
                          f"skv - sq = {skv - sq}, which the kernel uses")
     return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def _band_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    mask = torch.ones((qpos.shape[0], kpos.shape[1]), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def direct_attention(q, k, v, *, causal: bool, window: Optional[int],
+                     q_offset: int = 0) -> torch.Tensor:
+    """The reference's small-sequence einsum path (``_direct_attention``):
+    q (b,h,sq,dh), k/v (b,h,skv,dh), fp32 scores, cast back to q's type."""
+    dh = q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh ** -0.5
+    sq, skv = q.shape[2], k.shape[2]
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    s = torch.where(_band_mask(qpos, kpos, causal, window), s,
+                    torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
+                      chunk_q: int, chunk_kv: int) -> torch.Tensor:
+    """The reference's online-softmax scan over (q-chunk, kv-chunk) tiles
+    (``_chunked_attention``), every tile visited, masked ones included."""
+    b, h, s, dh = q.shape
+    scale = dh ** -0.5
+    neg = torch.tensor(NEG_INF, device=q.device)
+    outs = []
+    for qi in range(s // chunk_q):
+        qblk = q[:, :, qi * chunk_q:(qi + 1) * chunk_q].float()
+        qpos = qi * chunk_q + torch.arange(chunk_q, device=q.device)[:, None]
+        o = torch.zeros((b, h, chunk_q, dh), dtype=torch.float32,
+                        device=q.device)
+        m = torch.full((b, h, chunk_q), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, chunk_q), dtype=torch.float32, device=q.device)
+        for kj in range(s // chunk_kv):
+            kblk = k[:, :, kj * chunk_kv:(kj + 1) * chunk_kv].float()
+            vblk = v[:, :, kj * chunk_kv:(kj + 1) * chunk_kv].float()
+            kpos = kj * chunk_kv + torch.arange(chunk_kv,
+                                                device=q.device)[None, :]
+            mask = _band_mask(qpos, kpos, causal, window)
+            sc = torch.where(mask, torch.matmul(qblk, kblk.transpose(-1, -2))
+                             * scale, neg)
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+            p = torch.where(mask, torch.exp(sc - m_new[..., None]),
+                            torch.zeros((), device=q.device))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.sum(p, dim=-1)
+            o = o * alpha[..., None] + torch.matmul(p, vblk)
+            m = m_new
+        outs.append((o / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, chunk: int = 1024) -> torch.Tensor:
+    """Differentiable GQA attention for training, the reference's
+    dispatcher: k/v repeated to the query heads, then the chunked scan
+    when sq == skv, sq > 2 chunk and sq % chunk == 0, else the direct
+    einsum (``chunk=0`` forces it)."""
+    hkv, h = k.shape[1], q.shape[1]
+    if h != hkv:
+        k = torch.repeat_interleave(k, h // hkv, dim=1)
+        v = torch.repeat_interleave(v, h // hkv, dim=1)
+    sq, skv = q.shape[2], k.shape[2]
+    if chunk > 0 and sq == skv and sq > 2 * chunk and sq % chunk == 0:
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 chunk_q=chunk, chunk_kv=chunk)
+    return direct_attention(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset)
 
 
 def _ring_positions(pos: int, capacity: int,

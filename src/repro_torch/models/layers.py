@@ -93,3 +93,19 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int,
     w = torch.randn((vocab, d_model), generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (w * 0.02).to(dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross entropy over valid positions, in fp32.  logits (..., V),
+    labels (...); with ``mask`` the sum of masked NLL over the mask's
+    count (floored at 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -7,6 +7,14 @@ loops over them.  Only the dense attention + MLP blocks over token
 inputs are ported; the MoE, xLSTM, hybrid, audio and multimodal
 branches raise ``NotImplementedError`` naming the architecture.
 
+Training works on the reference's parameter TREE instead: a dict with
+every layer weight stacked on a leading L axis (``init_tree``,
+``tree_from_model``), read through ``model_view`` (per-layer views, no
+copies), so a stacked federation of C such trees is C x that layout and
+its checkpoint keys are the reference's.  ``train_loss`` runs the
+differentiable attention of ``attention.train_attention``; the serving
+forward, prefill and decode run the flash kernel.
+
 Serving state is a ``DecodeCache``: per layer a ring buffer of K and V
 (b, hkv, capacity, dh) and the absolute position of the next token, kept
 on the host as a Python int.  ``decode_step`` writes the new token's K
@@ -17,10 +25,12 @@ the step's own work.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -28,6 +38,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
     MLP,
     _dense_init,
+    cross_entropy_loss,
     embed_init,
     init_mlp,
     mlp_forward,
@@ -138,20 +149,21 @@ def embed_inputs(model: Transformer, cfg: ModelConfig,
 
 
 def _attn_block(lp: DecoderLayer, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor):
+                positions: torch.Tensor, attention=attn_lib.attention):
     h = rms_norm(x, lp.ln1, cfg.norm_eps)
     q, k, v = attn_lib.qkv_proj(lp.attn, h, cfg)
     q = attn_lib.rope_transpose(q, positions, cfg.rope_theta)
     k = attn_lib.rope_transpose(k, positions, cfg.rope_theta)
-    o = attn_lib.attention(q, k, v, causal=cfg.causal, window=cfg.window,
-                           chunk=cfg.attn_chunk)
+    o = attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                  chunk=cfg.attn_chunk)
     return attn_lib.out_proj(lp.attn, o), (k, v)
 
 
 def _layer_forward(lp: DecoderLayer, x: torch.Tensor, cfg: ModelConfig,
-                   positions: torch.Tensor):
-    """One dense layer.  Returns (x, (k, v)) with k/v (b, hkv, s, dh)."""
-    a_out, kv = _attn_block(lp, x, cfg, positions)
+                   positions: torch.Tensor, attention=attn_lib.attention):
+    """One dense layer.  Returns (x, (k, v)) with k/v (b, hkv, s, dh).
+    ``attention`` is the flash kernel's (serving) or ``train_attention``."""
+    a_out, kv = _attn_block(lp, x, cfg, positions, attention)
     x = x + a_out
     h2 = rms_norm(x, lp.ln2, cfg.norm_eps)
     return x + mlp_forward(lp.mlp, h2, cfg.mlp_variant), kv
@@ -162,7 +174,8 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def forward(model: Transformer, cfg: ModelConfig, batch: dict):
-    """Full-sequence forward.  Returns (logits (b,s,V), aux_loss = 0)."""
+    """Full-sequence forward (serving: flash attention).  Returns
+    (logits (b,s,V), aux_loss = 0)."""
     x = embed_inputs(model, cfg, batch)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     for lp in model.layers:
@@ -170,6 +183,109 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict):
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return x @ model.head(), torch.zeros((), dtype=torch.float32,
                                          device=x.device)
+
+
+# ============================================================ training
+
+REMAT_NAMES = ("none", "full", "dots")
+
+
+def _train_forward(model, cfg: ModelConfig, batch: dict,
+                   remat: str) -> torch.Tensor:
+    """Logits of the training forward: ``train_attention``, each layer
+    recomputed in the backward pass under ``remat`` "full" or "dots"
+    (both ``torch.utils.checkpoint``: PyTorch has no policy that keeps
+    the matmul outputs alone, and every name gives the same loss and
+    gradients)."""
+    if remat not in REMAT_NAMES:
+        raise ValueError(f"unknown remat policy {remat!r}")
+    x = embed_inputs(model, cfg, batch)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    for lp in model.layers:
+        def layer(x, lp=lp):
+            return _layer_forward(lp, x, cfg, positions,
+                                  attn_lib.train_attention)[0]
+
+        x = layer(x) if remat == "none" else checkpoint(
+            layer, x, use_reentrant=False)
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    return x @ model.head()
+
+
+def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+               remat: str = "none") -> torch.Tensor:
+    """Mean next-token cross entropy of one model (the reference's
+    parameter tree) on ``batch`` ({"tokens", "labels"} (b, s)), plus the
+    dense model's aux loss of 0."""
+    logits = _train_forward(model_view(params, cfg), cfg, batch, remat)
+    return cross_entropy_loss(logits, batch["labels"])
+
+
+# ======================================================= parameter trees
+
+ATTN_WEIGHTS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+class TreeModel:
+    """A parameter tree in the reference's layout seen as the serving
+    code's model: ``embed``, per-layer views (``ln1``, ``attn.wq`` ...),
+    ``final_norm``, ``head()``.  Every attribute is a view of the tree's
+    tensors: nothing is copied.  A layer weight may also be a list of L
+    per-layer tensors (how the training step differentiates them)."""
+
+    def __init__(self, params: dict, cfg: ModelConfig):
+        require_ported(cfg)
+        self.cfg = cfg
+        self.embed = params["embed"]
+        self.final_norm = params["final_norm"]
+        self.lm_head = params.get("lm_head")
+        lay = params["layers"]
+        self.layers = [
+            SimpleNamespace(
+                ln1=lay["ln1"][i], ln2=lay["ln2"][i],
+                attn=SimpleNamespace(**{
+                    n: lay["attn"][n][i] if n in lay["attn"] else None
+                    for n in ATTN_WEIGHTS}),
+                mlp=SimpleNamespace(w_in=lay["mlp"]["w_in"][i],
+                                    w_out=lay["mlp"]["w_out"][i]))
+            for i in range(len(lay["ln1"]))]
+
+    def head(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+
+def model_view(params: dict, cfg: ModelConfig) -> TreeModel:
+    """The serving/training model over a single-model parameter tree."""
+    return TreeModel(params, cfg)
+
+
+def tree_from_model(model: Transformer) -> dict:
+    """A ``Transformer``'s parameters in the reference's tree layout (each
+    layer weight stacked on a leading L axis; a copy)."""
+    layers = list(model.layers)
+
+    def stack(get):
+        return torch.stack([get(lp).detach() for lp in layers])
+
+    attn = {n: stack(lambda lp, n=n: getattr(lp.attn, n))
+            for n in ATTN_WEIGHTS if getattr(layers[0].attn, n) is not None}
+    tree = {"embed": model.embed.detach().clone(),
+            "final_norm": model.final_norm.detach().clone(),
+            "layers": {"ln1": stack(lambda lp: lp.ln1),
+                       "ln2": stack(lambda lp: lp.ln2), "attn": attn,
+                       "mlp": {"w_in": stack(lambda lp: lp.mlp.w_in),
+                               "w_out": stack(lambda lp: lp.mlp.w_out)}}}
+    if model.lm_head is not None:
+        tree["lm_head"] = model.lm_head.detach().clone()
+    return tree
+
+
+def init_tree(cfg: ModelConfig, *, generator: torch.Generator | None = None,
+              seed: int = 0, device=None) -> dict:
+    """A freshly initialised model as a parameter tree: the draws of
+    ``init_params`` (same generator, same order), stacked by layer."""
+    return tree_from_model(init_params(cfg, generator=generator, seed=seed,
+                                       device=device))
 
 
 def to_ring(kv: torch.Tensor, capacity: int) -> torch.Tensor:

@@ -1,6 +1,16 @@
-"""AdamW state (the port's subset of ``repro/optim/adamw.py``): the
-configuration and the state of zeros that a host round hands its
-clients.  The update step comes with training."""
+"""AdamW with decoupled weight decay (the port of
+``repro/optim/adamw.py``): moments in fp32 whatever the parameters'
+dtype, the update cast back to the parameter dtype, weight decay only on
+leaves of two or more dimensions, the global-norm clip over the whole
+tree.
+
+``adamw_update`` is the reference's pure function; ``adamw_update_``
+does the same arithmetic in place (parameters, moments and step), which
+is how training runs at full width: a copy of the moments would add 8
+bytes a parameter.  On a stacked federation the caller runs it once per
+client on views of the client's slices, so the clip, the norm and the
+step are per client, as ``jax.vmap`` gives them.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -34,3 +44,58 @@ def adamw_init(params, n_clients: Optional[int] = None) -> dict:
     shape = () if n_clients is None else (int(n_clients),)
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": torch.zeros(shape, dtype=torch.int32, device=device)}
+
+
+def adamw_reset_(state: dict) -> dict:
+    """Zero a state's moments and steps in place (a fresh ``adamw_init``
+    without a second allocation).  Returns it."""
+    for t in tree_leaves(state):
+        t.zero_()
+    return state
+
+
+def _global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32, leaf by leaf in
+    tree order."""
+    total = None
+    for l in tree_leaves(tree):
+        sq = torch.sum(torch.square(l.float()))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def adamw_update_(params, grads, state: dict, cfg: AdamWConfig,
+                  lr_scale: float = 1.0) -> None:
+    """One AdamW step of one model, in place: ``params`` and the state's
+    ``mu`` / ``nu`` / ``step`` (a 0-d int32 tensor, or a view of one
+    client's entry) take their new values."""
+    state["step"].add_(1)
+    step = state["step"].float()
+    scale = None
+    if cfg.grad_clip is not None:
+        gn = _global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / torch.clamp_min(gn, 1e-9),
+                            max=1.0)
+    bc1 = 1 - torch.pow(cfg.b1, step)
+    bc2 = 1 - torch.pow(cfg.b2, step)
+    for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
+                            tree_leaves(state["mu"]),
+                            tree_leaves(state["nu"])):
+        g = g.float() if scale is None else g.float() * scale
+        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        delta = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
+        if p.ndim >= 2:
+            delta = delta + cfg.weight_decay * p.float()
+        p.copy_(p.float() - cfg.lr * lr_scale * delta)
+
+
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
+                 lr_scale: float = 1.0):
+    """One AdamW step.  Returns (new_params, new_state); the inputs are
+    left as they were."""
+    new_params = tree_map(lambda l: l.detach().clone(), params)
+    new_state = tree_map(lambda l: l.clone(), state)
+    adamw_update_(new_params, grads, new_state, cfg, lr_scale)
+    return new_params, new_state

@@ -1,5 +1,6 @@
 from repro_torch.utils.tree import (
     tree_leaves,
+    tree_leaves_with_path,
     tree_map,
     tree_size,
     tree_to_matrix,
@@ -7,5 +8,5 @@ from repro_torch.utils.tree import (
     vector_to_tree,
 )
 
-__all__ = ["tree_leaves", "tree_map", "tree_size", "tree_to_matrix",
+__all__ = ["tree_leaves", "tree_leaves_with_path", "tree_map", "tree_size", "tree_to_matrix",
            "tree_to_vector", "vector_to_tree"]

@@ -20,6 +20,24 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_leaves_with_path(tree, prefix: str = "") -> list:
+    """(path, leaf) pairs in :func:`tree_leaves` order; a path joins the
+    dict keys (and ``[i]`` for sequence items) with "/", as the
+    reference's checkpoint keys and leaf filters do."""
+    def join(part):
+        return part if not prefix else f"{prefix}/{part}"
+
+    if isinstance(tree, dict):
+        return [pl for key in sorted(tree)
+                for pl in tree_leaves_with_path(tree[key], join(str(key)))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, sub in enumerate(tree)
+                for pl in tree_leaves_with_path(sub, join(f"[{i}]"))]
+    if tree is None:
+        return []
+    return [(prefix, tree)]
+
+
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over trees of one structure, visiting leaves
     in :func:`tree_leaves` order."""

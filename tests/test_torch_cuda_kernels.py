@@ -432,9 +432,14 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 # fusion test (tiled)
 HIERARCHY_SHAPES = [(32_768, 8, 64), (256, 8, 64)]
 PAPER_SHAPES = [(100, 10, 20), (100, 100, 20)]
+# the LM federation (C = 8 clients, K = 2, sketch 128): ODCL's kmeans++
+# distances and device Lloyd, IFCA's sketch assignment and its first
+# kmeans++ row
+LM_SHAPES = [(8, 2, 128), (8, 1, 128)]
 
 
-@pytest.mark.parametrize("m,k,d", HIERARCHY_SHAPES + PAPER_SHAPES)
+@pytest.mark.parametrize("m,k,d", HIERARCHY_SHAPES + PAPER_SHAPES
+                         + LM_SHAPES)
 def test_hierarchy_and_paper_shapes_match_plain_with_the_planned_variant(
         cuda_device, m, k, d):
     pts, cts = _blobs(7 * m + k + d, cuda_device, m, k, d)
@@ -476,3 +481,29 @@ def test_group_prox_at_the_paper_host_ama_shape(cuda_device):
     norm = torch.linalg.vector_norm(v, dim=1, keepdim=True)
     assert bool(((got - want).abs() <= 1e-6 * want.abs() + 1e-7 * norm).all())
     assert torch.equal(tprox.group_ball_proj(v, 0.75), got)
+
+
+def test_training_launches_no_flash_and_the_prefill_does(cuda_device):
+    """A local training step (differentiable attention) launches no flash
+    kernel on the card, its backward included; serving's prefill of the
+    trained model launches one a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.federated import init_federation
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import client_slice, make_local_train_step
+    from repro_torch.models.transformer import model_view
+
+    cfg = get_config("qwen2-0.5b").reduced(n_layers=2, max_d_model=64,
+                                           max_vocab=64)
+    state = init_federation(0, cfg, 2, device=cuda_device)
+    toks = torch.randint(0, 64, (2, 2, 17), device=cuda_device)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    ops.reset_launch_counts()
+    losses, _, _ = make_local_train_step(cfg, remat="full")(
+        state.params, state.opt_state, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(losses).all())
+    assert ops.launch_counts()["flash_attention"] == 0
+    generate(model_view(client_slice(state.params, 0), cfg), cfg,
+             toks[0, :, :8], 2, device=cuda_device)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers

@@ -1,7 +1,10 @@
 """What the port may import, and where its entry points run.
 
 * No file of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX
-  or anything of the reference package ``repro``.
+  or anything of the reference package ``repro``, nor ``msgpack`` (the
+  card's machine lacks it: the checkpoint carries its own subset); the
+  checkpoint imports ``zstandard`` only inside the reference's optional
+  ``try``.
 * The dispatch in ``kernels/ops.py`` has no environment switch and no
   ``try`` that could send CUDA work to the plain versions.
 * Entry points called without ``device=`` on a machine without CUDA
@@ -34,6 +37,7 @@ from repro_torch.launch import simulate as tsimulate
 from repro_torch.models import init_decode_cache, init_params
 from repro_torch.serving import RouteServer
 from repro_torch.serving import loadgen as tloadgen
+from repro_torch.utils import tree_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -53,7 +57,7 @@ def _imported_modules(path: Path) -> list:
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack")
 
 
 def test_port_files_exist():
@@ -75,7 +79,11 @@ def test_port_files_exist():
                 "scenarios/api.py", "scenarios/library.py",
                 "data/__init__.py", "data/synthetic.py",
                 "core/engine/hierarchy.py", "core/oracles.py",
-                "core/theory.py", "core/ifca.py", "core/methods.py"):
+                "core/theory.py", "core/ifca.py", "core/methods.py",
+                "core/federated_methods.py", "launch/train.py",
+                "launch/steps.py", "data/lm_data.py", "optim/sgd.py",
+                "optim/schedule.py", "checkpoint/__init__.py",
+                "checkpoint/checkpoint.py", "checkpoint/msgpack_lite.py"):
         assert (PORT / rel).exists(), rel
     assert len(PORT_FILES) > 10 and PORT_FILES[-1].exists()
 
@@ -85,6 +93,26 @@ def test_port_files_exist():
 def test_no_jax_or_reference_import(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_zstandard_only_behind_the_optional_import():
+    """Only the checkpoint names ``zstandard``, imported inside a ``try``
+    whose ``except ImportError`` leaves it ``None`` (zstd files are then
+    refused, zlib ones read), as the reference does."""
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text())
+        guarded = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Try) and any(
+                    isinstance(h.type, ast.Name) and h.type.id == "ImportError"
+                    for h in node.handlers):
+                guarded |= {id(n) for stmt in node.body
+                            for n in ast.walk(stmt)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import) and any(
+                    a.name.split(".")[0] == "zstandard" for a in node.names):
+                assert path.name == "checkpoint.py", path
+                assert id(node) in guarded, path
 
 
 def test_dispatch_has_no_switch_and_no_fallback():
@@ -171,6 +199,34 @@ def test_entry_points_raise_without_cuda(no_cuda):
         tserve.generate(model, cfg, prompts, 2)
     assert tserve.generate(model, cfg, prompts, 2,
                            device="cpu")[0].shape == (1, 6)
+
+
+def test_slice9_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """The training and serving drivers run on the card unless asked for
+    the CPU: every one raises without CUDA, and runs with ``--device cpu``
+    (the driver tests run them there)."""
+    from repro_torch.core.federated import init_federation
+    from repro_torch.launch import train as ttrain
+
+    cfg = get_config("qwen2-0.5b").reduced(n_layers=1, max_d_model=64,
+                                           max_vocab=64)
+    for argv in (["--reduced"], ["--reduced", "--method", "ifca"],
+                 ["--reduced", "--engine", "device"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ttrain.main(argv)
+    for argv in (["--reduced", "--ckpt-dir", str(tmp_path)],
+                 ["--reduced", "--ckpt-dir", str(tmp_path),
+                  "--route-by-sketch"],
+                 ["--reduced", "--server"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tserve.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsimulate.main(["--clients", "8", "--clusters", "2", "--method",
+                        "ifca"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_federation(0, cfg, 2)
+    state = init_federation(0, cfg, 2, device="cpu")
+    assert tree_leaves(state.params)[0].device == torch.device("cpu")
 
 
 def test_slice8_entry_points_raise_without_cuda(no_cuda):
