@@ -57,7 +57,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     x (8, 64) is the small-m threshold above), and at the Section 5
     federation's (100, 20) x (10, 20) and (100, 20) x (100, 20), each
     launching its planned variant, and ``group_ball_proj`` at its host
-    AMA's (4950, 20);
+    AMA's (4950, 20); and ``flash_attention`` in bf16 at the model
+    families' prefill shapes (``FAMILY_FLASH``: deepseek-moe-16b (4, 16,
+    8192, 128) window 4096, hymba-1.5b (4, 25, 8192, 64) x (4, 5, 8192,
+    64) window 1024, pixtral-12b (1, 32, 4096, 128) x (1, 8, 4096, 128)
+    window 4096, the hubert-xlarge encoder (4, 16, 4096, 80)
+    non-causal), batch row 0 against the plain version, twice;
  3. small rounds on the card against the same rounds on the CPU (the
     plain versions), with the same inputs: the ODCL-KM round (identical
     partitions and route labels, parameters within rtol 1e-5) and four
@@ -218,6 +223,35 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     local-step p50, tokens/s, round ms and peak memory (gated below the
     card's) printed.  The 8 GB zlib checkpoint of this stack is left to
     phase 3f and the CPU tests;
+ 3g. the model families, card vs CPU (run after 3f): deepseek-moe-16b (8
+    experts, top 6), grok-1-314b (top 2 of 4, no shared experts),
+    xlstm-125m, hymba-1.5b, hubert-xlarge and pixtral-12b, each reduced
+    to 2 layers, d 512, fp32, the same weights on both: ``forward``
+    (logits, aux loss), ``train_loss`` and its gradients, and (causal)
+    ``prefill_with_cache`` with 8 ``decode_step``s, within 1e-4 of the
+    largest magnitude (losses rtol 1e-5), every router top-k margin on
+    the CPU above 1e-4; the one-shot round of a planted 4-client MoE
+    federation through one projection (the planted partition on both,
+    means within rtol 1e-5); ``launch.train`` of a MoE federation on the
+    card (finite losses, K' = 2, kmeans_assign and pairwise_sqdist);
+ 4i. the model families at full width, bf16, random weights from seed 0,
+    each freed before the next: deepseek-moe-16b (28 layers, 16.9 B
+    parameters), hymba-1.5b and xlstm-125m through ``serve.generate`` at
+    batch 4, prompt 8192, 32 greedy tokens, then a warm repeat: flash
+    once an attention layer in the prefill, all on the tensor-core
+    kernel (the xLSTM none); every decode step's logits against one
+    teacher-forced prefill within 2^-4 of the position's max |logit| and
+    a decode from negated layer-0 values outside it (``family_gate``:
+    the MoE on batch row 0 with no-drop capacity and the serve path
+    routed as the prefill routes, its own routing's swaps printed; the
+    xLSTM on an fp32 copy within 1e-3, its bf16 errors printed); the
+    MoE prefill's drop share a layer printed.  Then pixtral-12b's
+    ``prefill_with_cache`` (batch 1, 4096 tokens, 256 patch embeddings at
+    distinct positions) and hubert-xlarge's ``forward`` (batch 4, 4096
+    frames, 15 % masked): flash once a layer, row 0's logits against
+    ``attention=train_attention`` within 2^-4 of each position's max
+    |logit|.  Prefill ms (first, warm), decode ms p50/p99, tok/s and
+    peak memory printed;
  5. one JSON line ``{"kernels": [...]}``, its times taken right after
     the build, before phase 2 (where the profiler starts after no other
     phase), its counts added after phase 4g: per kernel its launches on
@@ -254,7 +288,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     one is empty the call is timed by CUDA events and its one launch read
     from the wrapper's counters); the flash row adds the CUDA-core (fp32) kernel's time at
     the same shape in fp32 (``ms_fp32_kernel``), both kernels' ptxas
-    registers and spill bytes, and its design;
+    registers and spill bytes, and its design, and ``at_shapes`` the
+    four family shapes of phase 2 with their ms, call_ms, plain ms (row
+    0), SDPA's ms, bound and phase 4i's launches;
  6. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -264,13 +300,15 @@ complete graph at C = 4096, two serve calls (phase 4c's prompts, 1
 token, then 16), one local step and one streamed sketch of phase 4h's
 federation, and one second of phase 4d's 16-caller closed loop,
 batched and per request, at each C: device time by kernel and the
-device's busy share.
+device's busy share; and in phase 4i, each served family's two serve
+calls (1 token, then 16) and pixtral's prefill and hubert's forward.
 
 The port imports no JAX; neither does this script.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -1779,11 +1817,13 @@ def phase_lm_card_vs_cpu() -> None:
 
 # ------------------------------------------------------------ phase 4c
 
-def teacher_forced(model, cfg, tokens: torch.Tensor) -> tuple:
+def teacher_forced(model, cfg, tokens: torch.Tensor, pad_to: int = 1) -> tuple:
     """(b, P + G) tokens -> the logits at the G positions P - 1 .. P + G - 2
     twice, fp32: as the serve path computes them (the prompt's prefill,
     then G - 1 decode steps fed the generated tokens) and from one
-    prefill over all of them but the last."""
+    prefill over all of them but the last.  ``pad_to``: that prefill's
+    length is padded with token 0 to a multiple of it; a causal model's
+    logits at the earlier positions do not see the padding."""
     from repro_torch.models import decode_step
     from repro_torch.models.transformer import prefill_with_cache
 
@@ -1797,23 +1837,28 @@ def teacher_forced(model, cfg, tokens: torch.Tensor) -> tuple:
         lg, cache = decode_step(model, cfg, cache, tokens[:, i:i + 1])
         rows.append(lg[:, -1].float())
     del cache
-    full, _ = prefill_with_cache(model, cfg, {"tokens": tokens[:, :-1]})
-    at = full[:, SERVE_PROMPT - 1:].float()
+    forced = tokens[:, :-1]
+    pad = -forced.shape[1] % pad_to
+    forced = torch.cat([forced, forced.new_zeros((forced.shape[0], pad))], 1)
+    full, _ = prefill_with_cache(model, cfg, {"tokens": forced})
+    at = full[:, SERVE_PROMPT - 1:SERVE_PROMPT - 1 + n_gen].float()
     del full
     return torch.stack(rows, dim=1), at
 
 
 def negated_decode(model, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """The first decode step's (b, V) fp32 logits from a cache whose
-    layer-0 values were negated after the prompt's prefill: what a
-    corrupted cache gives."""
+    layer-0 values were negated after the prompt's prefill (the
+    attention's V ring; the xLSTM's mLSTM memory C, which holds the
+    values): what a corrupted cache gives."""
     from repro_torch.models import decode_step
     from repro_torch.models.transformer import prefill_with_cache
 
     _, cache = prefill_with_cache(
         model, cfg, {"tokens": tokens[:, :SERVE_PROMPT]},
         capacity=tokens.shape[1])
-    cache.layers[0]["v"].neg_()
+    layer0 = cache.layers[0]
+    layer0["v" if "v" in layer0 else "m_c"].neg_()
     lg, _ = decode_step(model, cfg, cache,
                         tokens[:, SERVE_PROMPT:SERVE_PROMPT + 1])
     return lg[:, -1].float()
@@ -2969,6 +3014,738 @@ def flash_kernel_row(flash, card: str) -> dict:
                      f"causal, window {w}", "card": card}
 
 
+# ------------------------------------------------- phase 2 (families)
+
+# the flash kernel at the model families' full-width prefill shapes:
+# (class, b, hkv, rep, s, dh, window, causal) of deepseek-moe-16b (its
+# serve window 4096 over a prompt of 8192), hymba-1.5b (window 1024),
+# pixtral-12b (window 4096 at 4096 tokens) and the hubert-xlarge encoder
+FAMILY_FLASH = [("deepseek-moe-16b prefill", 4, 16, 1, 8192, 128, 4096, True),
+                ("hymba-1.5b prefill", 4, 5, 5, 8192, 64, 1024, True),
+                ("pixtral-12b prefill", 1, 8, 4, 4096, 128, 4096, True),
+                ("hubert-xlarge forward", 4, 16, 1, 4096, 80, None, False)]
+
+
+def phase_family_flash(flash) -> float:
+    """Phase 2: the kernel against its plain version at the families'
+    shapes, bf16, batch row 0 (the plain version's fp32 logits), two
+    launches each (the second bit-identical)."""
+    worst = 0.0
+    for i, (cls, b, hkv, rep, s, dh, window, causal) in enumerate(
+            FAMILY_FLASH):
+        q, k, v = attn_inputs(600 + i, b, hkv, rep, s, s, dh, torch.bfloat16)
+        err = compare_flash(flash, q, k, v, causal, window, rows=1)
+        worst = max(worst, err)
+        print(f"[chip_smoke] flash_attention at the {cls} shape "
+              f"{tuple(q.shape)} x {tuple(k.shape)} bf16, causal={causal}, "
+              f"window {window}: max abs err {err:.3g} (batch row 0)",
+              flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return worst
+
+
+# ------------------------------------------------------------ phase 3g
+
+# the model families, card vs CPU: each config reduced to 2 layers (the
+# xLSTM to one m + s pair), d_model 512 at most, vocab 1024, fp32, the
+# port's init from seed 1 on the CPU, copied to the card; deepseek-moe-16b
+# keeps 8 experts (top 6), so routing chooses; xlstm-125m runs its mLSTM
+# in chunks of 16 and hymba-1.5b its SSM in chunks of 16 (the chunked
+# paths); a forward over 32 tokens, a prefill over 32 and 8 decode steps
+FAMILY_ARCHS = ("deepseek-moe-16b", "grok-1-314b", "xlstm-125m",
+                "hymba-1.5b", "hubert-xlarge", "pixtral-12b")
+FAM_SEQ, FAM_PROMPT, FAM_GEN, FAM_PATCHES = 32, 32, 8, 6
+# the input seeds (forward, loss, prefill): each keeps every top-k margin
+# of the reduced MoE configs above ROUTER_MARGIN on the CPU, which the
+# phase checks: a router whose k-th and (k+1)-th probabilities lie within
+# rounding of each other may choose another expert on the card
+FAM_SEEDS = (5, 8, 9)
+ROUTER_MARGIN = 1e-4
+# the MoE round card vs CPU: the 3g deepseek config, C = 4 clients planted
+# in 2 clusters (inits from seeds 0 and 1 plus 1e-2 noise, CPU draws), one
+# JL projection for both devices; then launch.train on the card (the
+# launch.train's --reduced deepseek-moe-16b: 4 experts, top 4, two shared)
+FAM_ROUND_SKETCH = 32
+FAM_TRAIN = ["--arch", "deepseek-moe-16b", "--reduced", "--clients", "4",
+             "--clusters", "2", "--local-steps", "8", "--post-steps", "1",
+             "--seq-len", "32", "--batch", "4", "--lr", "3e-3",
+             "--sketch-dim", "64", "--method", "odcl", "--engine", "device"]
+
+
+class RouterLog:
+    """While active, hands each MoE router call's (probs, top-k ids, k) to
+    ``record`` and, with ``force``, routes by the ids that ``force(probs,
+    ids, k)`` returns (the weights then the call's own probabilities at
+    those ids).  It wraps ``models.moe.route``: chip_smoke's own
+    instrument; the package computes nothing for it."""
+
+    def __init__(self, record=None, force=None):
+        self.record, self.force = record, force
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route = moe, moe.route
+
+        def routed(x, router, k):
+            probs, topv, topi = self.route(x, router, k)
+            if self.record is not None:
+                self.record(probs.detach(), topi, k)
+            if self.force is not None:
+                topi = self.force(probs.detach(), topi, k)
+                topv = torch.gather(probs, -1, topi)
+            return probs, topv, topi
+
+        moe.route = routed
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def topk_margins(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th largest probability less the (k+1)-th, per token."""
+    if k >= probs.shape[-1]:
+        return torch.full(probs.shape[:-1], float("inf"),
+                          device=probs.device)
+    top = torch.topk(probs.float(), k + 1, dim=-1).values
+    return top[..., k - 1] - top[..., k]
+
+
+def family_small_cfg(arch: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    kw = {"max_experts": 8} if arch == "deepseek-moe-16b" else {}
+    return dataclasses.replace(get_config(arch).reduced(**kw),
+                               mlstm_chunk=16, ssm_chunk=16)
+
+
+def family_inputs(cfg, seed: int, s: int, b: int = 2) -> dict:
+    """CPU inputs for ``cfg``'s input mode, from numpy: tokens and
+    next-token labels; audio frames with a 30 % frame mask and codebook
+    labels; tokens with FAM_PATCHES patch embeddings at distinct
+    positions within the first FAM_PROMPT."""
+    from repro_torch.models.transformer import FRONTEND_DIM, PATCH_DIM
+
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 1)))
+    if cfg.input_mode == "embeddings":
+        return {"frames": torch.from_numpy(rng.normal(
+                    size=(b, s, FRONTEND_DIM)).astype(np.float32)),
+                "mask": torch.from_numpy(rng.random((b, s)) < 0.3),
+                "labels": toks[:, :s]}
+    batch = {"tokens": toks[:, :s], "labels": toks[:, 1:]}
+    if cfg.input_mode == "multimodal":
+        batch["patch_embeds"] = torch.from_numpy(rng.normal(
+            size=(b, FAM_PATCHES, PATCH_DIM)).astype(np.float32))
+        batch["patch_positions"] = torch.from_numpy(np.stack(
+            [rng.permutation(FAM_PROMPT)[:FAM_PATCHES] for _ in range(b)]))
+    return batch
+
+
+def rel_close(name: str, got: torch.Tensor, want: torch.Tensor,
+              tol: float = FP32_REL_TOL) -> float:
+    """Card vs CPU: max |got - want| within ``tol`` of max |want|."""
+    want = want.detach().float()
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got.detach().float().cpu() - want).abs().max()) / scale
+    check(err <= tol, f"{name}: off by {err} of the largest magnitude "
+          f"(tolerance {tol})")
+    return err
+
+
+def family_card_vs_cpu(arch: str) -> dict:
+    """3g for one config: forward (logits, aux), the loss and its
+    gradients, and (causal) the prefill with 8 decode steps."""
+    import copy
+
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.models.transformer import (
+        forward, prefill_with_cache, train_loss, tree_from_model)
+    from repro_torch.utils import tree_leaves, tree_leaves_with_path, tree_map
+
+    cfg = family_small_cfg(arch)
+    cpu = init_params(cfg, seed=1, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    margins = []
+
+    def record(probs, topi, k):
+        margins.append(float(topk_margins(probs, k).min()))
+
+    def on(dev, batch):
+        return {k: v.to(dev) for k, v in batch.items()}
+
+    seed_fwd, seed_loss, seed_pre = FAM_SEEDS
+    errs = {}
+    batch = family_inputs(cfg, seed_fwd, FAM_SEQ)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.inference_mode():
+        with RouterLog(record):
+            want, waux = forward(cpu, cfg, inputs)
+        got, gaux = forward(card, cfg, on("cuda", inputs))
+    errs["forward"] = rel_close(f"3g {arch} forward", got, want)
+    check(abs(float(gaux) - float(waux)) <= 1e-5 * abs(float(waux)),
+          f"3g {arch}: aux {float(gaux)} vs {float(waux)}")
+    losses = {}
+    grads = {}
+    batch = family_inputs(cfg, seed_loss, FAM_SEQ)
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        live = tree_map(lambda l: l.detach().clone().requires_grad_(True),
+                        tree_from_model(model))
+        with RouterLog(record if dev == "cpu" else
+                       (lambda *a: None)):
+            loss = train_loss(live, cfg, on(model.embed.device, batch))
+        losses[dev] = float(loss)
+        grads[dev] = torch.autograd.grad(loss, tree_leaves(live),
+                                         allow_unused=True,
+                                         materialize_grads=True)
+        paths = [p for p, _ in tree_leaves_with_path(live)]
+    check(abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"]),
+          f"3g {arch}: loss {losses['cuda']} vs {losses['cpu']}")
+    errs["grads"] = max(rel_close(f"3g {arch} grad {p}", g, w)
+                        for p, g, w in zip(paths, grads["cuda"],
+                                           grads["cpu"]))
+    if cfg.causal:
+        batch = family_inputs(cfg, seed_pre, FAM_PROMPT + FAM_GEN)
+        prompt = {k: v[:, :FAM_PROMPT] if k == "tokens" else v
+                  for k, v in batch.items() if k != "labels"}
+        cap = FAM_PROMPT + FAM_GEN
+        with torch.inference_mode():
+            with RouterLog(record):
+                want, wc = prefill_with_cache(cpu, cfg, prompt, capacity=cap)
+            got, gc = prefill_with_cache(card, cfg, on("cuda", prompt),
+                                         capacity=cap)
+            errs["prefill"] = rel_close(f"3g {arch} prefill", got, want)
+            toks = batch["tokens"]
+            for t in range(FAM_PROMPT, cap):
+                with RouterLog(record):
+                    want, wc = decode_step(cpu, cfg, wc, toks[:, t:t + 1])
+                got, gc = decode_step(card, cfg, gc,
+                                      toks[:, t:t + 1].cuda())
+                errs["decode"] = max(errs.get("decode", 0.0), rel_close(
+                    f"3g {arch} decode {t}", got, want))
+            for name in wc.layers[0]:
+                errs[f"cache {name}"] = max(
+                    rel_close(f"3g {arch} cache {name}", g[name], w[name])
+                    for g, w in zip(gc.layers, wc.layers))
+    least = min(margins, default=None)
+    check(least is None or least > ROUTER_MARGIN,
+          f"3g {arch}: a router top-k margin {least} within {ROUTER_MARGIN}")
+    return {"config": f"{cfg.name} reduced: {cfg.n_layers} layers, d "
+                      f"{cfg.d_model}, vocab {cfg.vocab_size}, fp32"
+                      + (f", {cfg.n_experts} experts top {cfg.top_k}"
+                         if cfg.is_moe else ""),
+            "max_rel_err": errs, "loss": losses["cpu"],
+            "min_router_margin": least}
+
+
+def planted_moe_state(cfg, device):
+    """Clients 0-1: the init of seed 0 plus 1e-2 normal noise, clients
+    2-3: seed 1 plus noise (CPU draws, then moved)."""
+    from repro_torch.core.federated import FederatedState
+    from repro_torch.models.transformer import init_tree
+    from repro_torch.utils import tree_map
+
+    a, b = (init_tree(cfg, seed=s, device="cpu") for s in (0, 1))
+    gen = torch.Generator().manual_seed(2)
+    params = tree_map(lambda la, lb: (
+        torch.stack([la, la, lb, lb])
+        + 1e-2 * torch.randn((4,) + tuple(la.shape), generator=gen)
+    ).to(device), a, b)
+    return FederatedState(params, None, 4)
+
+
+def phase_families_card_vs_cpu(ops) -> dict:
+    """Phase 3g: every new family on the card against the same model on
+    the CPU (fp32, tolerance FP32_REL_TOL of the largest magnitude for
+    logits, caches and each gradient leaf; losses and the aux loss within
+    rtol 1e-5); the one-shot round of a planted MoE federation (the
+    router-invariant sketch through one projection, kmeans-device, the
+    cluster means) on both devices: the planted partition on both and
+    the means within rtol 1e-5; then ``launch.train`` of a MoE
+    federation on the card: finite losses, K' = 2, kmeans_assign and
+    pairwise_sqdist launched.  Returns that run's launches."""
+    from repro_torch.core.federated import one_shot_aggregate
+    from repro_torch.core.sketch import jl_projection, sketch_leaves
+    from repro_torch.core.federated import _leaf_filter_for
+    from repro_torch.launch import train as ttrain
+    from repro_torch.utils import tree_leaves
+
+    rows = {arch: family_card_vs_cpu(arch) for arch in FAMILY_ARCHS}
+    cfg = family_small_cfg("deepseek-moe-16b")
+    n = sum(l[0].numel() for l in sketch_leaves(
+        planted_moe_state(cfg, "cpu").params, _leaf_filter_for(cfg)))
+    proj = jl_projection(n, FAM_ROUND_SKETCH, seed=0, device="cpu")
+    parts = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cuda":
+            ops.reset_launch_counts()
+        new, labels, _ = one_shot_aggregate(
+            planted_moe_state(cfg, dev), cfg, algorithm="kmeans-device", k=2,
+            sketch_dim=FAM_ROUND_SKETCH, engine="device",
+            projection=proj.to(dev), device=dev)
+        parts[dev] = (np.asarray(labels), new.params)
+        if dev == "cuda":
+            round_launches = read_counts(ops)
+    for dev, (labels, _) in parts.items():
+        check(same_partition(labels, [0, 0, 1, 1]),
+              f"3g MoE round on {dev}: partition {labels} is not the "
+              "planted one")
+    round_err = max(rel_close("3g MoE round means", g, w, 1e-5)
+                    for g, w in zip(tree_leaves(parts["cuda"][1]),
+                                    tree_leaves(parts["cpu"][1])))
+    for kernel in ("kmeans_assign", "pairwise_sqdist"):
+        check(round_launches[kernel] > 0, f"3g MoE round: no {kernel}")
+    rows["moe round"] = {"sketched_values": n, "sketch_dim":
+                         FAM_ROUND_SKETCH, "partition": parts["cuda"][0]
+                         .tolist(), "means_max_rel_err": round_err,
+                         "launches": by_variant(round_launches)}
+    ops.reset_launch_counts()
+    out = ttrain.train(FAM_TRAIN)
+    launches = read_counts(ops)
+    res = out["result"]
+    losses = [x for r in res.round_metrics for x in r.get("losses", [])]
+    lm_losses_finite("3g MoE train", losses)
+    check(res.n_clusters == 2, f"3g MoE train: K' = {res.n_clusters}")
+    for kernel in ("kmeans_assign", "pairwise_sqdist"):
+        check(launches[kernel] > 0, f"3g MoE train: no {kernel}")
+    rows["moe train"] = {"argv": " ".join(FAM_TRAIN),
+                         "labels": np.asarray(res.labels).tolist(),
+                         "purity": out["purity"],
+                         "loss_first": losses[0], "loss_last": losses[-1],
+                         "launches": by_variant(launches)}
+    print(json.dumps({"families_card_vs_cpu": rows}), flush=True)
+    return launches
+
+
+# ------------------------------------------------------------ phase 4i
+
+# the families at full width, bf16, random weights from seed 0: the three
+# served through serve.generate at phase 4c's batch and prompt, 32 tokens
+FAMILY_SERVE = ("deepseek-moe-16b", "hymba-1.5b", "xlstm-125m")
+FAMILY_GEN = 32
+PIXTRAL_S, PIXTRAL_PATCHES = 4096, 256
+HUBERT_B, HUBERT_S, HUBERT_MASK = 4, 4096, 0.15
+
+
+# the xLSTM's decode vs prefill in fp32: 12 layers of fp32 rounding in
+# other summation orders (the chunkwise mLSTM against its recurrence)
+XLSTM_TOL = 1e-3
+
+
+def no_drop(cfg):
+    """The MoE config with capacity_factor E / k: an expert's capacity is
+    then at least the sequence, so no token is dropped."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def drop_shares(cfg, s: int) -> tuple:
+    """(a recorder for RouterLog, the list it fills): per router call over
+    ``s`` tokens, the share of (token, choice) pairs that the dispatch
+    drops (past an expert's per-sequence capacity)."""
+    from repro_torch.models.moe import capacity
+
+    shares = []
+
+    def record(probs, topi, k):
+        b, n, _ = topi.shape
+        if n != s:
+            return
+        counts = torch.zeros((b, cfg.n_experts), dtype=torch.long,
+                             device=topi.device)
+        counts.scatter_add_(1, topi.reshape(b, -1),
+                            torch.ones_like(topi.reshape(b, -1)))
+        over = torch.clamp_min(counts - capacity(n, cfg), 0).sum()
+        shares.append(over / (b * n * k))
+
+    return record, shares
+
+
+class ForcedRouting:
+    """A ``RouterLog`` force for ``teacher_forced`` and ``negated_decode``
+    on the serve path: the prompt prefill's last position and each
+    decode step take the top-k experts that the one long prefill chose
+    at that position (``ids``: per layer (b, G, k)); the long prefill
+    itself routes freely.  ``natural`` keeps, per (layer, position), the
+    serve path's own choice and probabilities."""
+
+    def __init__(self, ids: list):
+        self.ids, self.n_layers = ids, len(ids)
+        self.prompt_calls = self.step_calls = 0
+        self.natural = {}
+
+    def __call__(self, probs, topi, k):
+        n = probs.shape[1]
+        if n == SERVE_PROMPT:
+            layer, g = self.prompt_calls % self.n_layers, 0
+            self.prompt_calls += 1
+            forced = topi.clone()
+            forced[:, -1:] = self.ids[layer][:, :1]
+        elif n == 1:
+            layer = self.step_calls % self.n_layers
+            g = 1 + self.step_calls // self.n_layers
+            self.step_calls += 1
+            forced = self.ids[layer][:, g:g + 1]
+        else:
+            return topi
+        self.natural[layer, g] = (topi[:, -1], probs[:, -1])
+        return forced
+
+
+def moe_routing(model, cfg, tokens: torch.Tensor) -> tuple:
+    """The one long prefill of ``teacher_forced`` (all tokens but the
+    last), recording per layer the top-k ids and probabilities at the G
+    compared positions: (ids, probs), lists of (b, G, k) and (b, G, E)."""
+    from repro_torch.models.transformer import prefill_with_cache
+
+    n_gen = tokens.shape[1] - SERVE_PROMPT
+    at = slice(SERVE_PROMPT - 1, SERVE_PROMPT - 1 + n_gen)
+    ids, probs = [], []
+
+    def record(p, topi, k):
+        ids.append(topi[:, at])
+        probs.append(p[:, at])
+
+    with RouterLog(record=record):
+        prefill_with_cache(model, cfg, {"tokens": tokens[:, :-1]})
+    return ids, probs
+
+
+def family_gate(model, cfg, tokens: torch.Tensor) -> dict:
+    """Every decode step's logits against one teacher-forced prefill
+    (``teacher_forced``) within SERVE_BF16_REL_TOL of the position's max
+    |logit|, and a decode from negated layer-0 values outside it.
+
+    A MoE model runs the check with ``no_drop(cfg)`` on batch row 0
+    (capacity is per sequence, so the serve path's prefill drops tokens
+    that decode never drops) and with the serve path routed as the long
+    prefill routes (``ForcedRouting``): bf16 rounding moves the router's
+    probabilities between the two paths by more than the top-k margin at
+    most positions of a random-weight model, and a swapped expert moves
+    that position's logits well past the tolerance (deepseek-moe-16b on
+    an H100: experts swapped at 29 of 32 positions, logits apart by up to
+    0.26 of the max |logit|).  The serve path's own routing is compared with the prefill's
+    and printed: the positions with an expert swapped in some layer, the
+    probability drift and the margins, and the rel. error of the same
+    check routed freely.
+
+    The xLSTM's check runs on an fp32 copy of its weights, within
+    XLSTM_TOL; the bf16 run's errors are printed.  In bf16 the two paths'
+    states part by a few percent a step (the gates' exponentials magnify
+    one-ulp differences, and six layers carry them on) and the logits by
+    up to 0.65 of the max |logit| over 31 steps (on an H100), while in
+    fp32 they agree to rounding."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models.transformer import n_stack
+
+    out = {}
+    tol = SERVE_BF16_REL_TOL
+    if cfg.is_moe:
+        cfg, tokens = no_drop(cfg), tokens[:1]
+        ids, probs = moe_routing(model, cfg, tokens)
+        forced = ForcedRouting(ids)
+        with RouterLog(force=forced):
+            dec, at = teacher_forced(model, cfg, tokens)
+        n_gen = at.shape[1]
+        nat_ids = torch.stack([torch.stack([forced.natural[l, g][0]
+                                            for g in range(n_gen)], 1)
+                               for l in range(n_stack(cfg))])   # (L,b,G,k)
+        nat_probs = torch.stack([torch.stack([forced.natural[l, g][1]
+                                              for g in range(n_gen)], 1)
+                                 for l in range(n_stack(cfg))])
+        swapped = (nat_ids.sort(-1).values
+                   != torch.stack(ids).sort(-1).values).any(-1)  # (L,b,G)
+        drift = (nat_probs - torch.stack(probs)).abs().amax(-1)
+        margin = topk_margins(torch.stack(probs), cfg.top_k)
+        free, _ = teacher_forced(model, cfg, tokens)
+        free_rel = rel_err(free, at)
+        out.update(routing="forced to the long prefill's top-k",
+                   positions_with_a_swap=int(swapped.any(0).sum()),
+                   swaps=int(swapped.sum()),
+                   swaps_by_layer=swapped.sum((1, 2)).tolist(),
+                   router_drift_p50=float(drift.median()),
+                   router_drift_max=float(drift.max()),
+                   router_margin_p50=float(margin.median()),
+                   router_margin_min=float(margin.min()),
+                   free_routing_rel_err_max=float(free_rel.max()),
+                   free_routing_rel_err_p50=float(free_rel.median()))
+        del free
+        negate = RouterLog(force=ForcedRouting(ids))
+    else:
+        # whole chunks: the xLSTM's mLSTM takes nothing else, and the SSM
+        # scans a length that is not a multiple of its chunk in one piece
+        pad_to = {"xlstm": cfg.mlstm_chunk,
+                  "hybrid": cfg.ssm_chunk}.get(cfg.block_pattern, 1)
+        dec, at = teacher_forced(model, cfg, tokens, pad_to=pad_to)
+        negate = contextlib.nullcontext()
+        if cfg.block_pattern == "xlstm":
+            model = copy.deepcopy(model).float()
+            cfg, tol = dataclasses.replace(cfg, dtype="float32"), XLSTM_TOL
+            free_rel = rel_err(dec, at)
+            out.update(check_dtype="float32 (a copy of the bf16 weights)",
+                       bf16_rel_err_max=float(free_rel.max()),
+                       bf16_rel_err_p50=float(free_rel.median()),
+                       bf16_rel_err_by_step=free_rel.amax(0).tolist())
+            dec, at = teacher_forced(model, cfg, tokens, pad_to=pad_to)
+    check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(at).all()),
+          "4i: decode or prefill logits are not finite")
+    rel = rel_err(dec, at)                                       # (b, G)
+    worst = float(rel.max())
+    check(worst <= tol,
+          f"4i {cfg.name}: decode and prefill differ by {worst} of the "
+          f"position's max |logit| (tolerance {tol})")
+    with negate:
+        neg = negated_decode(model, cfg, tokens)
+    negated = float(rel_err(neg, at[:, 1]).max())
+    check(negated > tol,
+          f"4i {cfg.name}: a decode from negated layer-0 values is within "
+          f"{negated} of the prefill")
+    out.update(decode_vs_prefill_rel_err=worst, tolerance=tol,
+               decode_vs_prefill_rel_err_p50=float(rel.median()),
+               positions_compared=int(rel.numel()),
+               rows_compared=int(rel.shape[0]),
+               decode_vs_prefill_rel_err_layer0_negated=negated,
+               negated_changes_token=int((neg.argmax(-1)
+                                          != at[:, 1].argmax(-1)).sum()))
+    return out
+
+
+def profile_generate(model, cfg, prompts) -> dict:
+    """--profile: the prompt pass alone (1 token), then it and 15 decode
+    steps, traced."""
+    from repro_torch.launch import serve
+
+    return {f"gen {n}": phase_profile(
+        lambda gen: serve.generate(model, cfg, prompts, gen, device="cuda"),
+        gen=n) for n in (1, 16)}
+
+
+def phase_family_serve(ops, card: str, arch: str, profile: bool) -> tuple:
+    """4i for one served family at full width (batch 4, prompt 8192, 32
+    greedy tokens, then a warm repeat): flash launched once an attention
+    layer in the prefill, all on the tensor-core kernel; tokens in range;
+    ``family_gate``; a MoE model's per-layer drop share in the prefill
+    printed.  Returns (launches of the first run, its line)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    cfg = get_config(arch)
+    model = init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    attn_layers = 0 if cfg.block_pattern == "xlstm" else cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    before = flash.kernel_launches()
+    record, shares = drop_shares(cfg, SERVE_PROMPT)
+    with RouterLog(record):
+        tokens, first = serve.generate(model, cfg, prompts, FAMILY_GEN,
+                                       device="cuda")
+    launches = read_counts(ops)
+    by_kernel = {name: n - before[name]
+                 for name, n in flash.kernel_launches().items()}
+    check(launches["flash_attention"] == attn_layers,
+          f"4i {arch}: {launches['flash_attention']} flash launches in one "
+          f"prefill, not {attn_layers}")
+    check(by_kernel == {"tensor_core": attn_layers, "cuda_core": 0},
+          f"4i {arch}: the bf16 prefill's attention ran {by_kernel}")
+    check(tokens.shape == (SERVE_B, SERVE_PROMPT + FAMILY_GEN)
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+          f"4i {arch}: generated tokens out of range")
+    again, warm = serve.generate(model, cfg, prompts, FAMILY_GEN,
+                                 device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        gate = family_gate(model, cfg, tokens)
+    steps = np.asarray(warm["decode_ms"])
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "batch": SERVE_B, "prompt": SERVE_PROMPT, "gen": FAMILY_GEN,
+            "serve_window": cfg.serve_window,
+            "params": sum(p.numel() for p in model.parameters()),
+            "prefill_ms_first": first["prefill_s"] * 1e3,
+            "prefill_ms_warm": warm["prefill_s"] * 1e3,
+            "decode_ms_p50": float(np.percentile(steps, 50)),
+            "decode_ms_p99": float(np.percentile(steps, 99)),
+            "tok_per_s": warm["tok_per_s"],
+            "max_memory_allocated_bytes": peak,
+            "tokens_repeat_equal": bool(torch.equal(tokens, again)),
+            **gate, "launches": by_variant(launches),
+            "flash_launches_by_kernel": by_kernel, "card": card}
+    if cfg.is_moe:
+        line["prefill_drop_share_by_layer"] = [float(x) for x in shares]
+    if profile:
+        line["profile"] = profile_generate(model, cfg, prompts)
+    print(json.dumps({"family_serve": line}), flush=True)
+    del model, tokens, again
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def phase_family_prefill(ops, card: str, arch: str, profile: bool) -> tuple:
+    """4i for pixtral-12b (one ``prefill_with_cache`` at batch 1, 4096
+    tokens, 256 patch embeddings at distinct positions) and hubert-xlarge
+    (one ``forward`` at batch 4, 4096 frames, 15 % masked), bf16, twice
+    (first, warm): flash once a layer, finite logits, and batch row 0's
+    logits against the same model with ``attention=train_attention``
+    (the plain path) within SERVE_BF16_REL_TOL of each position's max
+    |logit|.  Returns (launches of the first run, its line)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import (
+        FRONTEND_DIM, PATCH_DIM, forward, prefill_with_cache)
+
+    cfg = get_config(arch)
+    model = init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if cfg.input_mode == "multimodal":
+        b, s = 1, PIXTRAL_S
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device="cuda"),
+                 "patch_embeds": torch.randn(
+                     (b, PIXTRAL_PATCHES, PATCH_DIM), generator=gen,
+                     device="cuda").bfloat16(),
+                 "patch_positions": torch.randperm(
+                     s, generator=gen, device="cuda")[:PIXTRAL_PATCHES][None]}
+
+        def run(attention=attn_lib.attention, rows=slice(None)):
+            return prefill_with_cache(
+                model, cfg, {k: v[rows] for k, v in batch.items()},
+                attention=attention)[0]
+    else:
+        b, s = HUBERT_B, HUBERT_S
+        batch = {"frames": torch.randn((b, s, FRONTEND_DIM), generator=gen,
+                                       device="cuda").bfloat16(),
+                 "mask": torch.rand((b, s), generator=gen,
+                                    device="cuda") < HUBERT_MASK}
+
+        def run(attention=attn_lib.attention, rows=slice(None)):
+            return forward(model, cfg, {k: v[rows] for k, v in batch.items()},
+                           attention=attention)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    with torch.inference_mode():
+        for i in range(2):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                launches = read_counts(ops)
+        check(launches["flash_attention"] == cfg.n_layers,
+              f"4i {arch}: {launches['flash_attention']} flash launches, "
+              f"not {cfg.n_layers}")
+        check(bool(torch.isfinite(logits).all()),
+              f"4i {arch}: logits are not finite")
+        got = logits[:1].float()
+        del logits
+        peak = torch.cuda.max_memory_allocated()
+        want = run(attn_lib.train_attention, slice(0, 1)).float()
+        rel = rel_err(got[0], want[0])
+        worst = float(rel.max())
+        check(worst <= SERVE_BF16_REL_TOL,
+              f"4i {arch}: flash and plain attention differ by {worst} of a "
+              f"position's max |logit| (tolerance {SERVE_BF16_REL_TOL})")
+        line = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+                "batch": b, "seq": s, "entry": "prefill_with_cache"
+                if cfg.input_mode == "multimodal" else "forward",
+                "params": sum(p.numel() for p in model.parameters()),
+                "ms_first": times[0], "ms_warm": times[1],
+                "max_memory_allocated_bytes": peak,
+                "flash_vs_plain_rel_err": worst,
+                "flash_vs_plain_rel_err_p50": float(rel.median()),
+                "positions_compared": int(rel.numel()),
+                "launches": by_variant(launches), "card": card}
+        if profile:
+            line["profile"] = phase_profile(lambda rows: run(rows=rows),
+                                            rows=slice(None))
+            line["profile"]["run"] = "one prefill" if b == 1 else \
+                "one forward"
+    print(json.dumps({"family_prefill": line}), flush=True)
+    del model, batch, got, want
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def phase_families(ops, card: str, profile: bool) -> tuple:
+    """Phase 4i: deepseek-moe-16b, hymba-1.5b and xlstm-125m served, then
+    pixtral-12b's prefill and hubert-xlarge's forward, each model freed
+    before the next.  Returns (launches by path, the flash launches at
+    the families' phase-5 shapes)."""
+    by_path, shape_launches = {}, {}
+    for arch in FAMILY_SERVE:
+        by_path[f"4i serve {arch}"], _ = phase_family_serve(ops, card, arch,
+                                                            profile)
+    for arch in ("pixtral-12b", "hubert-xlarge"):
+        by_path[f"4i {arch}"], _ = phase_family_prefill(ops, card, arch,
+                                                        profile)
+    for cls, *_ in FAMILY_FLASH:
+        arch = cls.split()[0]
+        path = (f"4i serve {arch}" if arch in FAMILY_SERVE
+                else f"4i {arch}")
+        shape_launches[cls] = by_path[path]["flash_attention"]
+    return by_path, shape_launches
+
+
+def family_flash_rows(flash) -> list:
+    """Phase 5's flash entries at the families' shapes (``at_shapes``):
+    the kernel's device time on all rows (``ms``) and the caller's
+    (``call_ms``), the plain version's on batch row 0, SDPA's with the
+    same band mask (none for the encoder), and the bound: 4 dh flop for
+    each live (q, k) pair at 989 TFLOP/s bf16 against q, k, v and o moved
+    once."""
+    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for i, (cls, b, hkv, rep, s, dh, window, causal) in enumerate(
+            FAMILY_FLASH):
+        h = hkv * rep
+        q, k, v = attn_inputs(700 + i, b, hkv, rep, s, s, dh, torch.bfloat16)
+        pos = torch.arange(s, device="cuda")
+        band = torch.ones((s, s), dtype=torch.bool, device="cuda")
+        if causal:
+            band &= pos[None, :] <= pos[:, None]
+        if window is not None:
+            band &= pos[None, :] > pos[:, None] - window
+        live = int(band.sum())
+        flops = 4.0 * b * h * dh * live
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        kern = device_time(lambda: flash.flash_attention(
+            q, k, v, causal=causal, window=window), reps=10)
+        plain_ms = device_time(lambda: flash.flash_attention_ref(
+            q[:1], k[:1], v[:1], causal=causal, window=window), reps=3)["ms"]
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        mask = None if not (causal or window) else band
+        library_ms = device_time(lambda: sdpa(
+            qc, kc, vc, attn_mask=mask, enable_gqa=rep > 1), reps=10)["ms"]
+        rows.append({"class": cls, "shape": f"q {tuple(q.shape)} x kv "
+                     f"{tuple(k.shape)} bf16, causal={causal}, window "
+                     f"{window}", "ms": kern["ms"],
+                     "call_ms": kern["call_ms"], "plain_ms": plain_ms,
+                     "plain_rows": 1, "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "library_ms": library_ms,
+                     "live_pairs_per_head": live})
+        del q, k, v, qc, kc, vc, band
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------ phase 5
 
 def prox_kernel_rows(group_prox) -> list:
@@ -3193,6 +3970,7 @@ def phase_timings(card: str) -> list:
     t0 = time.perf_counter()
     rows = (kernel_rows(pairwise_l2, kmeans_assign)
             + prox_kernel_rows(group_prox) + [flash_kernel_row(flash, card)])
+    rows[-1]["at_shapes"] = family_flash_rows(flash)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"[chip_smoke] phase 5 timings in {time.perf_counter() - t0:.1f}s",
@@ -3262,12 +4040,15 @@ def main() -> None:
     phase_flush_buckets(pairwise_l2, kmeans_assign, ops)
     errs.update(phase_prox_kernels(group_prox, pairwise_l2, ops))
     errs.update(phase_flash_kernel(flash))
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  phase_family_flash(flash))
     phase_small_round()
     phase_convex_rounds()
     phase_slice7_rounds()
     phase_slice8_rounds()
     phase_serve_card_vs_cpu()
     phase_lm_card_vs_cpu()
+    phase_families_card_vs_cpu(ops)
 
     ops.reset_launch_counts()
     summary = simulate(clients=MAIN_M, clusters=8, dim=16, samples=64,
@@ -3307,6 +4088,9 @@ def main() -> None:
     shape_launches.update(launches)
     lm, launches = phase_lm_train(ops, card)
     by_path.update(lm)
+    shape_launches.update(launches)
+    families, launches = phase_families(ops, card, args.profile)
+    by_path.update(families)
     shape_launches.update(launches)
     add_counts(rows, by_path, errs, flushes, direct_routes, shape_launches)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -36,17 +36,20 @@ def init_federation(key, cfg, n_clients: int, same_init: bool = True,
     """Stacked per-client parameters (the reference's tree layout) and
     AdamW moments of zeros, on ``device`` (CUDA unless "cpu").
 
-    ``key``: an int seed or a ``torch.Generator``.  ``same_init=True``
-    starts every client from one init (the common FL setting); False
-    draws C independent inits from the generator in turn (the paper's
-    local ERMs need no shared init, Remark 3)."""
+    ``key``: an int seed or a ``torch.Generator``.  An int seeds a CPU
+    generator and the draws move to ``device``, so one seed gives one
+    federation on the card and the CPU (as the reference's threefry keys
+    give it on any backend).  ``same_init=True`` starts every client from
+    one init (the common FL setting); False draws C independent inits
+    from the generator in turn (the paper's local ERMs need no shared
+    init, Remark 3)."""
     from repro_torch.device import resolve_device
     from repro_torch.models.transformer import init_tree
     from repro_torch.optim import adamw_init
 
     dev = resolve_device(device)
     gen = (key if isinstance(key, torch.Generator)
-           else torch.Generator(device=dev).manual_seed(int(key)))
+           else torch.Generator().manual_seed(int(key)))
     if same_init:
         p0 = init_tree(cfg, generator=gen, device=dev)
         params = tree_map(

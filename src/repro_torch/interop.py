@@ -8,8 +8,8 @@ models, and the noise of its ``perturb`` init), the rows of
 the ``random`` init and of every minibatch Lloyd iteration, the
 (n_tables, d) LSH directions of the approximate kNN fusion graph, a
 scenario's draws (its Bernoulli masks and Gaussian blocks), and a
-decoder LM's parameter tree and a federation of them with its AdamW
-state.  ``module_state_dict`` maps the reference's (and the port's
+model's parameter tree (any family) and a federation of them with its
+AdamW state.  ``module_state_dict`` maps the reference's (and the port's
 checkpoint) keys onto the port's ``Transformer`` modules.  Both packages
 then compute the same thing.  Nothing here imports the
 reference.
@@ -21,10 +21,7 @@ import torch
 
 from repro_torch.core.federated import FederatedState
 from repro_torch.device import resolve_device
-from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import MLP
-from repro_torch.models.transformer import (
-    DecoderLayer, Transformer, require_ported, torch_dtype)
+from repro_torch.models.transformer import Transformer, leaf_dtype, n_stack
 from repro_torch.utils import tree_leaves, tree_leaves_with_path, tree_map
 
 
@@ -192,29 +189,24 @@ def directions_from_numpy(directions, device=None) -> torch.Tensor:
 
 
 def model_from_numpy(params, cfg, device=None):
-    """The reference's decoder parameter tree (numpy arrays, every layer
-    weight stacked on a leading L axis) -> the port's ``Transformer`` on
-    ``device``, in the configuration's dtype."""
-    require_ported(cfg)
+    """The reference's parameter tree of any family (numpy arrays, every
+    layer weight stacked on a leading L axis) -> the port's
+    ``Transformer`` on ``device``, each leaf in the reference's dtype
+    (``transformer.leaf_dtype``: the configuration's, but the fp32 MoE
+    router and SSM ``a_log`` / ``d_skip``)."""
     dev = resolve_device(device)
-    dtype = torch_dtype(cfg)
 
-    def t(arr):
-        return tensor_from_numpy(arr, dev, dtype)
+    def convert(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: convert(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in tree.items()}
+        return tensor_from_numpy(tree, dev, leaf_dtype(prefix, cfg))
 
-    stacked = params["layers"]
-    n = int(np.asarray(stacked["ln1"]).shape[0])
-    if n != cfg.n_layers:
+    tensors = convert(params, "")
+    stacked = tensors.pop("layers")
+    n = len(tree_leaves(stacked)[0])
+    if n != n_stack(cfg):
         raise ValueError(f"{n} stacked layers for a {cfg.n_layers}-layer "
-                         "config")
-    layers = []
-    for i in range(n):
-        a = {name: t(np.asarray(w)[i]) for name, w in stacked["attn"].items()}
-        mlp = MLP(t(np.asarray(stacked["mlp"]["w_in"])[i]),
-                  t(np.asarray(stacked["mlp"]["w_out"])[i]))
-        layers.append(DecoderLayer(t(np.asarray(stacked["ln1"])[i]),
-                                   attn_lib.Attention(**a),
-                                   t(np.asarray(stacked["ln2"])[i]), mlp))
-    lm_head = t(params["lm_head"]) if "lm_head" in params else None
-    return Transformer(cfg, t(params["embed"]), layers,
-                       t(params["final_norm"]), lm_head)
+                         f"{cfg.block_pattern} config")
+    tensors["layers"] = [tree_map(lambda l: l[i], stacked) for i in range(n)]
+    return Transformer(cfg, tensors)

@@ -1,6 +1,7 @@
 """Batched serving driver: prefill + autoregressive generation over the
-ring-buffer KV cache, of a freshly initialised dense decoder LM or of a
-model from a federated checkpoint.
+decode cache, of a freshly initialised causal decoder over tokens (dense,
+MoE, xLSTM or hybrid attention + SSM) or of a model from a federated
+checkpoint.  Encoder-only and multimodal configurations are refused.
 
 The prompt pass runs the hand-written flash-attention kernel on the
 card (once per layer); decode reads the cache one token at a time.
@@ -91,6 +92,9 @@ def generate(model, cfg, prompts: torch.Tensor, gen: int, *,
     each decode step.
     """
     b, s = prompts.shape
+    if cfg.input_mode != "tokens":
+        raise ValueError(f"generate feeds token prompts only; {cfg.name} "
+                         f"takes {cfg.input_mode} inputs")
     dev = resolve_device(device)
     for what, where in (("prompts", prompts.device),
                         ("model", model.embed.device)):
@@ -258,6 +262,11 @@ def main(argv=None):
         cfg = cfg.reduced(max_vocab=256)
     if cfg.is_encoder_only:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
+    if cfg.input_mode == "multimodal":
+        raise SystemExit(
+            f"{cfg.name} takes image patch embeddings (patch_embeds, "
+            "patch_positions) beside its tokens; launch.serve feeds "
+            "token prompts only (prefill_with_cache takes a batch with them)")
     dev = resolve_device(args.device)
     sink = obs.add_sink(obs.JsonlSink(args.trace)) if args.trace else None
     try:

@@ -29,9 +29,16 @@ from repro_torch.utils import tree_leaves, tree_map
 
 
 def _as_batch(batch: dict, device) -> dict:
-    """A batch of numpy arrays or tensors -> int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v).to(device, torch.long)
-            for k, v in batch.items()}
+    """A batch of numpy arrays or tensors -> tensors on ``device``: token
+    ids and labels int64, masks bool, frames and patch embeddings as
+    they come."""
+    def one(v):
+        t = torch.as_tensor(v)
+        if t.is_floating_point() or t.dtype == torch.bool:
+            return t.to(device)
+        return t.to(device, torch.long)
+
+    return {k: one(v) for k, v in batch.items()}
 
 
 def _live_leaf(leaf: torch.Tensor, per_layer: bool):
@@ -47,14 +54,18 @@ def _live_leaf(leaf: torch.Tensor, per_layer: bool):
 
 def _one_model_step(params, opt_state, batch, cfg, opt_cfg, remat):
     """Loss and gradients of one model, then AdamW in place."""
-    live = {k: tree_map(lambda l, k=k: _live_leaf(l, k == "layers"), v)
-            for k, v in params.items()}
+    live = {k: tree_map(lambda l, k=k: _live_leaf(l, k == "layers"),
+                        params[k])
+            for k in sorted(params)}
     loss = train_loss(live, cfg, batch, remat=remat)
-    it = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    # a leaf the loss does not read (the token embedding of an audio
+    # encoder) gets a zero gradient, as ``jax.grad`` gives it
+    it = iter(torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                                  materialize_grads=True))
     grads = {k: tree_map(lambda l, k=k: (
                  torch.stack([next(it) for _ in range(l.shape[0])])
-                 if k == "layers" else next(it)), v)
-             for k, v in params.items()}
+                 if k == "layers" else next(it)), params[k])
+             for k in sorted(params)}
     adamw_update_(params, grads, opt_state, opt_cfg)
     return loss.detach()
 

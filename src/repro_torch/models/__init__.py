@@ -1,6 +1,7 @@
-"""The dense decoder LM of the reference's ``models`` package, in PyTorch
-(prefill through the hand-written flash-attention kernel; training
-through the differentiable attention)."""
+"""The reference's ``models`` package in PyTorch: every architecture
+family of ``configs/`` (dense, MoE, xLSTM, hybrid attention + SSM, audio
+and multimodal inputs); prefill through the hand-written flash-attention
+kernel, training through the differentiable attention."""
 from repro_torch.models.transformer import (
     DecodeCache,
     decode_step,

@@ -17,24 +17,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
 
 NEG_INF = -1e30
-
-
-class Attention(nn.Module):
-    """GQA projections: wq (D, h dh), wk/wv (D, hkv dh), wo (h dh, D) and,
-    with ``qkv_bias``, bq/bk/bv."""
-
-    def __init__(self, wq, wk, wv, wo, bq=None, bk=None, bv=None):
-        super().__init__()
-        for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo),
-                        ("bq", bq), ("bk", bk), ("bv", bv)):
-            setattr(self, name, None if w is None
-                    else nn.Parameter(w, requires_grad=False))
 
 
 def rope_transpose(x: torch.Tensor, positions: torch.Tensor,
@@ -43,9 +30,10 @@ def rope_transpose(x: torch.Tensor, positions: torch.Tensor,
     return rope(x.transpose(1, 2), positions, theta).transpose(1, 2)
 
 
-def qkv_proj(params: Attention, x: torch.Tensor, cfg) -> tuple:
+def qkv_proj(params, x: torch.Tensor, cfg) -> tuple:
     """x (b,s,D) -> q (b,h,s,dh), k/v (b,hkv,s,dh): transposed views of
-    (b,s,h,dh) buffers."""
+    (b,s,h,dh) buffers.  ``params``: wq (D, h dh), wk/wv (D, hkv dh) and,
+    with ``cfg.qkv_bias``, bq/bk/bv."""
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
     q = x @ params.wq
@@ -61,7 +49,7 @@ def qkv_proj(params: Attention, x: torch.Tensor, cfg) -> tuple:
     return q, k, v
 
 
-def out_proj(params: Attention, attn_out: torch.Tensor) -> torch.Tensor:
+def out_proj(params, attn_out: torch.Tensor) -> torch.Tensor:
     """(b,h,s,dh) -> (b,s,D)."""
     b, h, s, dh = attn_out.shape
     return attn_out.transpose(1, 2).reshape(b, s, h * dh) @ params.wo

@@ -1,4 +1,4 @@
-"""Shared neural building blocks in PyTorch (the dense decoder's).
+"""Shared neural building blocks in PyTorch.
 
 Weights keep the reference's layout, ``x @ w`` with w (in, out), so the
 reference's parameters carry across unchanged (``repro_torch.interop``).
@@ -11,7 +11,6 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -50,17 +49,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-class MLP(nn.Module):
-    """Gated MLP: w_in (D, 2F) packed gate|up (or (D, F)), w_out (F, D)."""
-
-    def __init__(self, w_in: torch.Tensor, w_out: torch.Tensor):
-        super().__init__()
-        self.w_in = nn.Parameter(w_in, requires_grad=False)
-        self.w_out = nn.Parameter(w_out, requires_grad=False)
-
-
-def mlp_forward(params: MLP, x: torch.Tensor,
+def mlp_forward(params, x: torch.Tensor,
                 variant: str = "swiglu") -> torch.Tensor:
+    """Gated MLP: ``params.w_in`` (D, 2F) packed gate|up (or (D, F)),
+    ``params.w_out`` (F, D)."""
     h = x @ params.w_in
     if variant in ("swiglu", "geglu"):
         gate, up = torch.chunk(h, 2, dim=-1)
@@ -79,13 +71,6 @@ def _dense_init(gen: torch.Generator, shape, dtype,
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (w * std).to(dtype)
-
-
-def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, variant: str,
-             dtype) -> MLP:
-    in_cols = 2 * d_ff if variant in ("swiglu", "geglu") else d_ff
-    return MLP(_dense_init(gen, (d_model, in_cols), dtype),
-               _dense_init(gen, (d_ff, d_model), dtype))
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int,

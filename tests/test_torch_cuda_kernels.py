@@ -507,3 +507,55 @@ def test_training_launches_no_flash_and_the_prefill_does(cuda_device):
     generate(model_view(client_slice(state.params, 0), cfg), cfg,
              toks[0, :, :8], 2, device=cuda_device)
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+
+
+# the flash kernel at the new families' full-width prefill shapes, bf16:
+# (b, hkv, rep, s, dh, window, causal) of deepseek-moe-16b (window 4096),
+# hymba-1.5b (window 1024), pixtral-12b (window 4096 at s = 4096) and the
+# hubert-xlarge encoder (non-causal); batch row 0 against the plain version
+FAMILY_ATTN = {"deepseek-moe-16b": (4, 16, 1, 8192, 128, 4096, True),
+               "hymba-1.5b": (4, 5, 5, 8192, 64, 1024, True),
+               "pixtral-12b": (1, 8, 4, 4096, 128, 4096, True),
+               "hubert-xlarge": (4, 16, 1, 4096, 80, None, False)}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_ATTN))
+def test_flash_kernel_at_the_family_shapes(cuda_device, arch):
+    b, hkv, rep, s, dh, window, causal = FAMILY_ATTN[arch]
+    q, k, v = _attn_inputs(s + dh, cuda_device, b, hkv, rep, s, s, dh,
+                           torch.bfloat16, strided=True)
+    got = tflash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = tflash.flash_attention_ref(q[:1], k[:1], v[:1], causal=causal,
+                                      window=window)
+    _assert_attn_close(got[:1], want, v)
+    assert torch.equal(tflash.flash_attention(q, k, v, causal=causal,
+                                              window=window), got)
+
+
+@pytest.mark.parametrize("arch,flash_per_prefill",
+                         [("deepseek-moe-16b", 2), ("hymba-1.5b", 2),
+                          ("xlstm-125m", 0), ("pixtral-12b", 2)])
+def test_family_prefill_launches_flash_once_a_layer(cuda_device, arch,
+                                                    flash_per_prefill):
+    """A prefill of each new family on the card runs the flash kernel
+    once an attention layer (the xLSTM none) and gives finite logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import PATCH_DIM, prefill_with_cache
+
+    cfg = get_config(arch).reduced(max_d_model=128, max_vocab=64)
+    model = init_params(cfg, device=cuda_device)
+    batch = {"tokens": torch.randint(0, 64, (2, 32), device=cuda_device)}
+    if cfg.input_mode == "multimodal":
+        batch["patch_embeds"] = torch.randn((2, 4, PATCH_DIM),
+                                            device=cuda_device)
+        batch["patch_positions"] = torch.arange(
+            4, device=cuda_device).expand(2, 4)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        logits, cache = prefill_with_cache(model, cfg, batch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == flash_per_prefill
+    assert bool(torch.isfinite(logits.float()).all())
+    assert cache.pos == 32

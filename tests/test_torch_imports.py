@@ -83,7 +83,8 @@ def test_port_files_exist():
                 "core/federated_methods.py", "launch/train.py",
                 "launch/steps.py", "data/lm_data.py", "optim/sgd.py",
                 "optim/schedule.py", "checkpoint/__init__.py",
-                "checkpoint/checkpoint.py", "checkpoint/msgpack_lite.py"):
+                "checkpoint/checkpoint.py", "checkpoint/msgpack_lite.py",
+                "models/moe.py", "models/recurrent.py"):
         assert (PORT / rel).exists(), rel
     assert len(PORT_FILES) > 10 and PORT_FILES[-1].exists()
 
@@ -311,3 +312,28 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
     q = torch.randn((1, 4, 5, 8), device="cuda")
     k = torch.randn((1, 2, 5, 8), device="cuda")
     assert ops.flash_attention(q, k, k).is_cuda
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "grok-1-314b",
+                                  "xlstm-125m", "hymba-1.5b",
+                                  "hubert-xlarge", "pixtral-12b"])
+def test_family_entry_points_raise_without_cuda(no_cuda, arch):
+    """Every family's model entry points and CLIs run on the card
+    unless asked for the CPU."""
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.transformer import init_tree
+
+    cfg = get_config(arch).reduced(max_d_model=64, max_vocab=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_tree(cfg)
+    if cfg.causal:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_decode_cache(cfg, 1, 8)
+    if cfg.input_mode == "tokens":
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tserve.main(["--arch", arch, "--reduced"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ttrain.main(["--arch", arch, "--reduced"])
+    assert init_params(cfg, device="cpu").embed.device.type == "cpu"

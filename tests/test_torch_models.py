@@ -226,16 +226,6 @@ def test_fresh_init_has_the_reference_shapes(models):
     assert float(model.embed.std()) == pytest.approx(0.02, rel=0.05)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "deepseek-moe-16b",
-                                  "hymba-1.5b", "pixtral-12b"])
-def test_unported_architectures_raise(arch):
-    cfg = tget_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=cfg.name):
-        ttf.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=cfg.name):
-        ttf.init_decode_cache(cfg, 1, 8, device="cpu")
-
-
 # the other dense decoders: gemma-2b (GeGLU with the tanh gelu, one KV
 # head, head_dim 64 after the cut) and yi-9b (no QKV bias, untied head)
 @pytest.mark.parametrize("arch", ["gemma-2b", "yi-9b"])

@@ -103,12 +103,6 @@ def test_main_sampling_is_seeded():
                        tserve.main(argv + ["--seed", "2"]))
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "moonshot-v1-16b-a3b"])
-def test_unported_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tserve.main(["--arch", arch, "--reduced", "--device", "cpu"])
-
-
 def test_encoder_only_arch_is_refused():
     with pytest.raises(SystemExit, match="encoder-only"):
         tserve.main(["--arch", "hubert-xlarge", "--reduced", "--device",
