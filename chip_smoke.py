@@ -277,11 +277,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     CUDA events around the same 20 calls, host dispatch included), the
     same for the plain version and for one PyTorch call where one
     computes the same function, and the least time the card could take
-    (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s;
+    (the bytes and operations of ``roofline/kernel_costs.py``: bytes at
+    3.35 TB/s or fp32 operations at 67 TFLOP/s, ``HW_H100_FP32``;
     flash_attention's operations at the bf16 tensor cores' 989 TFLOP/s,
-    with the fp32 figure beside it); one call of kmeans_assign at each
-    shape and of pairwise_sqdist at the kmeans++ shape must be exactly
-    one kernel (a trace that lost some of that kernel's records is taken
+    ``HW_H100``, with the fp32 figure beside it); one call of
+    kmeans_assign at each shape and of pairwise_sqdist at the kmeans++
+    shape must be exactly one kernel (a trace that lost some of that kernel's records is taken
     again, at most 5 times in all: the profiler dropped 1 to 11 of 20 on
     some runs, with nothing else in the trace; a trace with no device work
     at all is taken again without the profiler's schedule, and where every
@@ -291,6 +292,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     registers and spill bytes, and its design, and ``at_shapes`` the
     four family shapes of phase 2 with their ms, call_ms, plain ms (row
     0), SDPA's ms, bound and phase 4i's launches;
+ 5b. the runtime and the engine roofline: TF32 off (cuBLAS, cuDNN, the
+    matmul precision) once the entry points have resolved the card;
+    ``core.erm.sgd_erm`` (2000 steps, batch 32, radius 100) on the card
+    and on the CPU from the same minibatch rows within 1e-5 of the
+    largest magnitude, and on the card's own draws within 0.3 of the
+    exact ridge solution (Appendix D); ``roofline.engine_kernel_report``
+    for the Lloyd row (C = 1 048 576, s = 64, k = 8) and the convex kNN
+    row (C = 16 384, s = 32), and ``roofline.program_rows_from_snapshot``
+    over phase 4's main path: every row's flops and bytes fractions of
+    ``HW_H100_FP32``'s peaks in (0, 1.05]; one ``{"roofline": {...}}``
+    line with the card's name and power limit;
  6. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -320,9 +332,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
-FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12           # bf16 tensor cores, dense
 MAIN_M, MAIN_K, MAIN_D = 1_048_576, 8, 64
 ROUTE_M = 4096
 FINALIZES = 11                     # the first, then 10 warm repeats
@@ -2965,16 +2974,18 @@ def flash_kernel_row(flash, card: str) -> dict:
     in fp32) against q, k, v and o moved once; the split of P into two
     bf16 terms is the design's cost and not counted."""
     from repro_torch.kernels import _build
+    from repro_torch.roofline import HW_H100, HW_H100_FP32, kernel_costs
 
     b, s, w, dh, h, hkv = SERVE_B, SERVE_PROMPT, 4096, 64, 14, 2
     q, k, v = attn_inputs(500, b, hkv, h // hkv, s, s, dh, torch.bfloat16)
     pos = torch.arange(s, device="cuda")
     band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
-    live = int(band.sum())
-    flops = 4.0 * b * h * dh * live
-    nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    live = kernel_costs.flash_live_pairs(s, s, True, w)
+    check(live == int(band.sum()), f"flash live pairs {live} != the band's")
+    cost = kernel_costs.flash_attention(b, h, hkv, s, s, dh, causal=True,
+                                        window=w, itemsize=2)
+    nbytes, flops = cost
+    b_ms, b_by = bound(cost, HW_H100)
     kern = device_time(lambda: flash.flash_attention(q, k, v, causal=True,
                                                      window=w), reps=10)
     qf, kf, vf = (t.float() for t in (q, k, v))
@@ -3001,10 +3012,8 @@ def flash_kernel_row(flash, card: str) -> dict:
             "design": "wgmma+TMA, split-P",
             "ptxas": ptxas_instances(_build.ptxas_usage("flash_attention")),
             "plain_ms": plain_ms, "plain_rows": 1,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_ms_fp32_cuda_cores": max(flops / FP32_FLOP_PER_S * 1e3,
-                                            t_bytes),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_fp32_cuda_cores": bound(cost, HW_H100_FP32)[0],
             "library_ms": library_ms,
             "library": "scaled_dot_product_attention(attn_mask=band, "
                        "enable_gqa=True)",
@@ -3708,6 +3717,8 @@ def family_flash_rows(flash) -> list:
     same band mask (none for the encoder), and the bound: 4 dh flop for
     each live (q, k) pair at 989 TFLOP/s bf16 against q, k, v and o moved
     once."""
+    from repro_torch.roofline import HW_H100, kernel_costs
+
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for i, (cls, b, hkv, rep, s, dh, window, causal) in enumerate(
@@ -3720,11 +3731,12 @@ def family_flash_rows(flash) -> list:
             band &= pos[None, :] <= pos[:, None]
         if window is not None:
             band &= pos[None, :] > pos[:, None] - window
-        live = int(band.sum())
-        flops = 4.0 * b * h * dh * live
-        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
-        t_ops = flops / BF16_FLOP_PER_S * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        live = kernel_costs.flash_live_pairs(s, s, causal, window)
+        check(live == int(band.sum()), f"{cls}: live pairs {live} != the "
+              "band's")
+        b_ms, b_by = bound(kernel_costs.flash_attention(
+            b, h, hkv, s, s, dh, causal=causal, window=window, itemsize=2),
+            HW_H100)
         kern = device_time(lambda: flash.flash_attention(
             q, k, v, causal=causal, window=window), reps=10)
         plain_ms = device_time(lambda: flash.flash_attention_ref(
@@ -3737,9 +3749,8 @@ def family_flash_rows(flash) -> list:
                      f"{tuple(k.shape)} bf16, causal={causal}, window "
                      f"{window}", "ms": kern["ms"],
                      "call_ms": kern["call_ms"], "plain_ms": plain_ms,
-                     "plain_rows": 1, "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes
-                     else "bytes", "library_ms": library_ms,
+                     "plain_rows": 1, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library_ms,
                      "live_pairs_per_head": live})
         del q, k, v, qc, kc, vc, band
         torch.cuda.empty_cache()
@@ -3753,10 +3764,12 @@ def prox_kernel_rows(group_prox) -> list:
     convex paths' three dual shapes (the row's own numbers at the first,
     the kNN graph at C = 16 384), the unbatched one at the host AMA's
     (523 776, 32) with a scalar radius (and a per-row one beside it)."""
-    def timed(fn, plain, v, r, radius_bytes, library=None):
-        rows = v.numel() // v.shape[-1]
-        b_ms, b_by = bound(4.0 * 2 * v.numel() + radius_bytes,
-                           (3.0 * v.shape[-1] + 3) * rows)
+    from repro_torch.roofline import kernel_costs
+
+    def timed(fn, plain, v, r, library=None):
+        b_ms, b_by = bound(kernel_costs.group_ball_proj(
+            v.numel() // v.shape[-1], v.shape[-1],
+            kernel_costs.radius_elems(r)))
         kern = device_time(lambda: fn(v, r), kernel="group_ball_proj_kernel")
         lib = device_time(library) if library is not None else None
         return {"shape": str(tuple(v.shape)), "ms": kern["ms"],
@@ -3782,7 +3795,7 @@ def prox_kernel_rows(group_prox) -> list:
                        torch.renorm(v[0], 2, 0, radius))
         at.append(timed(group_prox.group_ball_proj_batched,
                         group_prox.group_ball_proj_batched_ref, v, r,
-                        4.0 * r.numel(), library=library))
+                        library=library))
         if library is not None:
             at[-1]["library"] = "torch.renorm(v[0], 2, 0, r)"
             at[-1]["library_max_abs_diff"] = float(
@@ -3797,9 +3810,9 @@ def prox_kernel_rows(group_prox) -> list:
                          - group_prox.group_ball_proj_ref(v, scalar))
                         .abs().max())
     host = timed(group_prox.group_ball_proj, group_prox.group_ball_proj_ref,
-                 v, scalar, 4.0, library=lambda: torch.renorm(v, 2, 0, 0.75))
+                 v, scalar, library=lambda: torch.renorm(v, 2, 0, 0.75))
     host_rows = timed(group_prox.group_ball_proj,
-                      group_prox.group_ball_proj_ref, v, r, 4.0 * HOST_E)
+                      group_prox.group_ball_proj_ref, v, r)
     rows = []
     for name, main, extra, replaces in (
             ("group_ball_proj_batched", at[0], {"at_shapes": at},
@@ -3822,11 +3835,17 @@ def prox_kernel_rows(group_prox) -> list:
     return rows
 
 
-def bound(nbytes: float, nops: float) -> tuple:
-    """The least time the card could take: bytes at 3.35 TB/s or fp32
-    operations at 67 TFLOP/s, whichever is longer, and which it is."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_FLOP_PER_S * 1e3
+def bound(cost: tuple, hw=None) -> tuple:
+    """The least time the card could take for ``cost`` = ``(bytes,
+    ops)`` (``roofline.kernel_costs``): the bytes at the HBM rate or the
+    operations at the peak of ``hw`` (default ``HW_H100_FP32``: 3.35 TB/s,
+    67 TFLOP/s fp32), whichever is longer, and which it is."""
+    from repro_torch.roofline import HW_H100_FP32
+
+    hw = hw or HW_H100_FP32
+    nbytes, nops = cost
+    t_bytes = nbytes / hw.hbm_bw * 1e3
+    t_ops = nops / hw.peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -3897,6 +3916,7 @@ def kernel_rows(pairwise_l2, kmeans_assign) -> list:
     instance's ptxas registers and spill bytes.  ``add_counts`` fills in
     the launches once the paths have run."""
     from repro_torch.kernels import _build
+    from repro_torch.roofline import kernel_costs
 
     rows = []
     at = {"pairwise_sqdist": [], "kmeans_assign": []}
@@ -3908,8 +3928,7 @@ def kernel_rows(pairwise_l2, kmeans_assign) -> list:
                                    if variant == "stream" else None))
         if variant == "stream":
             one_kernel(kern, "pairwise_stream_kernel", f"pairwise_sqdist {cls}")
-        b_ms, b_by = bound(4.0 * (m * d + k * d + m * k),
-                           2.0 * m * k * d + 2.0 * (m + k) * d + 3.0 * m * k)
+        b_ms, b_by = bound(kernel_costs.pairwise_sqdist(m, k, d))
         plain = device_time(lambda: pairwise_l2.pairwise_sqdist_ref(a, b))
         lib = device_time(lambda: torch.cdist(a, b))
         at["pairwise_sqdist"].append({
@@ -3928,8 +3947,7 @@ def kernel_rows(pairwise_l2, kmeans_assign) -> list:
         kern = device_time(lambda: kmeans_assign.kmeans_assign(pts, b),
                            kernel=f"assign_{variant}_kernel")
         one_kernel(kern, f"assign_{variant}_kernel", f"kmeans_assign {cls}")
-        b_ms, b_by = bound(4.0 * (m * d + k * d) + 4.0 * m + 4.0 * (k * d + k),
-                           2.0 * m * k * d + 2.0 * m * d + 3.0 * m * k + m * d)
+        b_ms, b_by = bound(kernel_costs.kmeans_assign(m, k, d))
         plain = device_time(lambda: kmeans_assign.kmeans_assign_ref(pts, b))
         at["kmeans_assign"].append({
             "class": cls, "shape": f"({m},{d})x({k},{d})", "variant": variant,
@@ -3976,6 +3994,102 @@ def phase_timings(card: str) -> list:
     print(f"[chip_smoke] phase 5 timings in {time.perf_counter() - t0:.1f}s",
           flush=True)
     return rows
+
+
+# ---------------------------------------------- phase 5b (the roofline)
+
+SGD_STEPS, SGD_BATCH = 2000, 32
+# the bench rows whose per-iteration kernels phase 5b probes: the Lloyd
+# row at C = 1 048 576 and the convex kNN row at C = 16 384
+ROOFLINE_PROBES = [(MAIN_M, MAIN_D, MAIN_K, "kmeans-device", "complete"),
+                   (16_384, 32, MAIN_K, "convex-device", "knn")]
+
+
+def sgd_problem(device):
+    """Appendix D's check (``tests/test_substrates.py``): 500 noisy
+    linear samples in 4 dimensions, the squared loss and its exact ridge
+    solution."""
+    from repro_torch.core.erm import ridge_erm
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(500, 4)).astype(np.float32)
+    w = rng.normal(size=4).astype(np.float32)
+    y = (x @ w + 0.01 * rng.normal(size=500)).astype(np.float32)
+    data = (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+
+    def loss(theta, batch):
+        xx, yy = batch
+        r = xx @ theta - yy
+        return 0.5 * torch.mean(r * r)
+
+    return data, loss, ridge_erm(*data, 1e-6)
+
+
+def in_peak(row: dict) -> bool:
+    return all(0.0 < row[key] <= 1.05
+               for key in ("flops_frac_of_peak", "bytes_frac_of_peak"))
+
+
+def phase_roofline(card: str, main_obs: dict) -> dict:
+    """Phase 5b: the runtime and the engine roofline on the card.  TF32
+    must be off once the entry points have resolved the card; ``sgd_erm``
+    on the card and on the CPU from the same minibatch rows within 1e-5
+    of the largest magnitude, and on the card's own draws within 0.3 of
+    the exact ridge solution (Appendix D); ``engine_kernel_report`` at
+    ``ROOFLINE_PROBES`` and ``program_rows_from_snapshot`` over the main
+    path's run, every row's flops and bytes fractions of the H100's fp32
+    peaks in (0, 1.05]."""
+    from repro_torch.core.erm import sgd_erm
+    from repro_torch.roofline import (
+        engine_kernel_report,
+        hardware_info,
+        program_rows_from_snapshot,
+    )
+
+    t0 = time.perf_counter()
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32,
+            "precision": torch.get_float32_matmul_precision()}
+    check(not tf32["matmul"] and not tf32["cudnn"]
+          and tf32["precision"] == "highest", f"5b: TF32 is on: {tf32}")
+    idx = torch.randint(0, 500, (SGD_STEPS, SGD_BATCH),
+                        generator=torch.Generator().manual_seed(0))
+    on = {}
+    for dev in ("cuda", "cpu"):
+        data, loss, _ = sgd_problem(dev)
+        on[dev] = sgd_erm(None, torch.zeros(4, device=dev), data, loss,
+                          steps=SGD_STEPS, batch=SGD_BATCH, radius=100.0,
+                          indices=idx).cpu()
+    sgd_err = float((on["cuda"] - on["cpu"]).abs().max()
+                    / on["cpu"].abs().max())
+    check(sgd_err <= 1e-5, f"5b: sgd_erm card vs CPU {sgd_err:.3g} > 1e-5")
+    data, loss, exact = sgd_problem("cuda")
+    t1 = time.perf_counter()
+    own = sgd_erm(torch.Generator(device="cuda").manual_seed(0),
+                  torch.zeros(4, device="cuda"), data, loss,
+                  steps=SGD_STEPS, batch=SGD_BATCH, radius=100.0)
+    sgd_ms = (time.perf_counter() - t1) * 1e3
+    gap = float(torch.linalg.vector_norm(own - exact))
+    check(gap < 0.3, f"5b: sgd_erm lies {gap:.3g} from the exact ridge")
+    probes = []
+    for c, s, k, algorithm, edges in ROOFLINE_PROBES:
+        for row in engine_kernel_report(c, s, k, algorithm, edges=edges):
+            row["row"] = f"{algorithm} {edges} C={c}"
+            probes.append(row)
+    programs = program_rows_from_snapshot(main_obs)
+    check(programs, "5b: the main path recorded no program gauges")
+    for what, row in ([(r["row"], r) for r in probes]
+                      + list(programs.items())):
+        check(in_peak(row), f"5b: {what} outside (0, 1.05] of the peaks: "
+              f"flops {row['flops_frac_of_peak']:.3g}, bytes "
+              f"{row['bytes_frac_of_peak']:.3g}")
+    out = {"card": card, "hw": hardware_info(), "tf32": tf32,
+           "sgd_erm": {"card_vs_cpu": sgd_err, "gap_to_exact": gap,
+                       "ms": sgd_ms, "steps": SGD_STEPS},
+           "probes": probes, "programs": programs,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({"roofline": out}), flush=True)
+    return out
 
 
 def add_counts(rows: list, by_path: dict, errs: dict, flushes: dict,
@@ -4094,6 +4208,7 @@ def main() -> None:
     shape_launches.update(launches)
     add_counts(rows, by_path, errs, flushes, direct_routes, shape_launches)
     print(json.dumps({"kernels": rows}), flush=True)
+    phase_roofline(card, summary["obs"])
     if args.profile:
         phase_traces(simulate, generate)
     print(f"[chip_smoke] every phase passed in "

@@ -34,6 +34,7 @@ from repro_torch.core.federated import FederatedState, _leaf_filter_for
 from repro_torch.core.sketch import make_generator, sketch_stacked
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.roofline import kernel_costs
 from repro_torch.utils import tree_leaves, tree_map
 
 
@@ -60,20 +61,72 @@ class _Program:
     (a stage that already copied its outputs to the host has
     synchronized by then).  The wait is local to that stream, so a round
     computed on a worker's stream and routes on another thread's stream
-    do not wait for each other."""
+    do not wait for each other.
 
-    def __init__(self, label: str, fn):
+    Each call also sets the ``"<label>.flops"`` and ``"<label>.bytes"``
+    gauges to the call's work, counted from shapes: every engine kernel
+    call it made (charged at ``kernels/ops.py``'s dispatch, so the
+    iterations that actually ran count, on the card and the CPU alike)
+    plus ``work(out, *args) -> (bytes, ops)``, the stage's own PyTorch
+    work where it has a stated term (the one-hot mean, the gather, the
+    route's distances, the sketch)."""
+
+    def __init__(self, label: str, fn, work=None):
         self.label = label
         self._fn = fn
+        self._work = work
 
     def __call__(self, *args):
         with obs.span(f"{self.label}.execute"):
-            out = self._fn(*args)
+            with kernel_costs.tally() as spent:
+                out = self._fn(*args)
             cuda = [t for t in tree_leaves(out)
                     if isinstance(t, torch.Tensor) and t.is_cuda]
             if cuda:
                 torch.cuda.current_stream(cuda[0].device).synchronize()
+            own = self._work(out, *args) if self._work else (0.0, 0.0)
+            obs.gauge(f"{self.label}.flops", spent.ops + own[1])
+            obs.gauge(f"{self.label}.bytes", spent.bytes + own[0])
         return out
+
+
+def _mean_work(out, labels, centers, params, *_):
+    """The one-hot mean of every leaf (C, n): the (K, C) x (C, n)
+    product and its (C, K) x (K, n) gather back, 4 C K n flops; the
+    leaves read and written once and the one-hot read."""
+    c, kk = labels.shape[0], centers.shape[0]
+    leaves = tree_leaves(params)
+    n = sum(l.numel() // c for l in leaves)
+    nbytes = sum(2 * l.numel() * l.element_size() for l in leaves)
+    return nbytes + 4.0 * c * kk, 4.0 * c * kk * n
+
+
+def _gather_work(out, buf, rows):
+    """The live rows of every leaf read and written, and their indices
+    read (int64); no arithmetic."""
+    moved = sum(2 * rows.numel() * (l.numel() // l.shape[0])
+                * l.element_size() for l in tree_leaves(buf))
+    return moved + 8.0 * rows.numel(), 0.0
+
+
+def _route_work(out, pts, centers):
+    """The batch's d^2 to its centers: the points and the gathered
+    centers read (fp32), 3 flops an element (difference, square, sum)."""
+    m, d = pts.shape
+    return 8.0 * m * d, 3.0 * m * d
+
+
+def _round_work(out, params):
+    """The fused round's own work: the JL sketch, a (C, n) x (n, s)
+    product with C n and n s read and C s written, 2 C n s flops, and
+    the one-hot mean (:func:`_mean_work`)."""
+    _, res, sketches = out
+    c, s = sketches.shape
+    n = sum(l.numel() // c for l in tree_leaves(params))
+    mean_bytes, mean_flops = _mean_work(None, res.labels, res.centers,
+                                        params)
+    return (4.0 * (c * n + n * s + c * s) + mean_bytes,
+            2.0 * c * n * s + mean_flops)
 
 
 def _cluster_program(algo, k, options):
@@ -92,7 +145,7 @@ def _mean_program(aggregator="mean"):
     def mean_fn(labels, centers, params):
         return _average_clusters(labels, centers, params, aggregator)
 
-    return _Program("session.finalize.mean", mean_fn)
+    return _Program("session.finalize.mean", mean_fn, _mean_work)
 
 
 def _warm_cluster_program(algo, k, options):
@@ -129,7 +182,7 @@ def _weighted_mean_program():
 
         return tree_map(back, params)
 
-    return _Program("session.finalize.mean", mean_fn)
+    return _Program("session.finalize.mean", mean_fn, _mean_work)
 
 
 def _gather_rows_program():
@@ -141,7 +194,7 @@ def _gather_rows_program():
     def gather_fn(buf, rows):
         return tree_map(lambda l: l.index_select(0, rows), buf)
 
-    return _Program("session.gather", gather_fn)
+    return _Program("session.gather", gather_fn, _gather_work)
 
 
 def _route_program():
@@ -157,7 +210,7 @@ def _route_program():
         host = packed.numpy()
         return host[:-1].copy(), float(host[-1:].view(np.float32)[0])
 
-    return _Program("session.route.batch", route_fn)
+    return _Program("session.route.batch", route_fn, _route_work)
 
 
 def resolve_device_algorithm(algorithm):
@@ -236,7 +289,8 @@ def one_shot_aggregate_device(state: FederatedState, cfg=None, *,
         return new_params, res, sketches
 
     with obs.span("engine.one_shot"):
-        new_params, res, sketches = _Program("engine.round", round_fn)(params)
+        new_params, res, sketches = _Program("engine.round", round_fn,
+                                             _round_work)(params)
     new_state, labels, info, _, _ = materialize_round(new_params, res, state)
     if return_sketches:
         info["sketches"] = sketches.cpu().numpy()

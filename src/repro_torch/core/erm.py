@@ -1,10 +1,14 @@
 """Local ERM, step 1 of Algorithm 1 (the port of ``repro/core/erm.py``):
 closed-form ridge regression and damped-Newton logistic regression, one
-client or a batch of clients in one call.  The SGD solver of Appendix D
-comes with the paper-scale methods."""
+client or a batch of clients in one call, and the projected SGD of
+Appendix D (the inexact ERM)."""
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+from repro_torch.utils import tree_leaves, tree_map
 
 
 def ridge_erm(x: torch.Tensor, y: torch.Tensor,
@@ -70,4 +74,41 @@ def batched_logistic_erm(x: torch.Tensor, y: torch.Tensor, reg: float = 1e-5,
         h = ((x1.mT * (s * (1.0 - s))[:, None, :]) @ x1) / n
         h = h + torch.diag(reg * penal) + 1e-6 * eye
         theta = theta - torch.linalg.solve(h, g[..., None])[..., 0]
+    return theta
+
+
+def sgd_erm(generator: torch.Generator, theta0, data, loss_fn: Callable, *,
+            steps: int = 200, batch: int = 8, mu: float = 1.0,
+            radius: float | None = None, indices=None):
+    """Projected SGD with the Appendix D step rule eta_t = 1/(mu t).
+
+    ``loss_fn(theta, batch_data) -> scalar`` over trees; ``data`` is a
+    tree whose leaves have leading axis n.  Step t (from 0) takes the
+    gradient on the rows ``indices[t]`` (drawn uniformly from
+    ``generator`` when not given: an int tensor of shape (steps, batch)
+    carries another draw across, e.g. the reference's threefry one),
+    moves by 1/(mu (t + 1)), then scales the whole tree back onto the
+    ball of ``radius`` (Assumption 2's compact Theta) when given."""
+    leaves = tree_leaves(data)
+    n = leaves[0].shape[0]
+    dev = leaves[0].device
+    if indices is None:
+        indices = torch.randint(0, n, (steps, batch), generator=generator,
+                                device=generator.device)
+    indices = torch.as_tensor(indices).to(dev, torch.long)
+    if tuple(indices.shape) != (steps, batch):
+        raise ValueError(f"indices of shape {tuple(indices.shape)}, not "
+                         f"(steps, batch) = ({steps}, {batch})")
+    grad_fn = torch.func.grad(loss_fn)
+    theta = theta0
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    for t in range(steps):
+        mb = tree_map(lambda a: a[indices[t]], data)
+        g = grad_fn(theta, mb)
+        eta = one / (mu * (t + 1.0))
+        theta = tree_map(lambda p, gg: p - eta * gg, theta, g)
+        if radius is not None:
+            nrm = torch.sqrt(sum(torch.sum(l * l) for l in tree_leaves(theta)))
+            scale = torch.clamp(radius / torch.clamp(nrm, min=1e-30), max=1.0)
+            theta = tree_map(lambda p: p * scale, theta)
     return theta

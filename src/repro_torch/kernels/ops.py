@@ -8,6 +8,13 @@ as the reference casts them; ``flash_attention`` takes float32 or
 bfloat16 as they come and reads them through their strides (bf16 on the
 tensor cores, fp32 on the CUDA cores), so no second copy of q, k and v
 is written unless TMA cannot address them in place.
+
+Every call of an engine kernel charges its work
+(``roofline/kernel_costs.py``, from the shapes) to the calling thread's
+open tallies before it dispatches, so the kernel and the plain version
+count the same work.  ``flash_attention`` charges nothing: no engine
+program runs it, and a model's step is counted by
+``roofline.analysis.model_flops``.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import group_prox as _prox
 from repro_torch.kernels import kmeans_assign as _assign
 from repro_torch.kernels import pairwise_l2 as _pairwise
+from repro_torch.roofline import kernel_costs as _costs
 
 WRAPPERS = {"pairwise_sqdist": _pairwise.pairwise_sqdist,
             "kmeans_assign": _assign.kmeans_assign,
@@ -33,6 +41,9 @@ def _fp32(t: torch.Tensor) -> torch.Tensor:
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(m,d) x (k,d) -> (m,k) squared Euclidean distances, fp32; batches
     of windows (nb,m,d) x (nb,k,d) -> (nb,m,k)."""
+    nb = a.shape[0] if a.dim() == 3 else 1
+    _costs.charge(_costs.pairwise_sqdist(a.shape[-2], b.shape[-2],
+                                         a.shape[-1], nb))
     if a.device.type == "cuda":
         return _pairwise.pairwise_sqdist(_fp32(a), _fp32(b))
     if a.device.type == "cpu":
@@ -42,6 +53,8 @@ def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def kmeans_assign(points: torch.Tensor, centers: torch.Tensor):
     """Fused Lloyd assign + accumulate: (labels, sums, counts)."""
+    _costs.charge(_costs.kmeans_assign(points.shape[0], centers.shape[0],
+                                       points.shape[1]))
     if points.device.type == "cuda":
         return _assign.kmeans_assign(_fp32(points), _fp32(centers))
     if points.device.type == "cpu":
@@ -51,6 +64,8 @@ def kmeans_assign(points: torch.Tensor, centers: torch.Tensor):
 
 def group_ball_proj(v: torch.Tensor, radius) -> torch.Tensor:
     """Row-wise L2-ball projection of v (e,d); radius scalar or (e,)."""
+    _costs.charge(_costs.group_ball_proj(v.shape[0], v.shape[1],
+                                         _costs.radius_elems(radius)))
     if v.device.type == "cuda":
         return _prox.group_ball_proj(_fp32(v), radius)
     if v.device.type == "cpu":
@@ -61,6 +76,9 @@ def group_ball_proj(v: torch.Tensor, radius) -> torch.Tensor:
 def group_ball_proj_batched(v: torch.Tensor, radius) -> torch.Tensor:
     """Batched row-wise L2-ball projection of v (b,e,d); radius
     broadcastable to (b,e)."""
+    _costs.charge(_costs.group_ball_proj(v.shape[0] * v.shape[1],
+                                         v.shape[2],
+                                         _costs.radius_elems(radius)))
     if v.device.type == "cuda":
         return _prox.group_ball_proj_batched(_fp32(v), radius)
     if v.device.type == "cpu":

@@ -34,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, runtime
 from repro_torch.checkpoint import latest_step, restore_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
@@ -256,6 +256,7 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    runtime.apply_env_presets()          # REPRO_CPU_THREADS
     args = parser().parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:

@@ -1,0 +1,42 @@
+"""repro_torch.roofline: hardware peaks, model flops and the roofline
+report (``analysis``), each kernel's work from its shapes
+(``kernel_costs``), and the engine's achieved-vs-peak rows
+(``engine_costs``).  The port of ``repro/roofline``; the calibrated
+sweep (``measure``, ``run_sweep``) comes with the multi-device dry run."""
+from repro_torch.roofline.analysis import (
+    HW_H100,
+    HW_H100_FP32,
+    HW_V5E,
+    Hardware,
+    RooflineReport,
+    active_param_count,
+    model_flops,
+    roofline_terms,
+)
+from repro_torch.roofline.engine_costs import (
+    HW_CPU,
+    achieved_vs_peak,
+    detect_hardware,
+    engine_kernel_report,
+    hardware_info,
+    kernel_probe,
+    program_rows_from_snapshot,
+)
+
+__all__ = [
+    "HW_CPU",
+    "HW_H100",
+    "HW_H100_FP32",
+    "HW_V5E",
+    "Hardware",
+    "RooflineReport",
+    "achieved_vs_peak",
+    "active_param_count",
+    "detect_hardware",
+    "engine_kernel_report",
+    "hardware_info",
+    "kernel_probe",
+    "model_flops",
+    "program_rows_from_snapshot",
+    "roofline_terms",
+]

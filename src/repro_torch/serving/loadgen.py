@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import threading
 import time
 from typing import Optional
@@ -43,9 +42,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, runtime
 from repro_torch.core.engine.session import AggregationSession
-from repro_torch.device import resolve_device
+from repro_torch.device import card_line, resolve_device
 from repro_torch.serving.batching import RouteTimeout, ServingError
 from repro_torch.serving.server import RouteServer, flush_bucket
 
@@ -97,18 +96,6 @@ def warm_route_buckets(session, probe: np.ndarray, max_batch: int) -> None:
         if n >= max_batch:
             break
         n = min(n * 2, max_batch)
-
-
-def card_line(device: torch.device) -> str:
-    """The card's name and power limit as nvidia-smi prints them, or the
-    CPU's name for a CPU run."""
-    if device.type != "cuda":
-        return "cpu"
-    out = subprocess.run(
-        ["nvidia-smi", f"--id={device.index or 0}",
-         "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------ generators
@@ -459,6 +446,7 @@ def run(*, clients: int = 4096, clusters: int = 8, sketch_dim: int = 64,
 
 
 def main(argv=None) -> int:
+    runtime.apply_env_presets()          # REPRO_CPU_THREADS
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--clients", type=int, default=4096)
     ap.add_argument("--clusters", type=int, default=8)

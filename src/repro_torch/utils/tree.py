@@ -83,3 +83,27 @@ def vector_to_tree(vec: torch.Tensor, tree_like):
     pieces = iter(torch.split(vec, sizes))
     return tree_map(lambda l: next(pieces).reshape(l.shape).to(l.dtype),
                     tree_like)
+
+
+def tree_axis_mean(tree, axis: int = 0):
+    """Mean over a leading (stacked) axis of every leaf."""
+    return tree_map(lambda l: torch.mean(l, dim=axis), tree)
+
+
+def tree_select(tree, idx):
+    """Index every leaf along its leading axis."""
+    return tree_map(lambda l: l[idx], tree)
+
+
+def tree_l2_norm(tree) -> torch.Tensor:
+    """The tree's L2 norm as a 0-d fp32 tensor, summed in fp32."""
+    return torch.sqrt(sum((torch.sum(torch.square(l.to(torch.float32)))
+                           for l in tree_leaves(tree)),
+                          torch.zeros((), dtype=torch.float32)))
+
+
+def tree_cast(tree, dtype):
+    """Cast the floating leaves to ``dtype``; other leaves stay as they
+    are."""
+    return tree_map(lambda l: l.to(dtype) if l.is_floating_point() else l,
+                    tree)

@@ -15,7 +15,16 @@ import pytest
 import torch
 
 from repro.core.engine import aggregators as jagg
+from repro_torch import runtime
 from repro_torch.core.engine import aggregators as tagg
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def cluster_stack(seed, sizes, n=6, ties=True):

@@ -14,9 +14,19 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro_torch import runtime
 from repro_torch.kernels import _rowstream, ops
 from repro_torch.kernels import kmeans_assign as tassign
 from repro_torch.kernels import pairwise_l2 as tpairwise
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 SMALL = tassign.SMALL_M
 

@@ -18,6 +18,7 @@ import torch
 
 from repro.checkpoint import checkpoint as jckpt
 from repro.core.federated import init_federation as jinit_federation
+from repro_torch import runtime
 from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.checkpoint import (
     latest_step,
@@ -40,12 +41,10 @@ from test_torch_train_step import tiny_cfgs
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Small tensors: one intra-op thread keeps parallel test workers
-    from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def ref_stack(dtype=jnp.float32, c=3):

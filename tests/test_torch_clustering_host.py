@@ -24,6 +24,7 @@ from repro.core.clustering.kmeans import kmeans as jkmeans
 from repro.core.clustering.kmeans import kmeans_plus_plus_init as jkmeanspp
 from repro.core.clustering.kmeans import spectral_init as jspectral
 from repro.core.sketch import sketch_tree as jsketch_tree
+from repro_torch import runtime
 from repro_torch.core.clustering import admissible as tadm
 from repro_torch.core.clustering import api as tapi
 from repro_torch.core.clustering.gradient import gradient_steps
@@ -33,6 +34,15 @@ from repro_torch.interop import rows_from_numpy
 
 from conftest import same_partition
 from test_torch_engine import make_blobs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 CPU = "cpu"
 

@@ -31,6 +31,7 @@ import torch
 from repro.core.clustering import convex as jconvex
 from repro.core.engine import device_convex as jdc
 from repro.core.engine.session import AggregationSession as JSession
+from repro_torch import runtime
 from repro_torch.core.clustering import api as tapi
 from repro_torch.core.clustering import convex as tconvex
 from repro_torch.core.engine import device_convex as tdc
@@ -45,12 +46,10 @@ KEY = jax.random.PRNGKey(0)
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """The tensors here are small: one intra-op thread is faster than
-    many, and keeps parallel test workers from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def make_blobs(seed, k=3, per=10, d=6, sep=30.0, noise=0.1):

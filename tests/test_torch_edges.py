@@ -20,18 +20,17 @@ import pytest
 import torch
 
 from repro.core.engine import edges as jedges
+from repro_torch import runtime
 from repro_torch.core.engine import edges as tedges
 from repro_torch.interop import directions_from_numpy
 
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """The tensors here are small: one intra-op thread is faster than
-    many, and keeps parallel test workers from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def make_blobs(seed, k=3, per=20, d=8, sep=12.0, noise=0.5):

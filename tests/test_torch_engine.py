@@ -24,6 +24,7 @@ from repro.core.engine.device_kmeans import device_kmeans as jdevice_kmeans
 from repro.core.engine.session import AggregationSession as JSession
 from repro.core.federated import FederatedState as JState
 from repro.core.sketch import sketch_tree as jsketch_tree
+from repro_torch import runtime
 from repro_torch.core.clustering.api import (
     DEVICE_META_KEYS,
     get_algorithm,
@@ -49,6 +50,15 @@ from repro_torch.launch.simulate import simulate
 
 from conftest import same_partition
 from test_torch_sketch import ref_projection
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 CPU = "cpu"
 

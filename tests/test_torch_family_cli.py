@@ -12,6 +12,7 @@ hubert-xlarge (encoder-only) are refused by the serve CLI.
 import pytest
 import torch
 
+from repro_torch import runtime
 from repro_torch.checkpoint import latest_step
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
@@ -26,12 +27,10 @@ TRAIN = ["--reduced", "--clients", "4", "--clusters", "2", "--batch", "1",
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Small tensors: one intra-op thread keeps parallel test workers
-    from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -35,7 +35,7 @@ from repro.data import make_lm_batch_iterator as jbatches
 from repro.models import init_params as jinit_params
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw_init as jadamw_init
-from repro_torch import obs
+from repro_torch import obs, runtime
 from repro_torch.core import federated as tfed
 from repro_torch.core import sketch as tsketch
 from repro_torch.core.engine import session as tsession
@@ -69,12 +69,10 @@ OPT = dict(lr=1e-3, weight_decay=0.0)
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Small tensors: one intra-op thread keeps parallel test workers
-    from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def planted(seed=0, c=C, noise=1e-2):

@@ -15,8 +15,18 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro_torch import runtime
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 # (b, hkv, rep, sq, extra_kv, dh, window, causal): the reference test's
 # grid (tests/test_kernels.py), b in 1..3, hkv in {1,2,4}, rep in {1,2,7},

@@ -25,18 +25,17 @@ from repro.kernels.group_prox import (
     group_ball_proj_pallas,
 )
 from repro.kernels.pairwise_l2 import pairwise_sqdist_pallas
+from repro_torch import runtime
 from repro_torch.kernels import group_prox as tprox
 from repro_torch.kernels import ops
 
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """The tensors here are small: one intra-op thread is faster than
-    many, and keeps parallel test workers from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def prox_rows(seed, b, e, d):

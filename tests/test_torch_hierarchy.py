@@ -24,6 +24,7 @@ import torch
 from repro.core.clustering.kmeans import kmeans_plus_plus_init as jkmeanspp
 from repro.core.engine import HierarchicalSession as JHier
 from repro.core.engine import hierarchical_one_shot_aggregate as jhier_round
+from repro_torch import runtime
 from repro_torch.core.engine.hierarchy import (
     HierarchicalSession,
     hierarchical_one_shot_aggregate,
@@ -40,6 +41,15 @@ from repro_torch.utils import prng
 from conftest import same_partition
 from test_session import blob_state, make_blobs
 from test_torch_sketch import ref_projection
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 CPU = "cpu"
 

@@ -21,6 +21,7 @@ from repro.core.federated import FederatedState as JState
 from repro.core.federated import one_shot_aggregate as j_one_shot
 from repro.core.odcl import odcl as jodcl
 from repro.launch import simulate as jsim
+from repro_torch import runtime
 from repro_torch.core.engine.session import AggregationSession
 from repro_torch.core.erm import batched_logistic_erm
 from repro_torch.core.federated import cluster_agreement, one_shot_aggregate
@@ -34,6 +35,15 @@ from repro_torch.launch.simulate import simulate
 
 from test_torch_engine import client_thetas
 from test_torch_sketch import ref_projection
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 CPU = "cpu"
 C, K, DIM, S, SEED = 512, 4, 16, 32, 3

@@ -16,9 +16,19 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.kmeans_assign import kmeans_assign_pallas
 from repro.kernels.pairwise_l2 import pairwise_sqdist_pallas
+from repro_torch import runtime
 from repro_torch.kernels import kmeans_assign as tassign
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_l2 as tpairwise
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 RTOL, ATOL = 1e-5, 1e-4
 

@@ -21,6 +21,7 @@ import torch
 from repro.core.clustering.kmeans import kmeans_plus_plus_init as jkmeanspp
 from repro.core.engine.aggregators import make_aggregator as jmake
 from repro.core.engine.device_kmeans import device_kmeans as jdevice_kmeans
+from repro_torch import runtime
 from repro_torch.core.clustering.api import get_algorithm, meta_to_host
 from repro_torch.core.engine.aggregators import make_aggregator as tmake
 from repro_torch.core.engine.device_kmeans import (
@@ -33,6 +34,15 @@ from repro_torch.core.sketch import make_generator
 from repro_torch.interop import centers_from_numpy, rows_from_numpy
 
 from test_torch_engine import make_blobs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 CPU = "cpu"
 

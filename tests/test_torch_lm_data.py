@@ -7,8 +7,17 @@ import pytest
 from repro.data import ClusteredTokenStream as JStream
 from repro.data import make_lm_batch_iterator as jbatches
 from repro.launch.steps import make_eval_batch as jeval_batch
+from repro_torch import runtime
 from repro_torch.data import ClusteredTokenStream, make_lm_batch_iterator
 from repro_torch.launch.steps import make_eval_batch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 @pytest.mark.parametrize("clients,clusters,vocab,seed,branching",

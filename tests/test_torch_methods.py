@@ -33,6 +33,7 @@ from repro.core.ifca import ifca as jifca
 from repro.core.ifca import ifca_init_annulus as jannulus
 from repro.core.ifca import per_user_model_losses as jlosses
 from repro.data import make_linear_regression_federation
+from repro_torch import runtime
 from repro_torch.core import oracles, theory
 from repro_torch.core.clustering.api import (
     ClusteringResult,
@@ -65,6 +66,15 @@ from repro_torch.core.sketch import make_generator
 from repro_torch.interop import centers_from_numpy
 
 from conftest import same_partition
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 CPU = "cpu"
 

@@ -40,6 +40,7 @@ from repro.launch.steps import make_train_step as jtrain_step
 from repro.models import transformer as jtf
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw_init as jadamw_init
+from repro_torch import runtime
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.configs import ARCH_IDS
 from repro_torch.configs import get_config as tget_config
@@ -64,12 +65,10 @@ FORWARD_SEED, LOSS_SEED, PREFILL_SEED = 0, 3, 5
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Small tensors: one intra-op thread keeps parallel test workers
-    from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def reduced_cfgs(arch, dtype="float32"):

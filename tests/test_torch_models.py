@@ -20,11 +20,21 @@ from repro.configs import get_config
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import transformer as jtf
+from repro_torch import runtime
 from repro_torch.configs import get_config as tget_config
 from repro_torch.interop import model_from_numpy
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 ARCH = "qwen2-0.5b"
 

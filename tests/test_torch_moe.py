@@ -22,6 +22,7 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.models import moe as jmoe
+from repro_torch import runtime
 from repro_torch.configs import get_config as tget_config
 from repro_torch.models import moe as tmoe
 
@@ -30,12 +31,10 @@ MARGIN = 1e-4
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Small tensors: one intra-op thread keeps parallel test workers
-    from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def _cfgs(arch, capacity_factor=None):

@@ -6,7 +6,15 @@ JSON lines (no GPU)."""
 import numpy as np
 import pytest
 
-from repro_torch import obs
+from repro_torch import obs, runtime
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 100])

@@ -22,6 +22,7 @@ from repro.optim import cosine_schedule as jcosine
 from repro.optim import linear_warmup as jwarmup
 from repro.optim import sgd_init as jsgd_init
 from repro.optim import sgd_update as jsgd_update
+from repro_torch import runtime
 from repro_torch.interop import params_from_numpy
 from repro_torch.launch.steps import client_slice
 from repro_torch.optim import (
@@ -43,12 +44,10 @@ RTOL, ATOL = 1e-5, 1e-7
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Small tensors: one intra-op thread keeps parallel test workers
-    from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def tree(rng, lead=()):

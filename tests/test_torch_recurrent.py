@@ -16,17 +16,16 @@ import pytest
 import torch
 
 from repro.models import recurrent as jrec
+from repro_torch import runtime
 from repro_torch.models import recurrent as trec
 
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Small tensors: one intra-op thread keeps parallel test workers
-    from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def _close(got, want, rel=1e-5):

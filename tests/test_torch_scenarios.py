@@ -21,6 +21,7 @@ import torch
 from repro.core.engine import AggregationSession as JSession
 from repro.scenarios import build_scenario as jbuild
 from repro.scenarios import library as jlib
+from repro_torch import runtime
 from repro_torch.core.engine.session import AggregationSession
 from repro_torch.interop import draws_from_numpy, projection_from_numpy
 from repro_torch.scenarios import (
@@ -40,6 +41,15 @@ from repro_torch.scenarios import library as tlib
 from repro_torch.utils import prng
 
 from test_torch_sketch import ref_projection
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 CPU = "cpu"
 

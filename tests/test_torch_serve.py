@@ -15,12 +15,22 @@ import torch
 from repro.configs import get_config
 from repro.launch import serve as jserve
 from repro.models import transformer as jtf
+from repro_torch import runtime
 from repro_torch.configs import get_config as tget_config
 from repro_torch.interop import model_from_numpy
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as ttf
 from repro_torch.models.planted import (
     continuation, plant_previous_token_head)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 ARCH = "qwen2-0.5b"
 

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, runtime
 from repro_torch.core.engine.session import AggregationSession
 from repro_torch.serving import (
     BackpressureError,
@@ -37,6 +37,15 @@ from repro_torch.serving import (
 )
 from repro_torch.serving.batching import _Request
 from repro_torch.serving.loadgen import make_population
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
+
 
 DIM = 16
 K = 4

@@ -18,6 +18,7 @@ import torch
 from repro.core.clustering.kmeans import kmeans_plus_plus_init as jkmeanspp
 from repro.core.engine import AggregationSession as JSession
 from repro.core.engine.staleness import make_staleness_policy as jmake_policy
+from repro_torch import runtime
 from repro_torch.core.engine import aggregators
 from repro_torch.core.engine.device_convex import device_convex_cluster
 from repro_torch.core.engine.session import AggregationSession
@@ -489,6 +490,14 @@ def test_route_batch_is_a_single_host_sync(monkeypatch):
 # ------------------------------------------------- hypothesis property
 
 from hypothesis import given, settings, strategies as st  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 @st.composite

@@ -18,6 +18,7 @@ import torch
 from repro.core.sketch import sketch_tree as jsketch_tree
 from repro.utils import tree_to_vector as jtree_to_vector
 from repro.utils import vector_to_tree as jvector_to_tree
+from repro_torch import runtime
 from repro_torch.core import sketch as tsketch
 from repro_torch.interop import params_from_numpy, projection_from_numpy
 from repro_torch.utils import (
@@ -28,6 +29,14 @@ from repro_torch.utils import (
     tree_to_vector,
     vector_to_tree,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def ref_projection(seed: int, n: int, sketch_dim: int) -> np.ndarray:

@@ -15,6 +15,7 @@ import pytest
 
 from repro.data import synthetic as jsyn
 from repro.scenarios import library as jlib
+from repro_torch import runtime
 from repro_torch.data import synthetic as tsyn
 from repro_torch.data import (
     make_linear_regression_federation,
@@ -23,6 +24,14 @@ from repro_torch.data import (
 )
 from repro_torch.interop import draws_from_numpy
 from repro_torch.scenarios import ByzantineScenario, DriftScenario, library
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def assert_same_federation(got, want):

@@ -17,6 +17,7 @@ import torch
 
 from repro.launch import serve as jserve
 from repro.launch import simulate as jsimulate
+from repro_torch import runtime
 from repro_torch.checkpoint import latest_step, restore_checkpoint
 from repro_torch.core.engine.aggregators import cluster_aggregate_tree
 from repro_torch.launch import serve as tserve
@@ -30,12 +31,10 @@ TRAIN = ["--reduced", "--clients", "4", "--clusters", "2", "--batch", "1",
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Small tensors: one intra-op thread keeps parallel test workers
-    from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,7 @@ from repro.models import transformer as jtr
 from repro.models.layers import cross_entropy_loss as jce
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw_init as jadamw_init
+from repro_torch import runtime
 from repro_torch.configs import get_config
 from repro_torch.interop import federation_from_numpy, params_from_numpy
 from repro_torch.kernels import ops
@@ -53,12 +54,10 @@ CPU = "cpu"
 
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Small tensors: one intra-op thread keeps parallel test workers
-    from oversubscribing the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    """One host thread: the tensors here are small, and parallel test
+    workers must not oversubscribe the CPU."""
+    with runtime.pinned_threads(1):
+        yield
 
 
 def tiny_cfgs(chunk=None):
