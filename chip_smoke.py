@@ -303,7 +303,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     over phase 4's main path: every row's flops and bytes fractions of
     ``HW_H100_FP32``'s peaks in (0, 1.05]; one ``{"roofline": {...}}``
     line with the card's name and power limit;
- 6. the card's name and power limit again, then the last line
+ 6. the multi-device dry run (``repro_torch.launch.dryrun``), four
+    processes started together, each owning its fake process group:
+    (a) grok-1-314b ``train_4k`` at full width on the 16x16 mesh (256
+    ranks, ``tp_fsdp``, remat ``full``, fake CUDA tensors): status OK and
+    the argument bytes a rank holds equal to the local shard bytes the
+    specs imply (``dryrun_spec_bytes``) and within ``ARG_ESTIMATE_TOL``
+    of the hand estimate (``dryrun_estimate_bytes``: every parameter and
+    its two fp32 moments over all ranks, the batch over the data dim);
+    one ``{"dryrun": {...}}`` line
+    with the peak, the trace seconds, the roofline row and the
+    collectives by kind and mesh dim; (b) the reference integration
+    test's two combos through the CLI: xlstm_125m ``long_500k`` OK on
+    256 ranks of a 16x16 mesh with a peak under 1 GiB and a named
+    bottleneck, hubert_xlarge ``decode_32k`` skipped as encoder-only;
+    (c) the tie to the card: qwen2-0.5b's train step at batch 4 x 4096
+    (remat ``full``), predicted on a 1x1 mesh and run for real: its
+    ``FlopCounterMode`` count equal to the dry run's, and the predicted
+    peak at least ``TIE_PEAK_MIN`` of ``torch.cuda.max_memory_allocated``;
+    one ``{"dryrun_checks": {...}}`` line;
+ 7. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds, after phase 5's line, traced runs under ``torch.profiler``:
@@ -322,6 +341,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -4092,6 +4112,224 @@ def phase_roofline(card: str, main_obs: dict) -> dict:
     return out
 
 
+# phase 6: the multi-device dry run.  grok-1-314b at full width on the
+# 16x16 mesh (256 ranks of a fake process group, fake CUDA tensors); the
+# reference integration test's two combos; and the tie to the card:
+# qwen2-0.5b's train step at batch 4 x 4096 (remat "full"), predicted on
+# a 1x1 mesh and run for real
+DRYRUN_ARCH, DRYRUN_SHAPE = "grok_1_314b", "train_4k"
+TIE_ARCH, TIE_B, TIE_S = "qwen2_0_5b", 4, 4096
+# a dry run that predicts less than this share of the measured peak
+# misleads every fit decision
+TIE_PEAK_MIN = 0.8
+DRYRUN_TIMEOUT = 900
+# the grok argument bytes a rank may differ from the hand estimate (every
+# parameter and its two fp32 moments split evenly over the ranks, the
+# batch over the data dim) by this share: the leaves the rules replicate
+ARG_ESTIMATE_TOL = 0.02
+
+
+def dryrun_spec_bytes(cfg, shape, mesh) -> int:
+    """The grok train step's argument bytes a rank holds, from the specs
+    alone: each parameter and both fp32 moments at their local shard, the
+    step count, and the batch's local rows."""
+    from repro_torch.launch import dryrun, inputs
+    from repro_torch.sharding import batch_spec, opt_state_specs, param_specs
+    from repro_torch.sharding.specs import spec_map
+    from repro_torch.utils import tree_leaves
+
+    rules = dryrun.make_rules(cfg, mesh, "train")
+    specs = inputs.input_specs(cfg, shape)
+    pspecs = param_specs(cfg, specs["params"], rules, mesh)
+    bspec = batch_spec(cfg, rules, mesh)
+    sizes = spec_map(lambda sp, l: dryrun.local_bytes(l, sp, mesh),
+                     opt_state_specs(pspecs), specs["opt_state"])
+    total = sum(tree_leaves(spec_map(
+        lambda sp, l: dryrun.local_bytes(l, sp, mesh), pspecs,
+        specs["params"])))
+    total += sum(tree_leaves(sizes["mu"])) + sum(tree_leaves(sizes["nu"]))
+    total += sizes["step"]
+    total += sum(dryrun.local_bytes(v, bspec(v), mesh)
+                 for v in specs["batch"].values())
+    return total
+
+
+def dryrun_estimate_bytes(cfg, shape, mesh) -> float:
+    """The same bytes by hand, without the specs: every parameter with
+    its two fp32 moments over all ranks, the batch over the data dim."""
+    from repro_torch.launch import inputs
+    from repro_torch.utils import tree_leaves
+
+    specs = inputs.input_specs(cfg, shape)
+    params = sum(l.numel() * (l.element_size() + 8)
+                 for l in tree_leaves(specs["params"]))
+    batch = sum(v.numel() * v.element_size()
+                for v in specs["batch"].values())
+    return params / mesh.size() + batch / mesh["data"].size()
+
+
+def dryrun_child(which: str) -> None:
+    """One dry run in this process, which owns its fake process group;
+    prints one JSON line."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+
+    if which == "grok":
+        mesh = make_production_mesh(device="cuda")
+        _, info = dryrun.lower_one(DRYRUN_ARCH, DRYRUN_SHAPE, mesh=mesh)
+        cfg, shape = get_config(DRYRUN_ARCH), INPUT_SHAPES[DRYRUN_SHAPE]
+        info["spec_argument_bytes"] = dryrun_spec_bytes(cfg, shape, mesh)
+        info["estimate_argument_bytes"] = dryrun_estimate_bytes(cfg, shape,
+                                                                mesh)
+        print(json.dumps(info), flush=True)
+        return
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_tree
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(TIE_ARCH)
+    shape = InputShape(f"train_{TIE_B}x{TIE_S}", TIE_S, TIE_B, "train")
+    _, info = dryrun.lower_one(TIE_ARCH, shape.name, shape=shape,
+                               mesh=make_debug_mesh(1, 1, device="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    params = init_tree(cfg, seed=0, device="cuda")
+    opt = adamw_init(params)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (TIE_B, TIE_S),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, remat="full")
+    with FlopCounterMode(display=False) as flops:
+        loss, _, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    info["real"] = {"flops": flops.get_total_flops(),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "loss": float(loss)}
+    print(json.dumps(info), flush=True)
+
+
+def start_child(args: list, logs: Path) -> subprocess.Popen:
+    """``python3 <args>`` from the repo root with ``src`` on the path,
+    started now, its output to files under ``logs`` (a pipe left unread
+    would stall it); :func:`finish_child` reads them."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    n = len(list(logs.iterdir()))
+    paths = (logs / f"{n}.out", logs / f"{n}.err")
+    with open(paths[0], "w") as out, open(paths[1], "w") as err:
+        proc = subprocess.Popen([sys.executable, *args], cwd=root, env=env,
+                                stdout=out, stderr=err)
+    proc.logs = paths
+    return proc
+
+
+def finish_child(proc: subprocess.Popen, what: str) -> str:
+    """The child's standard output once it exits 0; fails otherwise (a
+    child still running at ``DRYRUN_TIMEOUT`` is killed)."""
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    out, err = (p.read_text() for p in proc.logs)
+    check(proc.returncode == 0,
+          f"{what} exited {proc.returncode}: {out[-2000:]} {err[-3000:]}")
+    return out
+
+
+def phase_dryrun(card: str) -> dict:
+    """Phase 6: the multi-device dry run.  Each dry run owns its fake
+    process group in a process of its own; the four start together (the
+    traces run on the host's cores, the tie's real step on the card)."""
+    t_all = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent)
+    combos = {"xlstm_125m": "long_500k", "hubert_xlarge": "decode_32k"}
+    logs = Path(tmp.name) / "logs"
+    logs.mkdir()
+    procs = {"grok": start_child([__file__, "--dryrun-child", "grok"], logs),
+             "tie": start_child([__file__, "--dryrun-child", "tie"], logs)}
+    for arch, shape in combos.items():
+        procs[arch] = start_child(
+            ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--json", str(Path(tmp.name) / f"{arch}.jsonl")], logs)
+    try:
+        outs = {name: finish_child(p, f"6: the {name} dry run")
+                for name, p in procs.items()}
+        recs = {arch: json.loads((Path(tmp.name) / f"{arch}.jsonl")
+                                 .read_text().splitlines()[0])
+                for arch in combos}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        tmp.cleanup()
+    seconds = time.perf_counter() - t_all
+
+    grok = json.loads(outs["grok"].strip().splitlines()[-1])
+    check(grok["status"] == "OK", f"6a: {DRYRUN_ARCH} status {grok}")
+    check(grok["argument_bytes_per_device"] == grok["spec_argument_bytes"],
+          f"6a: argument bytes {grok['argument_bytes_per_device']} differ "
+          f"from the specs' {grok['spec_argument_bytes']}")
+    gap = grok["argument_bytes_per_device"] / grok[
+        "estimate_argument_bytes"] - 1
+    check(abs(gap) <= ARG_ESTIMATE_TOL,
+          f"6a: argument bytes {grok['argument_bytes_per_device']} are "
+          f"{gap:+.4f} off the hand estimate "
+          f"{grok['estimate_argument_bytes']}")
+    print(json.dumps({"dryrun": {
+        "arch": DRYRUN_ARCH, "shape": DRYRUN_SHAPE, "mesh": grok["mesh"],
+        "chips": grok["chips"], "card": card,
+        **{k: grok[k] for k in (
+            "compile_s", "argument_bytes_per_device",
+            "output_bytes_per_device", "temp_bytes_per_device",
+            "peak_bytes_per_device", "flops_per_device",
+            "bytes_per_device", "roofline")},
+        "estimate_argument_bytes": grok["estimate_argument_bytes"],
+        "argument_gap_to_estimate": gap,
+        "collectives": {"counts": grok["collectives"]["_counts"],
+                        "by_mesh_dim": grok["collectives"]["_mesh_dims"]},
+    }}), flush=True)
+
+    rec = recs["xlstm_125m"]
+    check(rec["status"] == "OK" and rec["chips"] == 256
+          and rec["mesh"] == "16x16"
+          and rec["peak_bytes_per_device"] < 2 ** 30
+          and rec["roofline"]["bottleneck"] in ("compute", "memory",
+                                                "collective"),
+          f"6b: xlstm_125m long_500k {rec}")
+    rec = recs["hubert_xlarge"]
+    check(rec["status"] == "SKIP" and "encoder-only" in rec["reason"],
+          f"6b: hubert_xlarge decode_32k {rec}")
+
+    tie = json.loads(outs["tie"].strip().splitlines()[-1])
+    real = tie["real"]
+    ratio = tie["peak_bytes_per_device"] / real["max_memory_allocated"]
+    check(tie["flops_per_device"] == real["flops"],
+          f"6c: dry-run flops {tie['flops_per_device']} != the step's "
+          f"{real['flops']}")
+    check(ratio >= TIE_PEAK_MIN,
+          f"6c: predicted peak {tie['peak_bytes_per_device']} is {ratio:.3f} "
+          f"of the measured {real['max_memory_allocated']}")
+    out = {"card": card,
+           "xlstm_125m long_500k": {k: recs["xlstm_125m"][k] for k in (
+               "peak_bytes_per_device", "compile_s")},
+           "tie": {"arch": TIE_ARCH, "batch": TIE_B, "seq": TIE_S,
+                   "flops": real["flops"],
+                   "predicted_peak": tie["peak_bytes_per_device"],
+                   "measured_peak": real["max_memory_allocated"],
+                   "ratio": ratio, "trace_s": tie["compile_s"],
+                   "loss": real["loss"]},
+           "seconds": seconds}
+    print(json.dumps({"dryrun_checks": out}), flush=True)
+    return out
+
+
 def add_counts(rows: list, by_path: dict, errs: dict, flushes: dict,
                direct_routes: int, shape_launches: dict) -> None:
     """Phase 5: each row's launches on the paths (``by_path``: by wrapper
@@ -4130,12 +4368,17 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also trace a second main-path run with "
                          "torch.profiler and print device time by kernel")
+    ap.add_argument("--dryrun-child", choices=["grok", "tie"],
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("[chip_smoke] FAIL: no CUDA device (torch.cuda.is_available() "
               "is False)", flush=True)
         sys.exit(2)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if args.dryrun_child:
+        dryrun_child(args.dryrun_child)
+        return
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import group_prox, kmeans_assign, ops, pairwise_l2
@@ -4209,6 +4452,7 @@ def main() -> None:
     add_counts(rows, by_path, errs, flushes, direct_routes, shape_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     phase_roofline(card, summary["obs"])
+    phase_dryrun(card)
     if args.profile:
         phase_traces(simulate, generate)
     print(f"[chip_smoke] every phase passed in "

@@ -9,6 +9,13 @@
   * ``make_aggregate_step``   the one-shot clustered aggregation as one
     call: sketch, k-means, per-cluster parameter mean.
   * ``make_eval_batch``       a held-out per-client batch.
+  * ``make_prefill_step`` / ``make_decode_step`` -- serving, as the dry
+    run traces it: the prefill's attention is ``train_attention`` (the
+    reference's jnp paths, as its dry run lowers them), since the flash
+    kernel cannot run on fake tensors.
+
+The reference's ``unroll`` (a ``lax.scan`` unrolled) is accepted and
+does nothing: the port's layers are a Python loop.
 
 Steps update the parameters and the AdamW state IN PLACE (the reference
 returns new arrays): at qwen2-0.5b a second copy of C models and their
@@ -21,9 +28,16 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import train_loss
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.transformer import (
+    decode_step,
+    forward,
+    model_view,
+    train_loss,
+)
 from repro_torch.optim import AdamWConfig, adamw_update_
 from repro_torch.utils import tree_leaves, tree_map
 
@@ -52,6 +66,14 @@ def _live_leaf(leaf: torch.Tensor, per_layer: bool):
     return leaf.detach().requires_grad_(True)
 
 
+def _like(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient redistributed to its parameter's placements (the
+    reference's ``out_shardings``); any other gradient as it is."""
+    if isinstance(param, DTensor):
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
+
+
 def _one_model_step(params, opt_state, batch, cfg, opt_cfg, remat):
     """Loss and gradients of one model, then AdamW in place."""
     live = {k: tree_map(lambda l, k=k: _live_leaf(l, k == "layers"),
@@ -62,16 +84,16 @@ def _one_model_step(params, opt_state, batch, cfg, opt_cfg, remat):
     # encoder) gets a zero gradient, as ``jax.grad`` gives it
     it = iter(torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
                                   materialize_grads=True))
-    grads = {k: tree_map(lambda l, k=k: (
+    grads = {k: tree_map(lambda l, k=k: _like(
                  torch.stack([next(it) for _ in range(l.shape[0])])
-                 if k == "layers" else next(it)), params[k])
+                 if k == "layers" else next(it), l), params[k])
              for k in sorted(params)}
     adamw_update_(params, grads, opt_state, opt_cfg)
     return loss.detach()
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
-                    remat: str = "full") -> Callable:
+                    remat: str = "full", unroll: bool = False) -> Callable:
     """``train_step(params, opt_state, batch) -> (loss, params,
     opt_state)`` for one model."""
     opt_cfg = opt_cfg or AdamWConfig()
@@ -92,7 +114,8 @@ def client_slice(tree, c: int):
 
 def make_local_train_step(cfg: ModelConfig,
                           opt_cfg: AdamWConfig | None = None,
-                          remat: str = "full") -> Callable:
+                          remat: str = "full",
+                          unroll: bool = False) -> Callable:
     """ODCL's local phase: ``local_step(params_c, opt_state_c, batch_c) ->
     ((C,) losses, params_c, opt_state_c)`` over stacked parameters,
     moments and (C, b, s) batches, one client after another."""
@@ -133,6 +156,26 @@ def make_aggregate_step(cfg: ModelConfig, k: int, sketch_dim: int = 256,
         return cluster_average_tree(params_c, onehot, counts), res.labels
 
     return aggregate_step
+
+
+def make_prefill_step(cfg: ModelConfig, unroll: bool = False) -> Callable:
+    """``prefill_step(params, batch) -> logits`` (b, s, V) of one model."""
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            return forward(model_view(params, cfg), cfg, batch,
+                           attention=attn_lib.train_attention)[0]
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, unroll: bool = False) -> Callable:
+    """``decode_one(params, cache, tokens) -> (logits, cache)``: one token
+    against a ``DecodeCache``."""
+    def decode_one(params, cache, tokens):
+        with torch.no_grad():
+            return decode_step(model_view(params, cfg), cfg, cache, tokens)
+
+    return decode_one
 
 
 def make_eval_batch(stream, *, n_clients: int, batch: int, seq_len: int,

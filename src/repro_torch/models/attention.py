@@ -10,16 +10,25 @@ has none, so training runs ``train_attention``: the reference's two jnp
 paths in plain, differentiable PyTorch, with its dispatch rule.  The
 caller's path picks one (``transformer.train_loss`` the second), never a
 caught failure.  Decode reads the ring-buffer cache in
-``transformer._attn_decode``.
+``transformer._attn_decode``.  On a mesh (the dry run), ``split_heads``
+and ``merge_heads`` handle head counts that do not divide the model
+axis, and ``train_attention`` runs per (row, head) shard.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
+from repro_torch.sharding.activations import (
+    constrain,
+    heads_local,
+    hold_layout,
+    model_divides,
+)
 
 NEG_INF = -1e30
 
@@ -34,8 +43,6 @@ def qkv_proj(params, x: torch.Tensor, cfg) -> tuple:
     """x (b,s,D) -> q (b,h,s,dh), k/v (b,hkv,s,dh): transposed views of
     (b,s,h,dh) buffers.  ``params``: wq (D, h dh), wk/wv (D, hkv dh) and,
     with ``cfg.qkv_bias``, bq/bk/bv."""
-    b, s, _ = x.shape
-    dh = cfg.resolved_head_dim
     q = x @ params.wq
     k = x @ params.wk
     v = x @ params.wv
@@ -43,16 +50,32 @@ def qkv_proj(params, x: torch.Tensor, cfg) -> tuple:
         q = q + params.bq
         k = k + params.bk
         v = v + params.bv
-    q = q.reshape(b, s, cfg.n_heads, dh).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, dh).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, dh).transpose(1, 2)
-    return q, k, v
+    return (split_heads(q, cfg.n_heads), split_heads(k, cfg.n_kv_heads),
+            split_heads(v, cfg.n_kv_heads))
+
+
+def split_heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    """(b, s, h dh) -> (b, h, s, dh), a transposed view.  Where ``h`` does
+    not divide the model axis the flat dim is gathered first: a reshape
+    cannot split a dim sharded unevenly."""
+    b, s, hd = x.shape
+    if not model_divides(h):
+        x = constrain(x, "batch", None, None)
+    return x.reshape(b, s, h, hd // h).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(b, h, s, dh) -> (b, s, h dh).  Where ``h`` does not divide the
+    model axis the flat result's gradient is held unsharded: its way back
+    to heads cannot split a sharded flat dim."""
+    b, h, s, dh = x.shape
+    out = x.transpose(1, 2).reshape(b, s, h * dh)
+    return out if model_divides(h) else hold_layout(out)
 
 
 def out_proj(params, attn_out: torch.Tensor) -> torch.Tensor:
     """(b,h,s,dh) -> (b,s,D)."""
-    b, h, s, dh = attn_out.shape
-    return attn_out.transpose(1, 2).reshape(b, s, h * dh) @ params.wo
+    return merge_heads(attn_out) @ params.wo
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -147,10 +170,12 @@ def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = torch.repeat_interleave(v, h // hkv, dim=1)
     sq, skv = q.shape[2], k.shape[2]
     if chunk > 0 and sq == skv and sq > 2 * chunk and sq % chunk == 0:
-        return chunked_attention(q, k, v, causal=causal, window=window,
-                                 chunk_q=chunk, chunk_kv=chunk)
-    return direct_attention(q, k, v, causal=causal, window=window,
-                            q_offset=q_offset)
+        fn = functools.partial(chunked_attention, causal=causal,
+                               window=window, chunk_q=chunk, chunk_kv=chunk)
+    else:
+        fn = functools.partial(direct_attention, causal=causal,
+                               window=window, q_offset=q_offset)
+    return heads_local(fn, q, k, v)
 
 
 def _ring_positions(pos: int, capacity: int,

@@ -11,6 +11,14 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+from repro_torch.sharding.activations import (
+    chunk_last,
+    constrain,
+    gather_last,
+    logsumexp_last,
+)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -27,8 +35,9 @@ def _rope_freqs(theta: float, half: int, device: torch.device) -> torch.Tensor:
     """exp(-arange(half) * log(theta) / half) in fp32, computed on the CPU
     (so the card and the CPU rotate by the same angles) and copied to
     ``device`` once: a copy from pageable host memory in every layer
-    would stall the host until the device caught up."""
-    with torch.inference_mode(False):
+    would stall the host until the device caught up.  Computed outside
+    any fake-tensor trace (the dry run's), so the cached table is real."""
+    with torch.inference_mode(False), unset_fake_temporarily():
         log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
         freqs = torch.exp(-torch.arange(half, dtype=torch.float32)
                           * (log_theta / half))
@@ -54,8 +63,9 @@ def mlp_forward(params, x: torch.Tensor,
     """Gated MLP: ``params.w_in`` (D, 2F) packed gate|up (or (D, F)),
     ``params.w_out`` (F, D)."""
     h = x @ params.w_in
+    h = constrain(h, *(["batch"] + [None] * (h.ndim - 2) + ["model"]))
     if variant in ("swiglu", "geglu"):
-        gate, up = torch.chunk(h, 2, dim=-1)
+        gate, up = chunk_last(h, 2)
         act = F.silu(gate) if variant == "swiglu" else F.gelu(
             gate, approximate="tanh")
         h = act * up
@@ -86,9 +96,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     labels (...); with ``mask`` the sum of masked NLL over the mask's
     count (floored at 1)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels.long()[..., None],
-                                dim=-1)[..., 0]
+    logz = logsumexp_last(logits)
+    gold = gather_last(logits, labels.long())
     nll = logz - gold
     if mask is None:
         return torch.mean(nll)

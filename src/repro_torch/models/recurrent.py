@@ -26,6 +26,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.activations import per_shard
+
 
 # ===================================================================== mLSTM
 
@@ -44,7 +46,7 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, *, chunk: int = 256,
     if s % w:
         raise ValueError(f"seq {s} not divisible by chunk {w}")
     scale = dh ** -0.5
-    logf = F.logsigmoid(f_gate.float())                          # (b,h,s)
+    logf = per_shard(F.logsigmoid, f_gate.float())               # (b,h,s)
     logi = i_gate.float()
     # the query is scaled in fp32, as the decode step scales it (the
     # reference scales it in the model dtype here; in fp32 the two agree)
@@ -112,7 +114,8 @@ def slstm_scan(z, i_gate, f_gate, o_gate, state: SLSTMState | None = None):
     b, s, d = z.shape
     # time-major, so each step's row is contiguous
     zf = torch.tanh(z.float()).transpose(0, 1)
-    f = torch.exp(F.logsigmoid(f_gate.float())).transpose(0, 1).contiguous()
+    f = torch.exp(per_shard(F.logsigmoid, f_gate.float())).transpose(
+        0, 1).contiguous()
     i = torch.exp(torch.clamp_max(i_gate.float(), 30.0)).transpose(0, 1)
     iz = (i * zf).contiguous()
     i = i.contiguous()

@@ -31,6 +31,11 @@ int.  ``decode_step`` writes the new token's K and V into the ring IN
 PLACE (the reference returns new arrays): at full size a copy of every
 layer's cache per token would cost more than the step's own work.  The
 recurrent states are small and are replaced, as in the reference.
+
+The layers call ``sharding.activations.constrain`` where the reference's
+do (and ``constrain_params`` on each layer's weights): identities
+outside the dry run's ``activation_sharding`` context, redistributions
+of DTensors inside it.
 """
 from __future__ import annotations
 
@@ -54,6 +59,13 @@ from repro_torch.models.layers import (
     embed_init,
     mlp_forward,
     rms_norm,
+)
+from repro_torch.sharding.activations import (
+    chunk_last,
+    constrain,
+    constrain_params,
+    embedding,
+    model_divides,
 )
 from repro_torch.utils import tree_map
 
@@ -201,6 +213,15 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
     tree = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
             "layers": [init_layer_params(gen, cfg)
                        for _ in range(n_stack(cfg))]}
+    tree.update(init_params_top(gen, cfg))
+    return Transformer(cfg, tree).to(dev)
+
+
+def init_params_top(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The top-level leaves after the embedding and the layers, drawn in
+    this order: the LM head, the input projection, the final norm."""
+    dtype = torch_dtype(cfg)
+    tree = {}
     if not cfg.tie_embeddings:
         tree["lm_head"] = _dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                       dtype)
@@ -213,7 +234,30 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
         tree["patch_proj"] = _dense_init(gen, (PATCH_DIM, cfg.d_model), dtype)
     tree["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
                                      device=gen.device)
-    return Transformer(cfg, tree).to(dev)
+    return tree
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree of ``cfg`` (the reference's layout and dtypes:
+    layer weights stacked on L) as ``device="meta"`` tensors: shapes and
+    dtypes, nothing allocated.  One layer is traced under a fake-tensor
+    mode for its shapes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        gen = torch.Generator(device="cpu")
+        layer = init_layer_params(gen, cfg)
+        top = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                   torch_dtype(cfg)),
+               **init_params_top(gen, cfg)}
+
+    def meta(t, lead=()):
+        return torch.empty(lead + tuple(t.shape), dtype=t.dtype,
+                           device="meta")
+
+    tree = {k: meta(v) for k, v in top.items()}
+    tree["layers"] = tree_map(lambda t: meta(t, (n_stack(cfg),)), layer)
+    return tree
 
 
 # ============================================================ forward
@@ -226,7 +270,7 @@ def embed_inputs(model, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     ``patch_positions`` (b, P) (distinct positions a row).  Frames and
     patch embeddings are cast to their projection's dtype first."""
     if cfg.input_mode == "tokens":
-        return model.embed[batch["tokens"]]
+        return embedding(model.embed, batch["tokens"])
     if cfg.input_mode == "embeddings":
         proj = model.frontend_proj
         x = batch["frames"].to(proj.dtype) @ proj
@@ -234,7 +278,7 @@ def embed_inputs(model, cfg: ModelConfig, batch: dict) -> torch.Tensor:
             x = torch.where(batch["mask"][..., None], model.mask_embed, x)
         return x
     if cfg.input_mode == "multimodal":
-        x = model.embed[batch["tokens"]]
+        x = embedding(model.embed, batch["tokens"])
         proj = model.patch_proj
         patches = batch["patch_embeds"].to(proj.dtype) @ proj
         rows = torch.arange(x.shape[0], device=x.device)[:, None]
@@ -255,7 +299,7 @@ def _ssm_branch(lp, h: torch.Tensor, cfg: ModelConfig):
     """Returns (y, (final ssm_h, trailing conv state))."""
     sp = lp.ssm
     n, r = cfg.ssm_state, sp.w_dt.shape[0]
-    xs, z = torch.chunk(h @ sp.w_in, 2, dim=-1)
+    xs, z = chunk_last(h @ sp.w_in, 2)
     xs, conv_state = rec.causal_conv1d(xs, sp.conv_w)
     xs = F.silu(xs)
     dt_r, bmat, cmat = torch.split(xs @ sp.w_xdb, [r, n, n], dim=-1)
@@ -269,12 +313,10 @@ def _mlstm_block(mp, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     hh = cfg.n_heads
     inner = mp.w_down.shape[0]
-    dh = inner // hh
-    xm, gate = torch.chunk(rms_norm(x, mp.ln, cfg.norm_eps) @ mp.w_up, 2,
-                           dim=-1)
+    xm, gate = chunk_last(rms_norm(x, mp.ln, cfg.norm_eps) @ mp.w_up, 2)
 
     def heads(w):
-        return (xm @ w).reshape(b, s, hh, dh).transpose(1, 2)
+        return attn_lib.split_heads(xm @ w, hh)
 
     gates = xm @ mp.w_if + mp.b_if
     mchunk = s if cfg.mlstm_chunk <= 0 else min(cfg.mlstm_chunk, s)
@@ -282,13 +324,13 @@ def _mlstm_block(mp, x: torch.Tensor, cfg: ModelConfig):
         heads(mp.w_q), heads(mp.w_k), heads(mp.w_v),
         gates[..., :hh].transpose(1, 2), gates[..., hh:].transpose(1, 2),
         chunk=mchunk)
-    out = out.transpose(1, 2).reshape(b, s, inner).to(x.dtype)
+    out = attn_lib.merge_heads(out).to(x.dtype)
     return (out * F.silu(gate)) @ mp.w_down, mstate
 
 
 def _slstm_block(sp, x: torch.Tensor, cfg: ModelConfig):
     zifo = rms_norm(x, sp.ln, cfg.norm_eps) @ sp.w_zifo + sp.b_zifo
-    h, sstate = rec.slstm_scan(*torch.chunk(zifo, 4, dim=-1))
+    h, sstate = rec.slstm_scan(*chunk_last(zifo, 4))
     return h.to(x.dtype) @ sp.w_out, sstate
 
 
@@ -298,6 +340,8 @@ def _layer_forward(lp, x: torch.Tensor, cfg: ModelConfig,
     """One layer.  Returns (x, aux loss or None, the layer's cache parts
     or None).  ``attention`` is the flash kernel's (serving) or
     ``train_attention``."""
+    # residual stream sharded (batch over data, d_model over model)
+    x = constrain(x, "batch", None, "model")
     cache = None
     if cfg.block_pattern == "xlstm":
         m_out, mstate = _mlstm_block(lp.m, x, cfg)
@@ -307,14 +351,22 @@ def _layer_forward(lp, x: torch.Tensor, cfg: ModelConfig,
             cache = {"m_c": mstate.c, "m_n": mstate.n,
                      "s_c": sstate.c, "s_n": sstate.n}
         return x + s_out, None, cache
+    hybrid = cfg.block_pattern == "hybrid"
     h = rms_norm(x, lp.ln1, cfg.norm_eps)
-    q, k, v = _qkv_rope(lp.attn, h, cfg, positions)
+    q, k, v = (constrain(t, "batch", "heads", None, None)
+               for t in attn_lib.qkv_proj(lp.attn, h, cfg))
+    q = attn_lib.rope_transpose(q, positions, cfg.rope_theta)
+    k = attn_lib.rope_transpose(k, positions, cfg.rope_theta)
     o = attention(q, k, v, causal=cfg.causal, window=cfg.window,
                   chunk=cfg.attn_chunk)
+    if not hybrid:
+        o = constrain(o, "batch", "heads", None, None)
     a_out = attn_lib.out_proj(lp.attn, o)
+    if not hybrid:
+        a_out = constrain(a_out, "batch", None, None)
     if collect_cache:
         cache = {"k": k, "v": v}
-    if cfg.block_pattern == "hybrid":
+    if hybrid:
         s_out, (ssm_h, conv_state) = _ssm_branch(lp, h, cfg)
         if collect_cache:
             cache.update(ssm_h=ssm_h, conv=conv_state)
@@ -344,19 +396,29 @@ def _sum_aux(auxs: list, device) -> torch.Tensor:
     return total
 
 
+def _logits(model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the LM head: (b, s, V) logits.  d_model is
+    gathered before the vocab-sharded head, whose matmul then needs no
+    collective (else DTensor may make full-vocab partial logits)."""
+    x = constrain(rms_norm(x, model.final_norm, cfg.norm_eps),
+                  "batch", None, None)
+    return constrain(x @ model.head(), "batch", None, "vocab")
+
+
 def forward(model, cfg: ModelConfig, batch: dict, *,
             attention=attn_lib.attention):
     """Full-sequence forward (serving: flash attention; pass
     ``attention=attention.train_attention`` for the plain path).  Returns
     (logits (b, s, V), the summed MoE aux loss, 0 without experts)."""
-    x = embed_inputs(model, cfg, batch)
+    x = constrain(embed_inputs(model, cfg, batch), "batch", None, "model")
     positions = _positions(x.shape[0], x.shape[1], x.device)
     auxs = []
     for lp in model.layers:
-        x, aux, _ = _layer_forward(lp, x, cfg, positions, attention)
+        x, aux, _ = _layer_forward(constrain_params(lp), x, cfg, positions,
+                                   attention)
         auxs.append(aux)
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x @ model.head(), _sum_aux(auxs, x.device)
+    logits = _logits(model, cfg, x)
+    return logits, _sum_aux(auxs, x.device)
 
 
 # ============================================================ training
@@ -372,19 +434,19 @@ def _train_forward(model, cfg: ModelConfig, batch: dict, remat: str):
     the same loss and gradients)."""
     if remat not in REMAT_NAMES:
         raise ValueError(f"unknown remat policy {remat!r}")
-    x = embed_inputs(model, cfg, batch)
+    x = constrain(embed_inputs(model, cfg, batch), "batch", None, "model")
     positions = _positions(x.shape[0], x.shape[1], x.device)
     auxs = []
     for lp in model.layers:
         def layer(x, lp=lp):
-            return _layer_forward(lp, x, cfg, positions,
+            return _layer_forward(constrain_params(lp), x, cfg, positions,
                                   attn_lib.train_attention)[:2]
 
         x, aux = layer(x) if remat == "none" else checkpoint(
             layer, x, use_reentrant=False)
         auxs.append(aux)
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x @ model.head(), _sum_aux(auxs, x.device)
+    logits = _logits(model, cfg, x)
+    return logits, _sum_aux(auxs, x.device)
 
 
 def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -417,7 +479,7 @@ class TreeModel:
     def __init__(self, params: dict, cfg: ModelConfig):
         self.cfg = cfg
         for name in TOP_LEAVES:
-            setattr(self, name, params.get(name))
+            setattr(self, name, constrain_params(params.get(name)))
         lay = params["layers"]
         first = lay
         while isinstance(first, dict):
@@ -478,21 +540,22 @@ def prefill_with_cache(model, cfg: ModelConfig, batch: dict,
     """
     if cfg.serve_window is not None:
         cfg = dataclasses.replace(cfg, window=cfg.serve_window)
-    x = embed_inputs(model, cfg, batch)
+    x = constrain(embed_inputs(model, cfg, batch), "batch", None, "model")
     b, s, _ = x.shape
     if capacity is None:
         capacity = s if cfg.serve_window is None else min(s, cfg.serve_window)
     positions = _positions(b, s, x.device)
     layers = []
     for lp in model.layers:
-        x, _, cache = _layer_forward(lp, x, cfg, positions, attention,
+        x, _, cache = _layer_forward(constrain_params(lp), x, cfg,
+                                     positions, attention,
                                      collect_cache=True)
         if "k" in cache:
             cache.update(k=to_ring(cache["k"], capacity),
                          v=to_ring(cache["v"], capacity))
         layers.append(cache)
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x @ model.head(), DecodeCache(layers=layers, pos=s)
+    logits = _logits(model, cfg, x)
+    return logits, DecodeCache(layers=layers, pos=s)
 
 
 # ============================================================== decode
@@ -540,29 +603,49 @@ def _attn_decode(lp, x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     posv = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     q, k, v = _qkv_rope(lp, x, cfg, posv)
     slot = pos % cap
-    kc[:, :, slot] = k[:, :, 0].to(kc.dtype)
-    vc[:, :, slot] = v[:, :, 0].to(vc.dtype)
+    if cfg.splitk_decode:
+        # split-K serving: the cache LENGTH dim may be sharded over the
+        # model axis, so the ring write is the reference's elementwise
+        # select (new rings), never a write at one slot of one shard
+        hit = (torch.arange(cap, device=x.device) == slot)[None, None, :,
+                                                            None]
+        kc = torch.where(hit, k.to(kc.dtype), kc)
+        vc = torch.where(hit, v.to(vc.dtype), vc)
+    else:
+        kc[:, :, slot] = k[:, :, 0].to(kc.dtype)
+        vc[:, :, slot] = v[:, :, 0].to(vc.dtype)
     kpos = attn_lib._ring_positions(pos, cap, x.device)
     valid = (kpos <= pos) & (kpos >= 0)
     if cfg.serve_window is not None:
         valid &= kpos > pos - cfg.serve_window
+    # pin the cache reads: heads (or, split-K, the length) over model
+    q = constrain(q, "batch", "heads", None, None)
+    if cfg.splitk_decode:
+        kc = constrain(kc, "batch", None, "model", None)
+        vc = constrain(vc, "batch", None, "model", None)
+    else:
+        kc = constrain(kc, "batch", "heads", None, None)
+        vc = constrain(vc, "batch", "heads", None, None)
     # grouped-head GQA reads the cache directly: query head g * rep + r
     # scores against key/value head g, with no repeat of the cache
     rep = cfg.n_heads // cfg.n_kv_heads
+    if not model_divides(cfg.n_kv_heads):
+        # the query heads' shards do not line up with the KV groups
+        q = constrain(q, "batch", None, None, None)
     qg = q.reshape(b, cfg.n_kv_heads, rep, dh).float()
     sc = torch.matmul(qg, kc.float().transpose(-1, -2)) * dh ** -0.5
     sc = sc.masked_fill(~valid, attn_lib.NEG_INF)
     p = torch.softmax(sc, dim=-1)
     o = torch.matmul(p, vc.float())
     o = o.reshape(b, cfg.n_heads, 1, dh).to(x.dtype)
-    return attn_lib.out_proj(lp, o), kc, vc
+    return constrain(attn_lib.out_proj(lp, o), "batch", None, None), kc, vc
 
 
 def _ssm_decode(lp, h: torch.Tensor, cache_l: dict, cfg: ModelConfig):
     """h (b, D) -> (y (b, D), new ssm_h, new conv state)."""
     sp = lp.ssm
     n, r = cfg.ssm_state, sp.w_dt.shape[0]
-    xs, z = torch.chunk(h @ sp.w_in, 2, dim=-1)
+    xs, z = chunk_last(h @ sp.w_in, 2)
     y1, conv = rec.causal_conv1d(xs[:, None], sp.conv_w,
                                  state=cache_l["conv"])
     xs = F.silu(y1[:, 0])
@@ -573,17 +656,23 @@ def _ssm_decode(lp, h: torch.Tensor, cache_l: dict, cfg: ModelConfig):
     return (y * F.silu(z)) @ sp.w_out, hh, conv
 
 
+def _split_heads_1(x: torch.Tensor, h: int) -> torch.Tensor:
+    """(b, h dh) -> (b, h, dh), gathering the flat dim first where ``h``
+    does not divide the model axis (as ``attention.split_heads``)."""
+    if not model_divides(h):
+        x = constrain(x, "batch", None)
+    return x.reshape(x.shape[0], h, x.shape[1] // h)
+
+
 def _xlstm_decode(lp, cache_l: dict, x: torch.Tensor, cfg: ModelConfig):
     b = x.shape[0]
     mp, sp = lp.m, lp.s
     inner = mp.w_down.shape[0]
     hh = cfg.n_heads
-    dh = inner // hh
     # mLSTM sub-block
     hx = rms_norm(x, mp.ln, cfg.norm_eps)[:, 0]                  # (b, d)
-    xm, gate = torch.chunk(hx @ mp.w_up, 2, dim=-1)
-    q, k, v = ((xm @ w).reshape(b, hh, dh)
-               for w in (mp.w_q, mp.w_k, mp.w_v))
+    xm, gate = chunk_last(hx @ mp.w_up, 2)
+    q, k, v = (_split_heads_1(xm @ w, hh) for w in (mp.w_q, mp.w_k, mp.w_v))
     gates = xm @ mp.w_if + mp.b_if
     o, mst = rec.mlstm_decode_step(
         q, k, v, gates[:, :hh], gates[:, hh:],
@@ -594,7 +683,7 @@ def _xlstm_decode(lp, cache_l: dict, x: torch.Tensor, cfg: ModelConfig):
     hx = rms_norm(x, sp.ln, cfg.norm_eps)[:, 0]
     zifo = hx @ sp.w_zifo + sp.b_zifo
     hs, sst = rec.slstm_decode_step(
-        *torch.chunk(zifo, 4, dim=-1),
+        *chunk_last(zifo, 4),
         rec.SLSTMState(c=cache_l["s_c"], n=cache_l["s_n"]))
     x = x + (hs.to(x.dtype) @ sp.w_out)[:, None]
     return x, {"m_c": mst.c, "m_n": mst.n, "s_c": sst.c, "s_n": sst.n}
@@ -628,12 +717,12 @@ def decode_step(model, cfg: ModelConfig, cache: DecodeCache,
                 tokens: torch.Tensor):
     """Decode ONE token.  tokens (b, 1) -> (logits (b,1,V), cache at
     pos + 1).  The returned cache shares (and has updated) the given
-    cache's ring buffers."""
-    x = model.embed[tokens]
+    cache's ring buffers; under ``splitk_decode`` it holds new rings."""
+    x = embedding(model.embed, tokens)
     pos = int(cache.pos)
     new_layers = []
     for lp, cache_l in zip(model.layers, cache.layers):
-        x, cache_l = _layer_decode(lp, cache_l, x, pos, cfg)
+        x, cache_l = _layer_decode(constrain_params(lp), cache_l, x, pos, cfg)
         new_layers.append(cache_l)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return x @ model.head(), DecodeCache(layers=new_layers, pos=pos + 1)

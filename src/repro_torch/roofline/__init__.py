@@ -1,14 +1,16 @@
-"""repro_torch.roofline: hardware peaks, model flops and the roofline
-report (``analysis``), each kernel's work from its shapes
-(``kernel_costs``), and the engine's achieved-vs-peak rows
-(``engine_costs``).  The port of ``repro/roofline``; the calibrated
-sweep (``measure``, ``run_sweep``) comes with the multi-device dry run."""
+"""repro_torch.roofline: hardware peaks, model flops, the roofline
+report and the dry run's per-rank cost count (``analysis``), each
+kernel's work from its shapes (``kernel_costs``), the engine's
+achieved-vs-peak rows (``engine_costs``), and the calibrated sweep over
+the dry run (``measure``, ``run_sweep``).  The port of
+``repro/roofline``."""
 from repro_torch.roofline.analysis import (
     HW_H100,
     HW_H100_FP32,
     HW_V5E,
     Hardware,
     RooflineReport,
+    ShardCostMode,
     active_param_count,
     model_flops,
     roofline_terms,
@@ -30,6 +32,7 @@ __all__ = [
     "HW_V5E",
     "Hardware",
     "RooflineReport",
+    "ShardCostMode",
     "achieved_vs_peak",
     "active_param_count",
     "detect_hardware",

@@ -94,7 +94,11 @@ def test_port_files_exist():
                 "launch/steps.py", "data/lm_data.py", "optim/sgd.py",
                 "optim/schedule.py", "checkpoint/__init__.py",
                 "checkpoint/checkpoint.py", "checkpoint/msgpack_lite.py",
-                "models/moe.py", "models/recurrent.py"):
+                "models/moe.py", "models/recurrent.py",
+                "launch/mesh.py", "launch/inputs.py", "launch/dryrun.py",
+                "sharding/__init__.py", "sharding/specs.py",
+                "sharding/activations.py", "roofline/measure.py",
+                "roofline/run_sweep.py"):
         assert (PORT / rel).exists(), rel
     assert len(PORT_FILES) > 10 and PORT_FILES[-1].exists()
 
@@ -355,3 +359,39 @@ def test_family_entry_points_raise_without_cuda(no_cuda, arch):
         with pytest.raises(RuntimeError, match="CUDA"):
             ttrain.main(["--arch", arch, "--reduced"])
     assert init_params(cfg, device="cpu").embed.device.type == "cpu"
+
+
+def test_dry_run_raises_without_cuda_unless_asked_for_the_cpu(no_cuda):
+    """The mesh family runs on CUDA meshes (fake tensors on the card's
+    device type) unless asked for the CPU: without a card every entry
+    point raises before it builds a process group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (
+        destroy_fake_process_group,
+        make_debug_mesh,
+        make_production_mesh,
+    )
+    from repro_torch.roofline import run_sweep
+
+    had_group = dist.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_debug_mesh(2, 2, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--arch", "xlstm_125m", "--shape", "long_500k"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.lower_one("xlstm_125m", "long_500k")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_sweep.main(["--arch", "xlstm_125m", "--shape", "long_500k",
+                        "--json", "unused.jsonl"])
+    assert dist.is_initialized() == had_group
+    if not had_group:
+        mesh = make_debug_mesh(1, 2, device="cpu")
+        assert mesh.device_type == "cpu" and tuple(mesh.shape) == (1, 2)
+        with pytest.raises(RuntimeError, match="2 ranks exists"):
+            make_debug_mesh(2, 2, device="cpu")
+        destroy_fake_process_group()
+        assert not dist.is_initialized()
