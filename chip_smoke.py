@@ -322,7 +322,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     ``FlopCounterMode`` count equal to the dry run's, and the predicted
     peak at least ``TIE_PEAK_MIN`` of ``torch.cuda.max_memory_allocated``;
     one ``{"dryrun_checks": {...}}`` line;
- 7. the card's name and power limit again, then the last line
+ 7. the round's client axis on a mesh (``mesh=`` / ``client_axis=``,
+    ``sharding/clients.py``), each run held to the same run without a
+    mesh, made first in this process: (a) the main path at one rank of
+    NCCL (``launch.mesh.client_mesh``), labels, centers and cluster
+    models bit for bit, purity 1.0; (b) in ``MESH_RANKS`` = 4 spawned
+    processes of one gloo group over CUDA tensors on the card (NCCL
+    refuses two ranks on one GPU), the main path at C = 1 048 576
+    (262 144 rows a rank: labels equal, centers within rtol 1e-6, mse <
+    1e-2, every rank's kmeans_assign calls on its own 262 144 rows, none
+    on 1 048 576, each a ``stream`` launch), the mutation run (its
+    labels, the warm refinalize taken), ``--shards 32`` and the convex
+    kNN round at C = 16 384 (the same partitions); (c) in the same
+    processes the fused round on qwen2-0.5b at full width, C = 8 clients
+    in two planted clusters (2 a rank, sketch 128): the labels, and
+    every rank's client models within one bf16 ulp of the unmeshed
+    cluster models (plus 2^-20 of the leaf's largest magnitude, the fp32
+    sums' rounding), the all-reduce bytes and seconds a rank printed.
+    Each subphase prints its backend, ranks, rows a rank and seconds
+    with the card line; one ``{"client_mesh": {...}}`` line;
+ 8. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds, after phase 5's line, traced runs under ``torch.profiler``:
@@ -340,6 +359,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import re
@@ -4330,6 +4350,428 @@ def phase_dryrun(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------- phase 7 (the client mesh)
+
+# the round's client axis on a mesh of MESH_RANKS processes: gloo over
+# CUDA tensors on the one card (NCCL refuses two ranks on one GPU), NCCL
+# at one rank; the main path at C = 1 048 576 (262 144 rows a rank), the
+# mutation run, the two-level round at S = 32 and the convex kNN round at
+# C = 16 384; the LM round on qwen2-0.5b at full width, C = 8 clients in
+# two planted clusters (2 a rank), sketch 128
+MESH_RANKS = 4
+MESH_TIMEOUT = 600
+MESH_CONVEX_C = 16_384
+MESH_LM_C, MESH_LM_K, MESH_LM_SKETCH = 8, 2, 128
+# the all-reduce moves sums in another order than the unmeshed one-hot
+# product: centers within rtol 1e-6 (atol 1e-6 of the largest magnitude);
+# a bf16 cluster model within one bf16 ulp of the unmeshed one, plus the
+# fp32 sums' own rounding, 2^-20 of the leaf's largest magnitude (four
+# members a cluster; an entry whose members nearly cancel keeps only
+# that)
+MESH_CENTER_RTOL = 1e-6
+BF16_ULP = 2.0 ** -7
+FP32_SUM_ATOL = 2.0 ** -20
+
+
+def mesh_runs(main_c: int, convex_c: int) -> dict:
+    """Phase 7's simulate runs (7a's main path, 7b's five), by name: 7b
+    runs the main path twice, the first a fresh process's first work on
+    the card, the second warm."""
+    base = dict(clusters=8, dim=16, samples=64, sketch_dim=64,
+                algorithm="kmeans-device", init="kmeans++")
+    return {
+        "main": dict(base, clients=main_c, wave=65_536),
+        "main again": dict(base, clients=main_c, wave=65_536),
+        "mutation": dict(base, clients=main_c, wave=65_536,
+                         mutation_rounds=3, **MUTATION),
+        "shards 32": dict(base, clients=main_c, wave=main_c // HIER_SHARDS,
+                          shards=HIER_SHARDS),
+        "convex-device knn": dict(base, clients=convex_c, sketch_dim=32,
+                                  algorithm="convex-device", edges="knn",
+                                  knn_k=8, cc_iters=200),
+    }
+
+
+def mesh_round(summary: dict) -> dict:
+    """What a run is held to: its labels, centers and cluster models on
+    the host, its purity, MSE and the refinalize it took; with where its
+    time went (``run_breakdown``)."""
+    r = summary.round
+    models = {k: v.float().cpu() for k, v in r["models"].items()}
+    return {"labels": np.asarray(r["labels"]), "centers": r["centers"].cpu(),
+            "models": models, "purity": summary["purity"],
+            "mse": summary["mse"], "n_iter": summary["meta"]["n_iter"],
+            "refinalize": r["refinalize"],
+            "refinalize_fired": (summary["serving"] or {}).get(
+                "refinalize_fired"),
+            **run_breakdown(summary)}
+
+
+def run_breakdown(summary: dict) -> dict:
+    """A run's phases (simulate's wall clock: the clients' ERMs, the
+    ingest, the server round) and the spans that split them, summed over
+    the run: the collectives (``mesh.*``) and the round's stages, ms."""
+    spans = {name[:-3]: {"ms": h.get("sum", 0.0), "count": h.get("count", 0)}
+             for name, h in summary["obs"]["histograms"].items()
+             if name.endswith(".ms") and name.startswith(
+                 ("mesh.", "session.", "engine.", "hierarchy."))}
+    return {"phases": summary["phases"], "spans": spans}
+
+
+def mesh_close(name: str, got: torch.Tensor, want: torch.Tensor,
+               rtol: float) -> float:
+    """|got - want| <= rtol (|want| + max|want|), elementwise; returns the
+    largest error over the largest magnitude."""
+    scale = float(want.abs().max()) or 1.0
+    err = (got - want).abs()
+    check(bool((err <= rtol * (want.abs() + scale)).all()),
+          f"{name}: off by {float(err.max()):.3g} (scale {scale:.3g})")
+    return float(err.max()) / scale
+
+
+def lm_planted_clients(cfg, rows: range, device) -> dict:
+    """Clients ``rows`` of the planted LM federation, stacked: client i is
+    the random init of seed i % MESH_LM_K plus 1e-2 normal noise drawn
+    from seed 1000 + i, so any rank makes any client alone."""
+    from repro_torch.models.transformer import init_tree
+    from repro_torch.utils import tree_map
+
+    bases = [init_tree(cfg, seed=c, device=device) for c in range(MESH_LM_K)]
+    clients = []
+    for i in rows:
+        gen = torch.Generator(device=device).manual_seed(1000 + i)
+        clients.append(tree_map(lambda l: (l.float() + 1e-2 * torch.randn(
+            l.shape, generator=gen, device=device)).to(l.dtype),
+            bases[i % MESH_LM_K]))
+    del bases
+    return tree_map(lambda *ls: torch.stack(ls), *clients)
+
+
+def lm_round(cfg, params, n_clients: int, device, mesh=None):
+    from repro_torch.core.engine.aggregate import one_shot_aggregate_device
+    from repro_torch.core.federated import FederatedState
+
+    return one_shot_aggregate_device(
+        FederatedState(params=params, opt_state=None, n_clients=n_clients),
+        cfg, algorithm="kmeans-device", k=MESH_LM_K,
+        sketch_dim=MESH_LM_SKETCH, seed=0, mesh=mesh, device=device)
+
+
+@contextlib.contextmanager
+def calls_by_rows(ops):
+    """Count the calls of ``kops.kmeans_assign`` and ``kops.pairwise_sqdist``
+    by the rows they are given, ``{name: {rows: calls}}``, while the
+    block runs (the wrappers are put back after it)."""
+    seen = {"kmeans_assign": {}, "pairwise_sqdist": {}}
+    inner = {name: getattr(ops, name) for name in seen}
+
+    def counting(fn, calls):
+        def wrapped(points, *args):
+            m = int(points.shape[-2])
+            calls[m] = calls.get(m, 0) + 1
+            return fn(points, *args)
+        return wrapped
+
+    for name, calls in seen.items():
+        setattr(ops, name, counting(inner[name], calls))
+    try:
+        yield seen
+    finally:
+        for name, fn in inner.items():
+            setattr(ops, name, fn)
+
+
+def mesh_child(rank: int, port: int, out_dir: str, base: dict,
+               sizes: dict) -> None:
+    """One rank of phase 7b-c: every run with the mesh, each held to the
+    unmeshed run of the parent (``base``), then one JSON record."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import client_mesh
+    from repro_torch.launch.simulate import simulate
+    from repro_torch.sharding.clients import ClientAxis
+    from repro_torch.utils import tree_leaves, tree_map
+
+    dev = sizes["device"]
+    mesh = client_mesh(MESH_RANKS, backend="gloo", device=dev, rank=rank,
+                       init_method=f"tcp://localhost:{port}")
+    axis = ClientAxis(mesh)
+    rec = {"rank": rank, "runs": {}}
+    for name, kw in mesh_runs(sizes["main_c"], sizes["convex_c"]).items():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with calls_by_rows(ops) as rows:
+            summary = simulate(mesh=mesh, device=dev, **kw)
+        seconds = time.perf_counter() - t0
+        got, want = mesh_round(summary), base[name]
+        what = f"7b {name} (rank {rank})"
+        if name in ("shards 32", "convex-device knn"):
+            check(same_partition(got["labels"], want["labels"]),
+                  f"{what}: another partition than the unmeshed run")
+        else:
+            check(np.array_equal(got["labels"], want["labels"]),
+                  f"{what}: labels differ from the unmeshed run on "
+                  f"{int((got['labels'] != want['labels']).sum())} clients")
+            mesh_close(f"{what} centers", got["centers"], want["centers"],
+                       MESH_CENTER_RTOL)
+        check(got["purity"] == 1.0, f"{what}: purity {got['purity']}")
+        check(got["mse"] is not None and got["mse"] < 1e-2,
+              f"{what}: mse {got['mse']}")
+        if name == "mutation":
+            check(got["refinalize_fired"] and got["refinalize"] == "warm",
+                  f"{what}: the warm refinalize was not taken "
+                  f"({got['refinalize_fired']}, {got['refinalize']})")
+        mine = sizes["main_c"] // MESH_RANKS
+        if name.startswith("main"):
+            calls = rows["kmeans_assign"]
+            check(calls.get(mine, 0) > 0 and sizes["main_c"] not in calls,
+                  f"{what}: kmeans_assign by rows {calls}, not on the "
+                  f"rank's {mine} rows alone")
+            if dev == "cuda":
+                stream = ops.variant_counts()["kmeans_assign"]["stream"]
+                check(stream == calls[mine],
+                      f"{what}: {stream} stream launches for "
+                      f"{calls[mine]} calls on {mine} rows")
+        rec["runs"][name] = {
+            "seconds": seconds, "purity": got["purity"], "mse": got["mse"],
+            "n_iter": got["n_iter"], "rows_per_rank": (
+                kw["clients"] + kw.get("churn", 0)
+                * kw.get("mutation_rounds", 0)) // MESH_RANKS,
+            "calls_by_rows": {k: {str(m): n for m, n in v.items()}
+                              for k, v in rows.items()},
+            "launches": read_counts(ops) if dev == "cuda" else None,
+            "all_reduce_bytes": summary["obs"]["counters"].get(
+                "mesh.all_reduce.bytes", 0.0),
+            "gather_bytes": summary["obs"]["counters"].get(
+                "mesh.gather.bytes", 0.0),
+            "phases": got["phases"], "spans": got["spans"]}
+        del summary
+    # the unmeshed LM models arrived through CUDA IPC: popped from the
+    # shared dict, so the last reference goes with this frame's and the
+    # parent's storage is released before the process ends
+    want = base.pop("lm", None)
+    if want is not None:
+        from repro_torch.configs import get_config
+
+        cfg = sizes.get("lm_cfg") or get_config(SERVE_ARCH)
+        per = MESH_LM_C // MESH_RANKS
+        local = lm_planted_clients(cfg, range(rank * per, (rank + 1) * per),
+                                   dev)
+        params = tree_map(lambda l: axis.dtensor(l, [per] * MESH_RANKS),
+                          local)
+        del local
+        obs.reset()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, labels, info = lm_round(cfg, params, MESH_LM_C, dev, mesh)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        snap = obs.snapshot()
+        check(np.array_equal(np.asarray(labels), want["labels"]),
+              f"7c (rank {rank}): labels {labels} != {want['labels']}")
+        worst = 0.0
+        for i, (got_l, want_l) in enumerate(zip(
+                tree_leaves(state.params), tree_leaves(want["models"]))):
+            mine_rows = got_l.to_local()
+            scale = float(want_l.float().abs().max()) or 1.0
+            atol = FP32_SUM_ATOL * scale
+            for j in range(per):
+                lab = int(labels[rank * per + j])
+                g, w = mine_rows[j].float(), want_l[lab].float()
+                err = (g - w).abs()
+                check(bool((err <= BF16_ULP * w.abs() + atol).all()),
+                      f"7c (rank {rank}): leaf {i} of client "
+                      f"{rank * per + j} off by {float(err.max()):.3g}, "
+                      "more than one bf16 ulp of the unmeshed model")
+                worst = max(worst, float(err.max()) / scale)
+        hist = snap["histograms"].get("mesh.all_reduce.ms", {})
+        rec["lm"] = {"seconds": seconds,
+                     "all_reduce_bytes": snap["counters"].get(
+                         "mesh.all_reduce.bytes", 0.0),
+                     "all_reduce_ms": hist.get("sum", 0.0),
+                     "all_reduces": hist.get("count", 0),
+                     "max_err_over_scale": worst, "rows_per_rank": per,
+                     "launches": read_counts(ops) if dev == "cuda" else None,
+                     "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                           if dev == "cuda" else None)}
+        del state, params, want
+        gc.collect()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_client_mesh(card: str, device: str = "cuda",
+                      main_c: int = MAIN_M, convex_c: int = MESH_CONVEX_C,
+                      lm_cfg=None, single_backend: str = "nccl") -> dict:
+    """Phase 7: the round's client axis on a mesh.  7a: the main path at
+    one rank of ``single_backend`` equal to the unmeshed run bit for bit
+    (labels, centers, cluster models).  7b: the four runs of
+    ``mesh_runs`` in ``MESH_RANKS`` spawned processes of one gloo group
+    over tensors on the card, each held to the unmeshed run.  7c: the LM
+    round at C = 8 in the same processes, held to the unmeshed round.
+    (``device`` and the sizes let the phase be rehearsed on the CPU.)"""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import client_mesh
+    from repro_torch.launch.simulate import simulate
+    from repro_torch.utils import tree_map
+
+    t_all = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    runs = mesh_runs(main_c, convex_c)
+    base, seconds = {}, {}
+    for name, kw in runs.items():
+        t0 = time.perf_counter()
+        base[name] = mesh_round(simulate(device=device, **kw))
+        seconds[f"unmeshed {name}"] = time.perf_counter() - t0
+    out = {"card": card, "ranks": MESH_RANKS, "subphases": {}}
+
+    # ---- 7a: one rank of NCCL, bit for bit
+    t0 = time.perf_counter()
+    mesh = client_mesh(1, backend=single_backend, device=device, rank=0,
+                       init_method=f"tcp://localhost:{free_port()}")
+    ops.reset_launch_counts()
+    got = mesh_round(simulate(mesh=mesh, device=device, **runs["main"]))
+    launches = read_counts(ops) if device == "cuda" else None
+    dist.destroy_process_group()
+    want = base["main"]
+    check(np.array_equal(got["labels"], want["labels"]),
+          "7a: labels differ from the unmeshed run")
+    check(torch.equal(got["centers"], want["centers"]),
+          "7a: centers differ from the unmeshed run")
+    for key in want["models"]:
+        check(torch.equal(got["models"][key], want["models"][key]),
+              f"7a: cluster model {key} differs from the unmeshed run")
+    check(got["purity"] == 1.0, f"7a: purity {got['purity']}")
+    out["subphases"]["7a"] = {
+        "backend": single_backend, "ranks": 1, "rows_per_rank": main_c,
+        "seconds": time.perf_counter() - t0,
+        "unmeshed_seconds": seconds["unmeshed main"], "launches": launches,
+        "purity": got["purity"], "n_iter": got["n_iter"],
+        "phases": got["phases"], "spans": got["spans"],
+        "unmeshed_phases": want["phases"], "unmeshed_spans": want["spans"]}
+    print(f"[chip_smoke] 7a {single_backend} 1 rank, {main_c} rows: "
+          f"{out['subphases']['7a']['seconds']:.1f}s  ({card})", flush=True)
+
+    # ---- the LM round without a mesh
+    if lm_cfg is not None or device == "cuda":
+        from repro_torch.configs import get_config
+        from repro_torch.utils import tree_leaves
+
+        cfg = lm_cfg or get_config(SERVE_ARCH)
+        t0 = time.perf_counter()
+        params = lm_planted_clients(cfg, range(MESH_LM_C), device)
+        state, labels, _ = lm_round(cfg, params, MESH_LM_C, device)
+        del params
+        labels = np.asarray(labels)
+        check(same_partition(labels, np.arange(MESH_LM_C) % MESH_LM_K),
+              f"7c: the unmeshed round missed the planted clusters {labels}")
+        first = torch.as_tensor([int(np.argmax(labels == c))
+                                 for c in range(MESH_LM_K)], device=device)
+        models = tree_map(lambda l: l.index_select(0, first), state.params)
+        del state
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        base["lm"] = {"labels": labels, "models": models}
+        seconds["unmeshed lm"] = time.perf_counter() - t0
+        n_params = sum(l[0].numel() for l in tree_leaves(models))
+    else:
+        base["lm"] = None
+
+    # ---- 7b-c: MESH_RANKS processes of gloo
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent)
+    sizes = {"device": device, "main_c": main_c, "convex_c": convex_c,
+             "lm_cfg": lm_cfg}
+    ctx = mp.start_processes(mesh_child, args=(free_port(), tmp.name, base,
+                                               sizes),
+                             nprocs=MESH_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                fail(f"7b-c: the {MESH_RANKS} ranks ran past "
+                     f"{MESH_TIMEOUT} s")
+    except ProcessException as e:
+        fail(f"7b-c: a rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    recs = [json.loads((Path(tmp.name) / f"rank{r}.json").read_text())
+            for r in range(MESH_RANKS)]
+    tmp.cleanup()
+    wall = time.perf_counter() - t0
+    base_phases = {name: {k: base[name][k] for k in ("phases", "spans")}
+                   for name in runs}
+    del base
+    for name in runs:
+        per_rank = [r["runs"][name] for r in recs]
+        out["subphases"][f"7b {name}"] = {
+            "backend": "gloo", "ranks": MESH_RANKS,
+            "rows_per_rank": per_rank[0]["rows_per_rank"],
+            "seconds": max(r["seconds"] for r in per_rank),
+            "unmeshed_seconds": seconds[f"unmeshed {name}"],
+            "purity": per_rank[0]["purity"], "mse": per_rank[0]["mse"],
+            "n_iter": per_rank[0]["n_iter"],
+            "all_reduce_bytes_per_rank": per_rank[0]["all_reduce_bytes"],
+            "gather_bytes_per_rank": per_rank[0]["gather_bytes"],
+            "calls_by_rows_per_rank": [r["calls_by_rows"] for r in per_rank],
+            "launches_per_rank": [r["launches"] for r in per_rank],
+            "phases_per_rank": [r["phases"] for r in per_rank],
+            "spans_rank0": per_rank[0]["spans"],
+            "unmeshed_phases": base_phases[name]["phases"],
+            "unmeshed_spans": base_phases[name]["spans"]}
+        ph = per_rank[0]["phases"]
+        print(f"[chip_smoke] 7b {name}: gloo {MESH_RANKS} ranks, "
+              f"{per_rank[0]['rows_per_rank']} rows a rank: "
+              f"{out['subphases'][f'7b {name}']['seconds']:.1f}s (rank 0: "
+              f"ERM {ph['local_erm_s']:.2f}s, ingest {ph['ingest_s']:.2f}s, "
+              f"round {ph['aggregate_s']:.2f}s)  ({card})", flush=True)
+    if recs[0].get("lm") is not None:
+        lm = [r["lm"] for r in recs]
+        out["subphases"]["7c lm"] = {
+            "backend": "gloo", "ranks": MESH_RANKS, "arch": SERVE_ARCH,
+            "clients": MESH_LM_C, "clusters": MESH_LM_K,
+            "sketch_dim": MESH_LM_SKETCH, "params_per_client": n_params,
+            "rows_per_rank": lm[0]["rows_per_rank"],
+            "seconds": max(r["seconds"] for r in lm),
+            "unmeshed_seconds": seconds["unmeshed lm"],
+            "all_reduce_bytes_per_rank": lm[0]["all_reduce_bytes"],
+            "all_reduce_ms_per_rank": [r["all_reduce_ms"] for r in lm],
+            "all_reduces_per_rank": lm[0]["all_reduces"],
+            "max_err_over_scale": max(r["max_err_over_scale"] for r in lm),
+            "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
+                                           for r in lm],
+            "launches_per_rank": [r["launches"] for r in lm]}
+        print(f"[chip_smoke] 7c {SERVE_ARCH} C={MESH_LM_C}: gloo "
+              f"{MESH_RANKS} ranks, {lm[0]['rows_per_rank']} clients a "
+              f"rank: {out['subphases']['7c lm']['seconds']:.1f}s, "
+              f"all-reduce {lm[0]['all_reduce_bytes'] / 1e9:.2f} GB a rank "
+              f"in {lm[0]['all_reduce_ms'] / 1e3:.1f}s  ({card})", flush=True)
+    out["spawned_seconds"] = wall
+    out["seconds"] = time.perf_counter() - t_all
+    print(json.dumps({"client_mesh": out}), flush=True)
+    return out
+
+
 def add_counts(rows: list, by_path: dict, errs: dict, flushes: dict,
                direct_routes: int, shape_launches: dict) -> None:
     """Phase 5: each row's launches on the paths (``by_path``: by wrapper
@@ -4453,6 +4895,7 @@ def main() -> None:
     print(json.dumps({"kernels": rows}), flush=True)
     phase_roofline(card, summary["obs"])
     phase_dryrun(card)
+    phase_client_mesh(card)
     if args.profile:
         phase_traces(simulate, generate)
     print(f"[chip_smoke] every phase passed in "

@@ -41,6 +41,7 @@ from repro_torch.core.engine.device_convex import (
 )
 from repro_torch.core.engine.device_kmeans import device_kmeans
 from repro_torch.device import resolve_device
+from repro_torch.sharding.clients import shard_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +122,12 @@ def _host_points(points, device=None) -> torch.Tensor:
     return points.to(torch.float32)
 
 
+def _whole(points, shard):
+    """The families without a sharded form cluster every row on every
+    rank: under a mesh the points are gathered first."""
+    return shard_of(points, shard).gather(points)
+
+
 def _n_clusters(labels, k: int) -> torch.Tensor:
     return torch.sum(torch.bincount(labels.long(), minlength=k) > 0)
 
@@ -156,7 +163,9 @@ class DeviceLloydFamily:
     (``kmeans++`` | ``spectral`` | ``random`` | ``warm``); ``restarts``
     keeps the best of that many inits; ``batch_m`` switches to minibatch
     updates; ``aggregator`` (a registry name or instance other than
-    ``mean``) makes the center update robust."""
+    ``mean``) makes the center update robust.  ``shard`` (a
+    ``sharding.clients.RowShard``) runs the loop on this rank's rows;
+    the labels come back for every row."""
     name: str = "kmeans-device"
     requires_k: bool = True
 
@@ -173,16 +182,18 @@ class DeviceLloydFamily:
                     iters: int = 100, init: str = "kmeans++",
                     restarts: int = 1, batch_m: Optional[int] = None,
                     aggregator=None, init_centers=None, sampler=None,
-                    **_: Any) -> DeviceClusteringResult:
+                    shard=None, **_: Any) -> DeviceClusteringResult:
         if k is None:
             raise ValueError(f"{self.name!r} requires k")
         res = device_kmeans(generator, points, k, iters=iters, init=init,
                             restarts=restarts, batch_m=batch_m,
                             aggregator=self._resolve_aggregator(aggregator),
-                            init_centers=init_centers, sampler=sampler)
+                            init_centers=init_centers, sampler=sampler,
+                            shard=shard)
         # the effective restart count: full-batch spectral seeding and
         # warm starts are deterministic, so device_kmeans runs them once
-        full_batch = batch_m is None or batch_m >= points.shape[0]
+        full_batch = (batch_m is None
+                      or batch_m >= shard_of(points, shard).total)
         eff_restarts = (1 if (init in ("spectral", "warm") and full_batch)
                         else restarts)
         return DeviceClusteringResult(
@@ -245,10 +256,11 @@ class DeviceGradientClustering:
     requires_k: bool = True
 
     def device_call(self, generator, points, *, k: Optional[int] = None,
-                    iters: int = 100, alpha: float = 0.5,
+                    iters: int = 100, alpha: float = 0.5, shard=None,
                     **_: Any) -> DeviceClusteringResult:
         if k is None:
             raise ValueError("gradient clustering requires k")
+        points = _whole(points, shard)
         res = gradient_clustering(generator, points.to(torch.float32), k,
                                   alpha=alpha, iters=iters)
         return DeviceClusteringResult(
@@ -311,9 +323,10 @@ class DeviceConvexClustering:
     def device_call(self, generator, points, *, k: Optional[int] = None,
                     lam: Optional[float] = None, iters: int = 400,
                     weights=None, merge_tol=None, edges="complete",
-                    knn_k: int = 8, warm_nu=None,
+                    knn_k: int = 8, warm_nu=None, shard=None,
                     **_: Any) -> DeviceClusteringResult:
         del k
+        points = _whole(points, shard)
         return _device_convex_result(points, device_convex_cluster(
             generator, points, lam=lam, iters=iters, weights=weights,
             merge_tol=merge_tol, edges=edges, knn_k=knn_k, warm_nu=warm_nu))
@@ -348,9 +361,10 @@ class DeviceClusterpath:
 
     def device_call(self, generator, points, *, k: Optional[int] = None,
                     n_lambdas: int = 10, iters: int = 300, merge_tol=None,
-                    edges="complete", knn_k: int = 8,
+                    edges="complete", knn_k: int = 8, shard=None,
                     **_: Any) -> DeviceClusteringResult:
         del k
+        points = _whole(points, shard)
         return _device_convex_result(points, device_clusterpath(
             generator, points, n_lambdas=n_lambdas, iters=iters,
             merge_tol=merge_tol, edges=edges, knn_k=knn_k))

@@ -12,6 +12,17 @@ runs the same stages as two programs (cluster, then mean) and its
 that times each call under the reference's span name
 (``<label>.execute``) and synchronizes its stream once at its end;
 PyTorch runs eagerly, so there is nothing to compile.
+
+Under a mesh (``mesh=`` / ``client_axis=``, ``sharding/clients.py``) each
+rank holds a block of the clients: it sketches its own rows (every rank
+draws the same projection blocks from ``seed``, so a client's sketch row
+does not depend on the sharding), the clustering runs per shard with
+all-reduced sums (``kmeans-device``) or on the gathered sketch (the
+other families), and the mean phase all-reduces per-cluster sums and
+counts into (K, ...) representatives on every rank, from which each rank
+writes its own clients' rows: the per-client parameters come back as
+``DTensor``s, ``Shard(0)`` on the client dim, the labels for every
+client on every rank.
 """
 from __future__ import annotations
 
@@ -26,32 +37,52 @@ from repro_torch.core.clustering.api import (
     is_device_algorithm,
     meta_to_host,
 )
-from repro_torch.core.engine.aggregators import (
-    cluster_aggregate_tree,
-    get_aggregator,
-)
+from repro_torch.core.engine.aggregators import get_aggregator
 from repro_torch.core.federated import FederatedState, _leaf_filter_for
 from repro_torch.core.sketch import make_generator, sketch_stacked
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.roofline import kernel_costs
+from repro_torch.sharding.clients import client_axis_of
 from repro_torch.utils import tree_leaves, tree_map
 
 
-def _average_clusters(labels, centers, params, aggregator):
-    """Steps 3-4: the per-cluster parameter reduction, shared by the
-    fused round and the session's mean phase."""
+def cluster_reps(labels, centers, params, aggregator, shard):
+    """Step 3: every leaf's (K, ...) per-cluster representatives, in the
+    leaf's dtype, on every rank, from this rank's rows (``labels`` and
+    ``params``) and the all-reduced (K,) counts.  One leaf at a time, so
+    under a mesh no (K, n) buffer of the whole model is held at once."""
+    kk = centers.shape[0]
+    agg = get_aggregator(aggregator)
+    onehot = torch.nn.functional.one_hot(labels.long(), kk).to(torch.float32)
+    counts = shard.all_reduce(torch.sum(onehot, dim=0))
+
+    def rep(leaf):
+        flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+        return agg(flat, labels, onehot, counts, shard=shard).reshape(
+            (kk,) + tuple(leaf.shape[1:])).to(leaf.dtype)
+
+    return tree_map(rep, params)
+
+
+def weighted_reps(labels, centers, params, weights, shard):
+    """The exp-decay staleness policy's step 3: (K, ...) representatives
+    ``sum_i w_i x_i / sum_i w_i`` from this rank's rows, the sums and the
+    denominator (floored at 1e-12) all-reduced.  Only the mean has a
+    weighted form; the session refuses weighting for any other
+    aggregator."""
     kk = centers.shape[0]
     onehot = torch.nn.functional.one_hot(labels.long(), kk).to(torch.float32)
-    counts = torch.sum(onehot, dim=0)
-    return cluster_aggregate_tree(params, labels, onehot, counts, aggregator)
+    weighted = onehot * weights.to(torch.float32)[:, None]
+    denom = torch.clamp_min(shard.all_reduce(torch.sum(weighted, dim=0)),
+                            1e-12)[:, None]
 
+    def rep(leaf):
+        flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+        means = shard.all_reduce(weighted.T @ flat) / denom
+        return means.reshape((kk,) + tuple(leaf.shape[1:])).to(leaf.dtype)
 
-def _cluster_and_average(algo, options, k, generator, sketches, params,
-                         aggregator="mean"):
-    """Steps 2-4 on a materialized sketch matrix."""
-    res = algo.device_call(generator, sketches, k=k, **options)
-    return _average_clusters(res.labels, res.centers, params, aggregator), res
+    return tree_map(rep, params)
 
 
 class _Program:
@@ -93,9 +124,10 @@ class _Program:
 def _mean_work(out, labels, centers, params, *_):
     """The one-hot mean of every leaf (C, n): the (K, C) x (C, n)
     product and its (C, K) x (K, n) gather back, 4 C K n flops; the
-    leaves read and written once and the one-hot read."""
-    c, kk = labels.shape[0], centers.shape[0]
+    leaves read and written once and the one-hot read.  Under a mesh C
+    is this rank's rows."""
     leaves = tree_leaves(params)
+    c, kk = leaves[0].shape[0], centers.shape[0]
     n = sum(l.numel() // c for l in leaves)
     nbytes = sum(2 * l.numel() * l.element_size() for l in leaves)
     return nbytes + 4.0 * c * kk, 4.0 * c * kk * n
@@ -123,27 +155,41 @@ def _round_work(out, params):
     _, res, sketches = out
     c, s = sketches.shape
     n = sum(l.numel() // c for l in tree_leaves(params))
-    mean_bytes, mean_flops = _mean_work(None, res.labels, res.centers,
-                                        params)
+    mean_bytes, mean_flops = _mean_work(None, None, res.centers, params)
     return (4.0 * (c * n + n * s + c * s) + mean_bytes,
             2.0 * c * n * s + mean_flops)
 
 
 def _cluster_program(algo, k, options):
-    """Step 2 alone: the session finalize's clustering phase."""
+    """Step 2 alone: the session finalize's clustering phase over the
+    sketch rows of ``shard``."""
     options = dict(options or {})
 
-    def cluster_fn(generator, sketches):
-        return algo.device_call(generator, sketches, k=k, **options)
+    def cluster_fn(generator, sketches, shard):
+        return algo.device_call(generator, sketches, k=k, shard=shard,
+                                **options)
 
     return _Program("session.finalize.cluster", cluster_fn)
+
+
+def _average(labels, centers, params, aggregator, shard, weights=None):
+    """Steps 3-4: the (K, ...) representatives from this rank's rows
+    (``cluster_reps``, or ``weighted_reps`` with per-client weights), then
+    each client's row from its cluster's (``expand``: this rank's
+    ``Shard(0)`` chunk under a mesh).  ``labels`` are every client's.
+    Returns ``(per-client params, representatives)``."""
+    mine = shard.local_part(labels)
+    reps = (cluster_reps(mine, centers, params, aggregator, shard)
+            if weights is None else
+            weighted_reps(mine, centers, params, weights, shard))
+    return tree_map(lambda r: shard.axis.expand(r, labels), reps), reps
 
 
 def _mean_program(aggregator="mean"):
     """Steps 3-4 alone: the session finalize's averaging phase."""
 
-    def mean_fn(labels, centers, params):
-        return _average_clusters(labels, centers, params, aggregator)
+    def mean_fn(labels, centers, params, shard, weights=None):
+        return _average(labels, centers, params, aggregator, shard, weights)
 
     return _Program("session.finalize.mean", mean_fn, _mean_work)
 
@@ -154,35 +200,11 @@ def _warm_cluster_program(algo, k, options):
     centers for Lloyd, the AMA dual for the convex family)."""
     options = dict(options or {})
 
-    def cluster_fn(generator, sketches, warm):
+    def cluster_fn(generator, sketches, warm, shard):
         return algo.device_warm_call(generator, sketches, warm, k=k,
-                                     **options)
+                                     shard=shard, **options)
 
     return _Program("session.refinalize.cluster", cluster_fn)
-
-
-def _weighted_mean_program():
-    """Steps 3-4 with per-client weights, the exp-decay staleness
-    policy's averaging phase: the per-cluster mean
-    ``sum_i w_i x_i / sum_i w_i`` (its denominator floored at 1e-12),
-    gathered back per client.  Only the mean has a weighted form; the
-    session refuses weighting for any other aggregator."""
-
-    def mean_fn(labels, centers, params, weights):
-        kk = centers.shape[0]
-        onehot = torch.nn.functional.one_hot(labels.long(), kk).to(
-            torch.float32)                                      # (C, K)
-        weighted = onehot * weights.to(torch.float32)[:, None]  # (C, K)
-        denom = torch.clamp_min(torch.sum(weighted, dim=0), 1e-12)[:, None]
-
-        def back(leaf):
-            flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
-            means = (weighted.T @ flat) / denom                 # (K, n)
-            return (onehot @ means).reshape(leaf.shape).to(leaf.dtype)
-
-        return tree_map(back, params)
-
-    return _Program("session.finalize.mean", mean_fn, _mean_work)
 
 
 def _gather_rows_program():
@@ -263,6 +285,7 @@ def one_shot_aggregate_device(state: FederatedState, cfg=None, *,
                               aggregator="mean",
                               projection: Optional[torch.Tensor] = None,
                               return_sketches: bool = False,
+                              mesh=None, client_axis: str = "data",
                               device=None):
     """The one-shot round on one device.  Returns (state, labels, info).
 
@@ -271,11 +294,20 @@ def one_shot_aggregate_device(state: FederatedState, cfg=None, *,
     ``cluster_seed`` (default ``seed``) seeds the clustering's
     generator.  ``cfg`` (the clients' ``ModelConfig``) picks the
     router-invariant sketch of an MoE model.  Runs on CUDA unless
-    ``device="cpu"``; the parameters are moved there."""
+    ``device="cpu"``; the parameters are moved there.
+
+    ``mesh`` (a ``DeviceMesh`` with a ``client_axis`` dim): rank r takes
+    the r-th of equal blocks of the clients (a client count the ranks do
+    not divide is refused), from each leaf's ``DTensor`` shard or from
+    the global tensor every rank passes; the new parameters are
+    ``Shard(0)`` DTensors and the labels cover every client."""
     dev = resolve_device(device)
     algo = resolve_device_algorithm(algorithm)
     aggregator = get_aggregator(aggregator)
-    params = tree_map(lambda l: torch.as_tensor(l).to(dev), state.params)
+    axis = client_axis_of(mesh, client_axis)
+    shard = axis.even(state.n_clients)
+    params = tree_map(lambda l: axis.local_rows(l, state.n_clients).to(dev),
+                      state.params)
     generator = make_generator(seed if cluster_seed is None
                                else cluster_seed, dev)
 
@@ -283,9 +315,10 @@ def one_shot_aggregate_device(state: FederatedState, cfg=None, *,
         sketches = sketch_stacked(params, projection, sketch_dim=sketch_dim,
                                   seed=seed,
                                   leaf_filter=_leaf_filter_for(cfg))
-        new_params, res = _cluster_and_average(
-            algo, algo_options or {}, k, generator, sketches, params,
-            aggregator)
+        res = algo.device_call(generator, sketches, k=k, shard=shard,
+                               **(algo_options or {}))
+        new_params, _ = _average(res.labels, res.centers, params,
+                                 aggregator, shard)
         return new_params, res, sketches
 
     with obs.span("engine.one_shot"):
@@ -293,5 +326,5 @@ def one_shot_aggregate_device(state: FederatedState, cfg=None, *,
                                              _round_work)(params)
     new_state, labels, info, _, _ = materialize_round(new_params, res, state)
     if return_sketches:
-        info["sketches"] = sketches.cpu().numpy()
+        info["sketches"] = shard.gather(sketches).cpu().numpy()
     return new_state, labels, info

@@ -21,6 +21,16 @@ Contract: ``agg(flat, labels, onehot, counts) -> (K, n) float32`` with
 ``breakdown`` is the largest in-cluster corruption fraction the
 aggregator tolerates; the device Lloyd loop reads it to score restarts
 by the trimmed objective.
+
+Every aggregator also takes ``shard`` (a ``sharding.clients.RowShard``,
+the one-process ``LocalShard`` when omitted): the rows lie on its ranks,
+``flat``, ``labels`` and ``onehot`` are this rank's and ``counts`` the
+all-reduced sizes, and the (K, n) result is the same on every rank.  The
+mean and the geometric median all-reduce their per-cluster sums (each
+Weiszfeld step is a sum over rows); the coordinate-wise order statistics
+(trimmed mean, median) need whole columns, so they gather the rows in
+column blocks of at most ``GATHER_BYTES``.  On one process every
+collective is the identity.
 """
 from __future__ import annotations
 
@@ -29,7 +39,12 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.sharding.clients import shard_of
 from repro_torch.utils import tree_map
+
+# a gathered column block: at most this many bytes, rows x columns x 4
+# (64 MiB: 16 columns of C = 1 048 576 clients)
+GATHER_BYTES = 1 << 26
 
 
 # ------------------------------------------------- segment order statistics
@@ -71,8 +86,9 @@ class MeanAggregator:
     name: str = "mean"
     breakdown = 0.0
 
-    def __call__(self, flat, labels, onehot, counts):
-        return (onehot.T @ flat) / torch.clamp_min(counts, 1.0)[:, None]
+    def __call__(self, flat, labels, onehot, counts, shard=None):
+        sums = shard_of(flat, shard).all_reduce(onehot.T @ flat)
+        return sums / torch.clamp_min(counts, 1.0)[:, None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +111,10 @@ class TrimmedMeanAggregator:
             raise ValueError(f"trim fraction beta must be in [0, 0.5), "
                              f"got {self.beta}")
 
-    def __call__(self, flat, labels, onehot, counts):
+    def __call__(self, flat, labels, onehot, counts, shard=None):
+        return _by_column_blocks(self._columns, flat, labels, counts, shard)
+
+    def _columns(self, flat, labels, onehot, counts):
         cnt = counts.to(torch.long)
         t = torch.minimum(torch.floor(self.beta * counts).to(torch.long),
                           torch.clamp_min(torch.div(cnt - 1, 2,
@@ -129,16 +148,19 @@ class GeometricMedianAggregator:
         if self.eps <= 0:
             raise ValueError(f"eps must be > 0, got {self.eps}")
 
-    def __call__(self, flat, labels, onehot, counts):
-        y = (onehot.T @ flat) / torch.clamp_min(counts, 1.0)[:, None]
+    def __call__(self, flat, labels, onehot, counts, shard=None):
+        shard = shard_of(flat, shard)
+        y = (shard.all_reduce(onehot.T @ flat)
+             / torch.clamp_min(counts, 1.0)[:, None])
         sq = torch.sum(flat * flat, dim=1)                      # (C,)
         for _ in range(self.iters):
             d2 = (sq[:, None] - 2.0 * (flat @ y.T)
                   + torch.sum(y * y, dim=1)[None, :])
             d = torch.sqrt(torch.clamp_min(d2, 0.0))
             w = onehot / torch.clamp_min(d, self.eps)           # (C, K)
-            y = (w.T @ flat) / torch.clamp_min(torch.sum(w, dim=0),
-                                               self.eps)[:, None]
+            num, den = shard.all_reduce_pack(w.T @ flat,
+                                             torch.sum(w, dim=0))
+            y = num / torch.clamp_min(den, self.eps)[:, None]
         return torch.where(counts[:, None] > 0, y, torch.zeros_like(y))
 
 
@@ -150,7 +172,10 @@ class MedianAggregator:
     name: str = "median"
     breakdown = 0.5
 
-    def __call__(self, flat, labels, onehot, counts):
+    def __call__(self, flat, labels, onehot, counts, shard=None):
+        return _by_column_blocks(self._columns, flat, labels, counts, shard)
+
+    def _columns(self, flat, labels, onehot, counts):
         c = flat.shape[0]
         cnt = counts.to(torch.long)
         vals, _, _ = _segment_sort(flat, labels)
@@ -161,6 +186,26 @@ class MedianAggregator:
                          0, c - 1)
         med = 0.5 * (vals[lo] + vals[hi])                       # (K, n)
         return torch.where(counts[:, None] > 0, med, torch.zeros_like(med))
+
+
+
+def _onehot(labels, k: int):
+    return torch.nn.functional.one_hot(labels.long(), k).to(torch.float32)
+
+
+def _by_column_blocks(columns, flat, labels, counts, shard):
+    """A coordinate-wise aggregator over rows spread as ``shard``: the
+    labels and each block of columns gathered (every rank then holds the
+    block's whole columns, at most ``GATHER_BYTES``) and reduced by
+    ``columns(flat, labels, onehot, counts)``."""
+    shard = shard_of(flat, shard)
+    labels = shard.gather(labels)
+    onehot = _onehot(labels, counts.shape[0])
+    cols = max(1, GATHER_BYTES // (4 * max(labels.shape[0], 1)))
+    blocks = [columns(shard.gather(flat[:, j:j + cols].contiguous()),
+                      labels, onehot, counts)
+              for j in range(0, flat.shape[1], cols)]
+    return torch.cat(blocks, dim=1)
 
 
 # --------------------------------------------------------- tree wrappers

@@ -20,6 +20,13 @@
     the K-free lambda ladder.  Labels are fusion-graph root ids in
     [0, m) and ``centers`` is root-indexed ((m, d), zero rows for
     non-roots), as in the reference.
+
+Under a mesh the registry's convex families (``clustering/api.py``)
+gather the (C, sketch_dim) sketch to every rank first (4 MB at
+C = 16 384, sketch 64) and run the AMA, the group-prox kernels and the
+kNN tiles replicated; each rank's rows then take their labels from the
+replicated result, and only the parameter mean is sharded.  The edge
+axis is not sharded (ROADMAP queue A).
 """
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ projection:
 
       - top centers = count-weighted means of the member shard centers,
       - top models  = count-weighted means of the member shard models
-        (the engine's ``_weighted_mean_program``),
+        (the engine's ``_mean_program`` with weights),
       - per-client labels = ``top_labels[offset_s + shard_labels]``.
 
     Both levels' bytes go to ``info["comm_level_bytes"]`` and the
@@ -36,6 +36,12 @@ session's only where the waves are aligned to shard edges.
 ``shards=1`` delegates every call to the one flat session, so it is
 bit-exact with the flat round on the same clients.
 ``hierarchical_one_shot_aggregate`` wraps the session as a function.
+
+Under a mesh (``mesh=`` / ``client_axis=``) every shard session and the
+top session shard their client rows over the mesh (each capacity must
+divide by the ranks); the shard centers, the cluster models and the
+top-level composition are replicated, and the per-client models come
+back as ``Shard(0)`` DTensors.
 """
 from __future__ import annotations
 
@@ -45,13 +51,11 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.engine.aggregate import (
-    _route_program,
-    _weighted_mean_program,
-)
+from repro_torch.core.engine.aggregate import _mean_program, _route_program
 from repro_torch.core.engine.session import AggregationSession
 from repro_torch.core.federated import FederatedState
 from repro_torch.device import resolve_device
+from repro_torch.sharding.clients import client_axis_of, shard_of
 from repro_torch.utils import tree_leaves, tree_map
 
 _F32 = 4  # bytes per sketch coordinate on the wire
@@ -69,12 +73,15 @@ class HierarchicalSession:
         device: forwarded to every shard session; all shards share
         ``seed`` (or ``projection``), so their JL projections, and the
         sketch space the top level clusters in, are identical.
+      mesh / client_axis: forwarded to every shard session and to the
+        top session.
     """
 
     def __init__(self, capacity: int, *, shards: int = 1,
                  sketch_dim: int = 256, seed: int = 0,
                  cluster_seed: Optional[int] = None, sketch_transform=None,
-                 projection=None, device=None):
+                 projection=None, mesh=None, client_axis: str = "data",
+                 device=None):
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
         if capacity < shards:
@@ -88,19 +95,22 @@ class HierarchicalSession:
         self.seed = int(seed)
         self.cluster_seed = self.seed if cluster_seed is None else int(
             cluster_seed)
+        self.mesh, self.client_axis = mesh, client_axis
+        self._axis = client_axis_of(mesh, client_axis)
         self._sessions = [
             AggregationSession(self.shard_capacity, sketch_dim=sketch_dim,
                                seed=seed, cluster_seed=cluster_seed,
                                projection=projection,
                                sketch_transform=sketch_transform,
                                row_base=s * self.shard_capacity,
+                               mesh=mesh, client_axis=client_axis,
                                device=self.device)
             for s in range(self.shards)]
         self._fill = 0                 # global clients ingested so far
         # composed top-level serving state (shards > 1 only)
         self._serving = None           # (state | None, labels, info)
         self._route_centers = None     # (K'', sketch_dim) weighted centers
-        self._first = None             # one member client per top cluster
+        self._models = None            # (K'', ...) top cluster models
         self._n_clusters = 0
 
     # ------------------------------------------------------------ ingest
@@ -161,7 +171,7 @@ class HierarchicalSession:
     @property
     def sketches(self) -> torch.Tensor:
         """(count, sketch_dim) live sketch rows in global order (a copy
-        for shards > 1)."""
+        for shards > 1); under a mesh, this rank's rows of each shard."""
         if self.shards == 1:
             return self._sessions[0].sketches
         return torch.cat([s.sketches for s in self._live()], dim=0)
@@ -171,9 +181,10 @@ class HierarchicalSession:
         shard states concatenated in global order)."""
         if self.shards == 1:
             return self._sessions[0].state()
+        axis = self._axis
         states = [s.state() for s in self._live()]
-        params = tree_map(lambda *ls: torch.cat(ls, dim=0),
-                          *[st.params for st in states])
+        params = tree_map(lambda *ls: axis.from_full(torch.cat(
+            [axis.full(l) for l in ls], dim=0)), *[st.params for st in states])
         return FederatedState(params=params, opt_state=None,
                               n_clients=self.count)
 
@@ -229,6 +240,8 @@ class HierarchicalSession:
             top = AggregationSession(m_top, sketch_dim=self.sketch_dim,
                                      seed=self.seed,
                                      cluster_seed=self.cluster_seed,
+                                     mesh=self.mesh,
+                                     client_axis=self.client_axis,
                                      device=self.device)
             top.ingest(sketches=top_points)
             _, top_labels, top_info = top.finalize(
@@ -264,25 +277,20 @@ class HierarchicalSession:
         }
         new_state = None
         if rounds[0][0] is not None:
-            # (M, ...) shard-cluster models -> the weighted top means, one
-            # row per shard cluster, then one row per client
-            stacked = tree_map(
-                lambda *ls: torch.cat(ls, dim=0),
-                *[tree_map(lambda l: l[torch.as_tensor(
-                    s.served_round.first_idx, dtype=torch.int64,
-                    device=self.device)], st.params)
-                  for s, (st, _, _) in zip(live, rounds)])
-            top_models = _weighted_mean_program()(lab_t, top_centers,
-                                                  stacked, w_t)
-            rows = torch.as_tensor(global_rows, dtype=torch.int64,
-                                   device=self.device)
-            per_client = tree_map(lambda l: l.index_select(0, rows),
-                                  top_models)
+            # (M, ...) shard-cluster models -> the (K'', ...) weighted top
+            # means, then one row per client (this rank's under a mesh)
+            stacked = tree_map(lambda *ls: torch.cat(ls, dim=0),
+                               *[s.cluster_models() for s in live])
+            _, self._models = _mean_program()(
+                lab_t, top_centers, stacked, shard_of(top_points), w_t)
+            client_top = torch.as_tensor(top_labels[global_rows],
+                                         dtype=torch.int64,
+                                         device=self.device)
+            per_client = tree_map(
+                lambda l: self._axis.expand(l, client_top), self._models)
             new_state = FederatedState(params=per_client, opt_state=None,
                                        n_clients=self.count, step=0)
         self._route_centers = top_centers
-        self._first = np.asarray([int(np.argmax(labels == c))
-                                  for c in range(k2)])
         self._n_clusters = k2
         self._serving = (new_state, labels, info)
         return new_state, labels, info
@@ -319,9 +327,15 @@ class HierarchicalSession:
             raise IndexError(
                 f"cluster id {cid} out of range for {self._n_clusters} "
                 "recovered clusters")
-        # any member client's row carries its top cluster's model
-        idx = int(self._first[cid])
-        return tree_map(lambda l: l[idx], state.params)
+        return tree_map(lambda l: l[cid], self._models)
+
+    def cluster_models(self):
+        """The (K'', ...) top cluster models, one row per cluster."""
+        if self.shards == 1:
+            return self._sessions[0].cluster_models()
+        if self._require_serving()[0] is None:
+            raise ValueError("sketch-only session holds no parameters")
+        return self._models
 
     def _require_serving(self):
         if self._serving is None:
@@ -356,15 +370,18 @@ def hierarchical_one_shot_aggregate(state: FederatedState, *, shards: int,
                                     cluster_seed: Optional[int] = None,
                                     aggregator="mean",
                                     engine: str = "device",
-                                    projection=None, device=None):
+                                    projection=None, mesh=None,
+                                    client_axis: str = "data", device=None):
     """The two-level round as one call, with ``one_shot_aggregate``'s
     ``(new_state, labels, info)`` contract.  ``shards=1`` is bit-exact
     with the flat session's round.  Runs on CUDA unless
-    ``device="cpu"``."""
+    ``device="cpu"``.  Under a ``mesh`` every rank passes the whole
+    state and keeps its rows of each shard."""
     sess = HierarchicalSession(state.n_clients, shards=shards,
                                sketch_dim=sketch_dim, seed=seed,
                                cluster_seed=cluster_seed,
-                               projection=projection, device=device)
+                               projection=projection, mesh=mesh,
+                               client_axis=client_axis, device=device)
     cap = sess.shard_capacity
     for start in range(0, state.n_clients, cap):
         stop = min(start + cap, state.n_clients)

@@ -29,6 +29,21 @@ mutable service (the port of ``repro/core/engine/session.py``).
     clients, one program and ONE host transfer per batch, which also
     feeds the ``drift`` gauge that ``maybe_refinalize`` triggers on.
 
+Under a mesh (``mesh=`` / ``client_axis=``, ``sharding/clients.py``)
+every rank runs the same calls.  Rank r holds rows ``[r C / R,
+(r + 1) C / R)`` of the buffers (a capacity the ranks do not divide is
+refused); the slot table, the clock and the stamps stay replicated host
+state, so every rank knows where every live row is.  ``ingest`` takes
+the global wave and keeps and sketches the rows it owns; a snapshot is
+this rank's live rows; the finalize clusters and averages them with
+all-reduced sums, the labels come back for every client on every rank,
+the per-client parameters as ``Shard(0)`` DTensors, the cluster models
+and centers replicated, so ``route`` and ``cluster_model`` need no
+collective.  A scenario's sketch hook sees the whole wave's rows at the
+wave's first row, as without a mesh, and each rank keeps its own.  A
+session without a mesh runs the same code on ``LocalAxis``, one rank
+holding every row.
+
 ``finalize(engine="host")`` runs the registry's unfused path instead:
 ``odcl.run_clustering`` of the host family (the Lloyd names, ``gradient``,
 ``convex``, ``clusterpath``; an explicit ``"<name>-device"`` downgrades
@@ -61,7 +76,6 @@ from repro_torch.core.engine.aggregate import (
     _mean_program,
     _route_program,
     _warm_cluster_program,
-    _weighted_mean_program,
     compact_labels,
     materialize_round,
 )
@@ -80,6 +94,7 @@ from repro_torch.core.sketch import (
 from repro_torch.core.odcl import run_clustering
 from repro_torch.device import resolve_device
 from repro_torch.optim import adamw_init
+from repro_torch.sharding.clients import client_axis_of
 from repro_torch.utils import tree_leaves, tree_map
 
 
@@ -93,6 +108,7 @@ class SessionSnapshot(NamedTuple):
     weights: Optional[np.ndarray]  # staleness weights (live-row order) or None
     count: int                     # live clients at snapshot time
     clock: int                     # session clock at snapshot time
+    shard: Optional[object] = None  # the rows' RowShard over the ranks
 
 
 class ServedRound(NamedTuple):
@@ -105,6 +121,7 @@ class ServedRound(NamedTuple):
     finalized_scale: float         # mean row scale (degenerate fallback)
     clock: int                     # snapshot clock this round was built from
     count: int                     # snapshot live-client count
+    models: Optional[dict] = None  # (K', ...) cluster models (params only)
 
 
 def _structure(tree):
@@ -141,13 +158,16 @@ class AggregationSession:
         index the flat session would).
       cfg: the clients' ``ModelConfig``, if any: an MoE model is sketched
         on its router-invariant leaves, as in the reference.
+      mesh / client_axis: shard the client axis of the buffers over the
+        ``client_axis`` dim of a ``DeviceMesh`` (see the module docstring).
       device: where the buffers live; CUDA unless ``"cpu"`` is asked for.
     """
 
     def __init__(self, capacity: int, *, sketch_dim: int = 256,
                  seed: int = 0, cluster_seed: Optional[int] = None,
                  staleness="none", projection=None, sketch_transform=None,
-                 row_base: int = 0, cfg=None, device=None):
+                 row_base: int = 0, cfg=None, mesh=None,
+                 client_axis: str = "data", device=None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.device = resolve_device(device)
@@ -163,7 +183,11 @@ class AggregationSession:
                             torch.as_tensor(projection).to(self.device,
                                                            torch.float32))
         self._leaf_filter = _leaf_filter_for(cfg)
-        self._sketches = torch.zeros((self.capacity, self.sketch_dim),
+        self.mesh, self.client_axis = mesh, client_axis
+        self._axis = client_axis_of(mesh, client_axis)
+        # the buffer rows this rank holds: [lo, hi) of the capacity
+        self._lo, self._hi = self._axis.owned(self.capacity)
+        self._sketches = torch.zeros((self._hi - self._lo, self.sketch_dim),
                                      dtype=torch.float32, device=self.device)
         self._params = None            # stacked buffer, allocated lazily
         self._mode: Optional[str] = None    # 'params' | 'sketches'
@@ -208,18 +232,48 @@ class AggregationSession:
         """Sorted buffer rows holding live clients."""
         return np.flatnonzero(self._live[:self._high])
 
-    def _contiguous_live(self) -> bool:
-        """The live rows are exactly the written prefix [0, high)."""
-        return self._count == self._high
+    def _held_live(self) -> tuple:
+        """This rank's live rows (indices into its buffers, ``None`` while
+        they are a prefix of them) and every rank's count of live rows."""
+        if self._count == self._high:     # no holes: a prefix on every rank
+            per = self._hi - self._lo
+            return None, np.clip(self._high - per * np.arange(
+                self._axis.size), 0, per).tolist()
+        live = self._live.reshape(self._axis.size, -1)
+        rows = np.flatnonzero(live[self._axis.rank])
+        prefix = rows.size == 0 or rows[-1] == rows.size - 1
+        return (None if prefix else rows), live.sum(axis=1).tolist()
+
+    def _held_rows(self, buf, rows, sizes):
+        """The live rows of a buffer (or tree of buffers) this rank
+        holds (``_held_live``'s ``rows`` and ``sizes``): a view of the
+        prefix, or a gather."""
+        if rows is None:
+            n = sizes[self._axis.rank]
+            return tree_map(lambda l: l[:n], buf)
+        idx = torch.as_tensor(rows, device=self.device)
+        return tree_map(lambda l: l.index_select(0, idx), buf)
+
+    def _owned(self, rows: np.ndarray) -> tuple:
+        """The part of a wave bound for ``rows`` that this rank writes:
+        ``(positions in the wave, buffer rows)``."""
+        keep = np.flatnonzero((rows >= self._lo) & (rows < self._hi))
+        return keep, rows[keep] - self._lo
+
+    def _take(self, tree, keep):
+        """The wave rows at ``keep`` (a slice where they are contiguous)."""
+        if keep.size and keep[-1] - keep[0] == keep.size - 1:
+            lo, hi = int(keep[0]), int(keep[-1]) + 1
+            return tree_map(lambda l: l[lo:hi], tree)
+        idx = torch.as_tensor(keep, device=self.device)
+        return tree_map(lambda l: l.index_select(0, idx), tree)
 
     @property
     def sketches(self) -> torch.Tensor:
         """Device-resident (count, sketch_dim) live rows: a view while
-        they are a contiguous prefix, a gather after evictions."""
-        if self._contiguous_live():
-            return self._sketches[:self._high]
-        rows = self._live_rows()
-        return self._sketches[torch.as_tensor(rows, device=self.device)]
+        they are a contiguous prefix, a gather after evictions.  Under a
+        mesh, the live rows this rank holds."""
+        return self._held_rows(self._sketches, *self._held_live())
 
     @property
     def clock(self) -> int:
@@ -347,12 +401,21 @@ class AggregationSession:
         obs.gauge("session.slots.live", float(self._count))
         obs.gauge("session.slots.free", float(self.capacity - self._count))
 
-    def _transform(self, sketches: torch.Tensor, rows: np.ndarray):
-        """The sketch hook over a wave bound for ``rows`` (keyed by its
-        first row, as the reference keys keyed waves by ``rows[0]``)."""
+    def _transform(self, sketches: torch.Tensor, rows: np.ndarray,
+                   keep: np.ndarray):
+        """The sketch hook over this rank's rows (wave positions ``keep``)
+        of a wave bound for ``rows``: the hook sees the whole wave's
+        (w, sketch_dim) at its first row, as the reference keys keyed
+        waves by ``rows[0]``, with zeros in the rows other ranks hold, so
+        each row gets the draws it gets without a mesh."""
         if self._sketch_transform is None:
             return sketches
-        return self._sketch_transform(sketches, self.row_base + int(rows[0]))
+        whole = sketches
+        if keep.size != rows.size:
+            whole = sketches.new_zeros((rows.size, sketches.shape[1]))
+            whole[torch.as_tensor(keep, device=sketches.device)] = sketches
+        out = self._sketch_transform(whole, self.row_base + int(rows[0]))
+        return out if whole is sketches else self._take(out, keep)
 
     def _write_rows(self, buf: torch.Tensor, rows: np.ndarray,
                     values: torch.Tensor) -> None:
@@ -389,16 +452,21 @@ class AggregationSession:
         self._mode = "params"      # only after validation
         if self._params is None:
             self._params = tree_map(
-                lambda l: torch.zeros((self.capacity,) + tuple(l.shape[1:]),
-                                      dtype=l.dtype, device=self.device),
+                lambda l: torch.zeros(
+                    (self._hi - self._lo,) + tuple(l.shape[1:]),
+                    dtype=l.dtype, device=self.device),
                 wave)
         offset = int(rows[0])
+        keep, held = self._owned(rows)
         with obs.span("session.ingest", wave=w, offset=offset,
                       mode="params"):
-            self._write_rows(self._sketches, rows, self._transform(
-                self._sketch_wave(wave), rows))
-            for buf, l in zip(tree_leaves(self._params), leaves):
-                self._write_rows(buf, rows, l)
+            if held.size:
+                part = self._take(wave, keep)
+                self._write_rows(self._sketches, held, self._transform(
+                    self._sketch_wave(part), rows, keep))
+                for buf, l in zip(tree_leaves(self._params),
+                                  tree_leaves(part)):
+                    self._write_rows(buf, held, l)
             self._sync()
         obs.count("session.ingest.clients", w)
         obs.count("session.ingest.bytes",
@@ -420,10 +488,12 @@ class AggregationSession:
         rows, n_from_free = self._alloc_rows(w, client_ids)
         self._mode = "sketches"    # only after validation
         offset = int(rows[0])
+        keep, held = self._owned(rows)
         with obs.span("session.ingest", wave=w, offset=offset,
                       mode="sketches"):
-            self._write_rows(self._sketches, rows,
-                             self._transform(sketches, rows))
+            if held.size:
+                self._write_rows(self._sketches, held, self._transform(
+                    self._take(sketches, keep), rows, keep))
             self._sync()
         obs.count("session.ingest.clients", w)
         obs.count("session.ingest.bytes",
@@ -463,15 +533,15 @@ class AggregationSession:
         self._gauge_slots()
         return out
 
-    def _live_weights(self, rows: Optional[np.ndarray]):
-        """Per-row staleness weights in live-row order (``rows=None``:
-        the contiguous prefix), or ``None`` for unweighted policies."""
+    def _live_weights(self):
+        """Per-row staleness weights of the live rows, in row order, or
+        ``None`` for unweighted policies."""
         stamps = np.fromiter(self._stamp_counts, np.int64,
                              len(self._stamp_counts))
         if self.staleness.weights(self._clock - stamps) is None:
             return None
-        live = self._stamps[:self._high] if rows is None else self._stamps[rows]
-        return self.staleness.weights(self._clock - live)
+        return self.staleness.weights(
+            self._clock - self._stamps[self._live_rows()])
 
     # ---------------------------------------------------------- finalize
 
@@ -490,20 +560,21 @@ class AggregationSession:
         self.evict_stale()
         if self._count == 0:
             raise ValueError("nothing ingested")
-        high = self._high
-        rows = None
-        if self._contiguous_live():
-            sketches = self._sketches[:high].clone()
-            params = (None if self._params is None else
-                      tree_map(lambda l: l[:high].clone(), self._params))
+        rows, sizes = self._held_live()
+        shard = self._axis.shard(sizes)
+        if rows is None:              # views of the buffers: copy them out
+            sketches, params = tree_map(torch.clone, self._held_rows(
+                (self._sketches, self._params), rows, sizes))
         else:
-            rows = self._live_rows()
             sketches, params = _gather_rows_program()(
                 (self._sketches, self._params),
                 torch.as_tensor(rows, device=self.device))
+        weights = self._live_weights()
+        if weights is not None:
+            weights = np.asarray(weights)[shard.offset:shard.offset + shard.m]
         return SessionSnapshot(sketches=sketches, params=params,
-                               weights=self._live_weights(rows),
-                               count=self._count, clock=self._clock)
+                               weights=weights, count=self._count,
+                               clock=self._clock, shard=shard)
 
     def finalize(self, *, algorithm="kmeans-device", k: Optional[int] = None,
                  algo_options: Optional[dict] = None, engine: str = "device",
@@ -590,22 +661,23 @@ class AggregationSession:
         generator = make_generator(self.cluster_seed, self.device)
         if self._warm_usable(algo, warm, snap.count):
             res = _warm_cluster_program(algo, k, algo_options)(
-                generator, snap.sketches, self._warm_state)
+                generator, snap.sketches, self._warm_state, snap.shard)
             mode = "warm"
         else:
             res = _cluster_program(algo, k, algo_options)(
-                generator, snap.sketches)
+                generator, snap.sketches, snap.shard)
             mode = "cold"
         self._cache_warm_state(algo, res, snap.count)
+        reps = None
         if snap.params is None:
             labels, uniq, first = compact_labels(res.labels)
             info = {"n_clusters": int(len(uniq)),
                     "meta": meta_to_host(res.meta), "engine": "device"}
             out = (None, labels, info)
         else:
-            new_params = self._average_params((res.labels, res.centers),
-                                              snap.params, aggregator,
-                                              snap.weights)
+            new_params, reps = self._average_params(
+                (res.labels, res.centers), snap.params, aggregator,
+                snap.weights, snap.shard)
             state = FederatedState(params=snap.params, opt_state=None,
                                    n_clients=snap.count, step=0)
             new_state, labels, info, uniq, first = materialize_round(
@@ -617,8 +689,10 @@ class AggregationSession:
         idx = torch.as_tensor(uniq, dtype=torch.long, device=self.device)
         # the meta inertia of both device families is the direct sum of
         # row d^2 to the assigned centers
+        models = (None if reps is None else
+                  tree_map(lambda r: r.index_select(0, idx), reps))
         served = self._make_served(out, res.centers[idx].contiguous(),
-                                   res.meta["inertia"], first, snap)
+                                   res.meta["inertia"], first, snap, models)
         return out, served
 
     def _finalize_host(self, algo, k, algo_options, snap, aggregator):
@@ -626,7 +700,8 @@ class AggregationSession:
         family clusters the snapshot's sketches (``run_clustering``, with
         its Definition-1 margins in the meta), then the per-cluster
         reduction of the parameters and a fresh AdamW state."""
-        sketches, params, weights = snap.sketches, snap.params, snap.weights
+        params, weights = snap.params, snap.weights
+        sketches = snap.shard.gather(snap.sketches)  # every row, every rank
         with obs.span("session.finalize.cluster", engine="host"):
             result = run_clustering(
                 make_generator(self.cluster_seed, self.device), sketches,
@@ -643,13 +718,15 @@ class AggregationSession:
             out = (None, labels, info)
             return out, self._make_served(out, centers, inertia, first, snap)
         with obs.span("session.finalize.mean", engine="host"):
-            new_params = self._average_params((labels_t, centers), params,
-                                              aggregator, weights)
+            new_params, models = self._average_params(
+                (labels_t, centers), params, aggregator, weights, snap.shard)
         new_state = FederatedState(
             params=new_params, opt_state=adamw_init(new_params, snap.count),
             n_clients=snap.count, step=0)
         out = (new_state, labels, info)
-        return out, self._make_served(out, centers, inertia, first, snap)
+        models = tree_map(lambda r: r[:len(first)], models)  # compact ids
+        return out, self._make_served(out, centers, inertia, first, snap,
+                                      models)
 
     def _adopt(self, snap: SessionSnapshot) -> None:
         """The snapshot was copied on the snapshotting thread's stream and
@@ -691,40 +768,46 @@ class AggregationSession:
             self._warm_state = state
             self._warm_count = count
 
-    def _average_params(self, clustering, params, aggregator, weights):
+    def _average_params(self, clustering, params, aggregator, weights,
+                        shard):
         """The mean phase over ``clustering`` = (labels, centers): the
         unweighted program, or the weighted mean where the staleness policy
         supplies decay weights (only for the ``mean`` aggregator, as in
-        the reference)."""
+        the reference).  Returns ``(per-client params, cluster models)``:
+        the models (K, ...) by raw label, the per-client rows written from
+        them (``Shard(0)`` DTensors under a mesh)."""
         labels, centers = clustering
-        if weights is None:
-            return _mean_program(aggregator)(labels, centers, params)
-        name = get_aggregator(aggregator).name
-        if name != "mean":
-            raise ValueError(
-                "staleness weighting (exp_decay) requires the 'mean' "
-                f"aggregator, got {name!r}")
-        return _weighted_mean_program()(
-            labels, centers, params,
-            torch.as_tensor(np.asarray(weights), dtype=torch.float32,
-                            device=self.device))
+        if weights is not None:
+            name = get_aggregator(aggregator).name
+            if name != "mean":
+                raise ValueError(
+                    "staleness weighting (exp_decay) requires the 'mean' "
+                    f"aggregator, got {name!r}")
+            weights = torch.as_tensor(np.asarray(weights),
+                                      dtype=torch.float32, device=self.device)
+        return _mean_program(aggregator)(labels, centers, params, shard,
+                                         weights)
 
-    def _make_served(self, out, centers, inertia, first, snap) -> ServedRound:
+    def _make_served(self, out, centers, inertia, first, snap,
+                     models=None) -> ServedRound:
         """Bundle a round with its drift anchor: the clustering's mean row
         inertia (``inertia``, the direct sum of row d^2 to the assigned
-        centers), and the mean row scale as the degenerate fallback."""
-        sk = snap.sketches
-        centred = sk - torch.mean(sk, dim=0, keepdim=True)
-        anchors = torch.stack([
-            inertia.to(torch.float32),
-            torch.mean(torch.sum(centred * centred, dim=1)),
-        ]).cpu().tolist()
+        centers), and the mean row scale as the degenerate fallback (over
+        every rank's rows)."""
+        sk, shard = snap.sketches, snap.shard
+        mean = shard.all_reduce(torch.sum(sk, dim=0, keepdim=True))
+        centred = sk - mean / shard.total
+        scale = shard.all_reduce(torch.sum(torch.sum(centred * centred,
+                                                     dim=1))) / shard.total
+        anchors = torch.stack([inertia.to(torch.float32),
+                               scale]).cpu().tolist()
         return ServedRound(out=out, centers=centers,
                            first_idx=np.asarray(first),
                            n_clusters=int(len(first)),
                            finalized_d2=anchors[0] / max(snap.count, 1),
                            finalized_scale=anchors[1],
-                           clock=snap.clock, count=snap.count)
+                           clock=snap.clock, count=snap.count,
+                           models=models)
 
     # ------------------------------------------------------------- serve
 
@@ -787,8 +870,17 @@ class AggregationSession:
             raise IndexError(
                 f"cluster id {cid} out of range for {served.n_clusters} "
                 "recovered clusters")
-        idx = int(served.first_idx[cid])
-        return tree_map(lambda l: l[idx], state.params)
+        return tree_map(lambda r: r[cid], served.models)
+
+    def cluster_models(self):
+        """The (K', ...) averaged models of the served round, one row per
+        recovered cluster (replicated under a mesh)."""
+        served = self._served
+        if served is None:
+            raise ValueError("cluster_models() needs finalize() first")
+        if served.out[0] is None:
+            raise ValueError("sketch-only session holds no parameters")
+        return served.models
 
     @property
     def served_round(self) -> Optional[ServedRound]:
@@ -835,13 +927,12 @@ class AggregationSession:
     # ------------------------------------------------------------- state
 
     def state(self) -> FederatedState:
-        """The live federation as a stacked ``FederatedState``."""
+        """The live federation as a stacked ``FederatedState`` (its leaves
+        ``Shard(0)`` DTensors under a mesh)."""
         if self._mode != "params":
             raise ValueError("state() needs parameter waves")
-        if self._contiguous_live():
-            params = tree_map(lambda l: l[:self._high], self._params)
-        else:
-            idx = torch.as_tensor(self._live_rows(), device=self.device)
-            params = tree_map(lambda l: l.index_select(0, idx), self._params)
+        rows, sizes = self._held_live()
+        params = tree_map(lambda l: self._axis.dtensor(l, sizes),
+                          self._held_rows(self._params, rows, sizes))
         return FederatedState(params=params, opt_state=None,
                               n_clients=self._count)

@@ -143,7 +143,7 @@ def one_shot_aggregate(state: FederatedState, cfg=None, *,
                        sketch_dim: int = 256, seed: int = 0,
                        cluster_seed: Optional[int] = None,
                        engine: str = "auto", aggregator="mean",
-                       projection=None,
+                       projection=None, mesh=None, client_axis: str = "data",
                        return_sketches: bool = False, device=None):
     """The single communication round of Algorithm 1 over a stacked
     parameter tree.  Returns ``(new_state, labels, info)``.
@@ -163,7 +163,11 @@ def one_shot_aggregate(state: FederatedState, cfg=None, *,
     carries fresh AdamW moments (the reference's ``adamw_init``) when the
     given state has none, else ``None``: the moments' owner resets its
     own (``adamw_reset_``), since a second set takes 8 bytes a parameter
-    (32 GB at qwen2-0.5b with 8 clients)."""
+    (32 GB at qwen2-0.5b with 8 clients).
+
+    ``mesh`` / ``client_axis``: the fused round with the client axis
+    sharded over that mesh dim (``one_shot_aggregate_device``); the host
+    path runs on one device and refuses a mesh."""
     from repro_torch.core.clustering.api import (
         device_twin, get_algorithm, is_device_algorithm)
     from repro_torch.core.engine.aggregators import cluster_aggregate_tree
@@ -188,6 +192,9 @@ def one_shot_aggregate(state: FederatedState, cfg=None, *,
             raise ValueError("assert_separable requires engine='host' (the "
                              "Definition-1 margin is computed host-side)")
         use_device = False
+    if mesh is not None and not use_device:
+        raise ValueError("a mesh needs the device engine: the host path "
+                         "runs on one device")
     if use_device:
         from repro_torch.core.engine.aggregate import (
             one_shot_aggregate_device)
@@ -196,7 +203,8 @@ def one_shot_aggregate(state: FederatedState, cfg=None, *,
             state, cfg, algorithm=dev_algo, k=k, algo_options=algo_options,
             sketch_dim=sketch_dim, seed=seed, cluster_seed=cluster_seed,
             aggregator=aggregator, projection=projection,
-            return_sketches=return_sketches, device=device)
+            return_sketches=return_sketches, mesh=mesh,
+            client_axis=client_axis, device=device)
         return (new_state._replace(
             opt_state=_round_opt_state(state, new_state.params)),
             labels, info)

@@ -1,14 +1,18 @@
 """The federated-method API over deep-model federations (the port of
 ``repro/core/federated_methods.py``).
 
-  ``FederatedMethod.run(key, state, cfg, batches) -> FederatedMethodResult``
+  ``FederatedMethod.run(key, state, cfg, batches, *, mesh=None,
+  client_axis="data") -> FederatedMethodResult``
 
 ``state`` carries stacked per-client parameters (leading axis C); ``cfg``
 is the ``ModelConfig`` driving local training (``None`` for shallow
 per-client models, e.g. the ridge clients of ``launch/simulate.py``);
 ``batches`` yields dicts of (C, b, s) arrays (``None`` when the method
 runs no local step).  ``key`` is an int seed or a ``torch.Generator``
-(IFCA's ``init="perturb"`` draws from it).
+(IFCA's ``init="perturb"`` draws from it).  ``mesh`` / ``client_axis``:
+ODCL runs its round with the client axis on that mesh dim
+(``one_shot_aggregate``); IFCA, FedAvg and local-only take them and do
+not use them, as in the reference.
 
 Registered methods: ``ODCLFederated`` (Algorithm 1: local steps, the ONE
 clustered round, optional personalized steps), ``IFCAFederated`` (the
@@ -77,7 +81,8 @@ class FederatedMethod(Protocol):
     name: str
 
     def run(self, key, state: FederatedState, cfg,
-            batches: Optional[Iterator]) -> FederatedMethodResult: ...
+            batches: Optional[Iterator], *, mesh=None,
+            client_axis: str = "data") -> FederatedMethodResult: ...
 
 
 def _generator(key, device) -> torch.Generator:
@@ -142,9 +147,14 @@ class ODCLFederated:
         return resolve_device_request(self.algorithm, self.algo_options)
 
     def run(self, key, state: FederatedState, cfg,
-            batches=None) -> FederatedMethodResult:
+            batches=None, *, mesh=None,
+            client_axis: str = "data") -> FederatedMethodResult:
         _require_training_inputs(self.name, cfg, batches,
                                  self.local_steps + self.post_steps)
+        if mesh is not None and self.post_steps:
+            raise ValueError("post-round local steps on a client-sharded "
+                             "state are not ported: run odcl under a mesh "
+                             "with post_steps=0")
         rounds = []
         if self.local_steps:
             state, losses = local_training(state, cfg, batches,
@@ -163,7 +173,7 @@ class ODCLFederated:
             state, cfg, algorithm=algorithm, k=k, algo_options=options,
             engine=self.engine, sketch_dim=self.sketch_dim, seed=self.seed,
             aggregator=self.aggregator, projection=self.projection,
-            device=device)
+            mesh=mesh, client_axis=client_axis, device=device)
         if opt is not None:
             # the round leaves the moments to their owner: zeroed in place
             state = state._replace(opt_state=adamw_reset_(opt))
@@ -283,7 +293,8 @@ class IFCAFederated:
         raise ValueError(f"unknown assign rule {self.assign!r}")
 
     def run(self, key, state: FederatedState, cfg,
-            batches=None) -> FederatedMethodResult:
+            batches=None, *, mesh=None,
+            client_axis: str = "data") -> FederatedMethodResult:
         if self.rounds < 1:
             raise ValueError("IFCA needs rounds >= 1 (there is no "
                              "assignment without a round)")
@@ -415,7 +426,8 @@ class FedAvgGlobal:
     name: str = "fedavg"
 
     def run(self, key, state: FederatedState, cfg,
-            batches=None) -> FederatedMethodResult:
+            batches=None, *, mesh=None,
+            client_axis: str = "data") -> FederatedMethodResult:
         _require_training_inputs(self.name, cfg, batches, self.local_steps)
         c = state.n_clients
         device = tree_leaves(state.params)[0].device
@@ -458,7 +470,8 @@ class LocalOnlyFederated:
     name: str = "local-only"
 
     def run(self, key, state: FederatedState, cfg,
-            batches=None) -> FederatedMethodResult:
+            batches=None, *, mesh=None,
+            client_axis: str = "data") -> FederatedMethodResult:
         rounds = []
         if self.local_steps:
             _require_training_inputs(self.name, cfg, batches,

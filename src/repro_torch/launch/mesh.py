@@ -11,6 +11,10 @@ holds rank 0's shards.  The group is created by the first mesh built and
 refused at any other size; :func:`destroy_fake_process_group` drops it,
 so one process can build meshes of two sizes in turn.
 
+``client_mesh`` is the other kind: a real process group (gloo or NCCL,
+one process a rank) and the 1-D ``("data",)`` mesh the round's client
+axis shards over (``sharding/clients.py``).
+
 Meshes are built by FUNCTIONS, never at import.  Their device type is
 ``cuda`` unless the caller passes ``device="cpu"``; without a GPU, asking
 for ``cuda`` raises, as every entry point of the port does.
@@ -52,6 +56,27 @@ def _mesh(shape: tuple, names: tuple, device):
     dev = resolve_device(device)
     fake_process_group(math.prod(shape))
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+
+
+def client_mesh(ranks: int, *, backend: str, device=None, rank=None,
+                init_method=None):
+    """The 1-D ``("data",)`` mesh of ``ranks`` processes for the round's
+    client axis.  Joins the process group first where there is none
+    (``rank`` and ``init_method``, e.g. ``"tcp://localhost:29500"``, are
+    then required: nothing on the machine names a cluster); an existing
+    group must have ``ranks`` ranks and the ``backend`` asked for."""
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        if rank is None or init_method is None:
+            raise ValueError("joining a process group needs rank= and "
+                             "init_method=")
+        dist.init_process_group(backend, init_method=init_method,
+                                rank=int(rank), world_size=int(ranks))
+    have = (dist.get_world_size(), dist.get_backend())
+    if have != (int(ranks), backend):
+        raise RuntimeError(f"the process group has {have[0]} ranks on "
+                           f"{have[1]}, not {ranks} on {backend}")
+    return init_device_mesh(dev.type, (int(ranks),), mesh_dim_names=("data",))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):

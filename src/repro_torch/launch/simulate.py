@@ -50,6 +50,14 @@ federation as a stacked state, for ``rounds`` rounds with no local step
 (the shallow clients are at their local optima): IFCA assigns by sketch
 through ``kmeans_assign`` from k spread clients; no serving follows.
 
+``mesh`` (a ``DeviceMesh``, e.g. ``launch.mesh.client_mesh``) runs the
+round with the client axis on its ``client_axis`` dim, one process a
+rank: every rank draws every wave from the seed and its session keeps
+the rows it owns; the labels, the purity and the MSE cover every
+client.  The other methods run on the gathered federation.  There is no
+CLI flag for it, as in the reference; the route server
+(``qps_callers``) is refused under a mesh.
+
   python -m repro_torch.launch.simulate --clients 4096 --clusters 8
   python -m repro_torch.launch.simulate --clients 4096 --device cpu
   python -m repro_torch.launch.simulate --algorithm convex-device \
@@ -104,7 +112,17 @@ from repro_torch.core.federated_methods import (
 from repro_torch.core.sketch import make_generator
 from repro_torch.device import resolve_device
 from repro_torch.scenarios import build_scenario, list_scenarios
-from repro_torch.utils import prng
+from repro_torch.sharding.clients import client_axis_of
+from repro_torch.utils import prng, tree_map
+
+
+class Summary(dict):
+    """``simulate``'s summary: a dict of JSON values.  ``round``, an
+    attribute and not a key since it holds tensors, is the last installed
+    round of the one-shot method (its ``labels``, ``refinalize`` mode,
+    route ``centers`` and cluster ``models``), ``None`` for the iterative
+    methods."""
+    round = None
 
 
 def staggered_optima(generator: torch.Generator, K: int, d: int):
@@ -176,12 +194,14 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
              refinalize_threshold: float | None = None,
              mutation_rounds: int = 3, drift_scale: float = 2.0,
              qps_callers: int = 0, qps_duration: float = 2.0,
-             device=None) -> dict:
+             mesh=None, client_axis: str = "data",
+             device=None) -> "Summary":
     """Stream a K-cluster federation of ``clients`` ridge or logistic
     clients into an ``AggregationSession``, run the one-shot round, and
     return a summary (per-phase wall clock, purity, MSE of the ridge
     task, serving latencies).  ``trace`` attaches a JSONL sink for the
-    run.  Runs on CUDA unless ``device="cpu"``."""
+    run.  ``mesh`` / ``client_axis`` shard the client axis (see the
+    module docstring).  Runs on CUDA unless ``device="cpu"``."""
     dev = resolve_device(device)
     mutated = (reupload_frac > 0 or churn > 0 or max_age is not None
                or refinalize_threshold is not None)
@@ -195,9 +215,10 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
     if shards > 1 and method != "odcl":
         raise ValueError(f"--shards > 1 only runs the one-shot round "
                          f"(method='odcl'), got method={method!r}")
-    if qps_callers > 0 and (shards > 1 or method != "odcl"):
+    if qps_callers > 0 and (shards > 1 or method != "odcl"
+                            or mesh is not None):
         raise ValueError("--qps-callers needs the flat session's one-shot "
-                         "round (shards=1, method='odcl')")
+                         "round (shards=1, method='odcl', no mesh)")
     obs.reset()                       # per-run aggregates; sinks survive
     trace_sink = obs.add_sink(obs.JsonlSink(trace)) if trace else None
     try:
@@ -214,7 +235,8 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
             reupload_frac=reupload_frac, churn=churn, max_age=max_age,
             refinalize_threshold=refinalize_threshold,
             mutation_rounds=mutation_rounds, drift_scale=drift_scale,
-            qps_callers=qps_callers, qps_duration=qps_duration)
+            qps_callers=qps_callers, qps_duration=qps_duration,
+            mesh=mesh, client_axis=client_axis)
     finally:
         if trace_sink is not None:
             obs.remove_sink(trace_sink)
@@ -228,7 +250,8 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
               route_probes,
               finalize_repeats, reupload_frac, churn, max_age,
               refinalize_threshold, mutation_rounds, drift_scale,
-              qps_callers, qps_duration) -> dict:
+              qps_callers, qps_duration, mesh, client_axis) -> "Summary":
+    axis = client_axis_of(mesh, client_axis)
     gen = make_generator(seed, dev)
     optima = staggered_optima(gen, clusters, dim)
     scen = (build_scenario(scenario, **(scenario_options or {}))
@@ -254,10 +277,12 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
         session = HierarchicalSession(capacity, shards=shards,
                                       sketch_dim=sketch_dim, seed=seed,
                                       sketch_transform=sketch_hook,
+                                      mesh=mesh, client_axis=client_axis,
                                       device=dev)
     else:
         session = AggregationSession(capacity, sketch_dim=sketch_dim,
                                      seed=seed, sketch_transform=sketch_hook,
+                                     mesh=mesh, client_axis=client_axis,
                                      device=dev)
     agg = make_aggregator(aggregator, beta=trim_beta)
     t_erm = t_ingest = 0.0
@@ -282,7 +307,7 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
     if algorithm.startswith("convex"):
         # paper E.1 exact lambda: the recovery interval (17) of the true
         # clustering of the client models (the JL sketch is near-isometric)
-        lo, hi = lambda_interval(session.state().params["theta"],
+        lo, hi = lambda_interval(axis.full(session.state().params["theta"]),
                                  true_labels.cpu().numpy())
         algo_options = {"lam": 0.5 * (lo + hi) if lo < hi else lo,
                         "iters": cc_iters}
@@ -317,7 +342,10 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
             algo_options=algo_options, aggregator=agg,
             sketch_dim=sketch_dim, seed=seed, local_steps=0, rounds=rounds,
             assign="sketch", init="clients")
-        res = fed_method.run(seed, session.state(), None, None)
+        fed = session.state()       # the methods run on the whole federation
+        fed = fed._replace(params=tree_map(axis.full, fed.params))
+        res = fed_method.run(seed, fed, None, None, mesh=mesh,
+                             client_axis=client_axis)
         new_state, labels = res.state, res.labels
         comm_rounds, comm_bytes = res.comm_rounds, res.comm_bytes
         n_clusters, meta = res.n_clusters, res.meta
@@ -332,9 +360,8 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
               if honest.any() else purity_all)
     mse = None
     if task == "ridge":
-        keep = torch.as_tensor(honest, device=dev)
-        served = new_state.params["theta"][keep]
-        mse = float(torch.mean((served - optima[true_labels[keep]]) ** 2))
+        mse = _mse(axis, new_state.params["theta"], optima[true_labels],
+                   torch.as_tensor(honest, device=dev))
 
     serving = None
     if method == "odcl" and (mutated or route_probes > 0
@@ -408,7 +435,7 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
                           samples=samples, callers=qps_callers,
                           duration_s=qps_duration, task=task)
 
-    return {
+    summary = Summary({
         "clients": clients, "clusters": clusters, "dim": dim,
         "samples": samples, "wave": wave, "task": task,
         "sketch_dim": sketch_dim, "seed": seed, "method": method,
@@ -439,7 +466,31 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
         "serving": serving,
         "qps_server": qps_server,
         "obs": obs.snapshot(),
-    }
+        "mesh": None if mesh is None else {
+            "axis": client_axis, "ranks": axis.size, "rank": axis.rank,
+            "backend": axis.backend},
+    })
+    if method == "odcl":
+        served = session.served_round if shards == 1 else None
+        summary.round = {
+            "labels": (served.out[1] if served is not None else labels),
+            "refinalize": (served.out[2].get("refinalize")
+                           if served is not None else None),
+            "centers": session.route_centers,
+            "models": session.cluster_models()}
+    return summary
+
+
+def _mse(axis, theta, target, keep) -> float:
+    """The ridge MSE over the kept clients, from each rank's chunk of the
+    models (``Shard(0)`` or whole on every rank), the sums all-reduced."""
+    local, lo = axis.chunk(theta)
+    mine = keep[lo:lo + local.shape[0]]
+    err = torch.stack([
+        torch.sum((local[mine] - target[lo:lo + local.shape[0]][mine]) ** 2),
+        torch.sum(mine).to(torch.float32) * local.shape[1]])
+    err = axis.all_reduce(err)
+    return float(err[0] / err[1])
 
 
 def _mutate(session, gen, optima, true_labels, *, samples, clusters,

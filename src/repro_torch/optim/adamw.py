@@ -39,7 +39,9 @@ def adamw_init(params, n_clients: Optional[int] = None) -> dict:
     device = leaves[0].device if leaves else None
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # like p, so that a DTensor's moments are sharded as it is
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
 
     shape = () if n_clients is None else (int(n_clients),)
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
