@@ -222,7 +222,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     --local-steps 2`` (losses finite, kmeans_assign launched).  Purity,
     local-step p50, tokens/s, round ms and peak memory (gated below the
     card's) printed.  The 8 GB zlib checkpoint of this stack is left to
-    phase 3f and the CPU tests;
+    phase 3f and the CPU tests.  Each run's record for phase 7d (labels,
+    every client's losses, the round's and the final models, and for run
+    1 an ODCL round of ``engine="host"`` on its trained state) is written
+    on the host, to files beside the script that the script removes;
  3g. the model families, card vs CPU (run after 3f): deepseek-moe-16b (8
     experts, top 6), grok-1-314b (top 2 of 4, no shared experts),
     xlstm-125m, hymba-1.5b, hubert-xlarge and pixtral-12b, each reduced
@@ -338,9 +341,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     in two planted clusters (2 a rank, sketch 128): the labels, and
     every rank's client models within one bf16 ulp of the unmeshed
     cluster models (plus 2^-20 of the leaf's largest magnitude, the fp32
-    sums' rounding), the all-reduce bytes and seconds a rank printed.
-    Each subphase prints its backend, ranks, rows a rank and seconds
-    with the card line; one ``{"client_mesh": {...}}`` line;
+    sums' rounding), the all-reduce bytes and seconds a rank printed;
+    7b's main run also serves on rank 0 (``simulate(qps_callers=16)``):
+    no error or timeout, the server's labels for 1024 probes equal to one
+    batch route, no other rank serving; (d) in the same processes phase
+    4h's two runs through ``launch.train(mesh=)`` on qwen2-0.5b at full
+    width and depth, C = 8 (2 clients a rank), each rank building only
+    its own clients: run 1 (ODCL, device engine, 20 local and 2 post
+    steps) and one ODCL round of ``engine="host"`` on its trained state,
+    run 2 (IFCA, sketch assignment, 2 rounds of 2 steps), held to 4h's
+    records (kept on the host, in files beside the script) bit for bit:
+    labels, every client's loss at every step, the round's, the final
+    and the host round's models (the CPU rehearsal's fp32 models, whose
+    sums round by order, within ``lm_drift_tol`` after an average);
+    every rank's kmeans_assign
+    launched (and pairwise_sqdist in run 1); each rank's local-step p50
+    beside 4h's, the round ms, the gathered and all-reduced bytes and
+    the peak memory printed.  Each subphase prints its backend, ranks,
+    rows a rank and seconds with the card line; one
+    ``{"client_mesh": {...}}`` line;
  8. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -2855,7 +2874,7 @@ def lm_losses_finite(name: str, losses) -> None:
           f"4h {name}: losses {losses}")
 
 
-def phase_lm_train(ops, card: str) -> tuple:
+def phase_lm_train(ops, card: str, keep_dir: str | None = None) -> tuple:
     """Phase 4h: ``launch.train`` at full width, then the route to a
     cluster model and its prefill.
 
@@ -2868,11 +2887,14 @@ def phase_lm_train(ops, card: str) -> tuple:
     kernel once a layer.  Run 2 (IFCA, sketch assignment, 2 rounds):
     losses finite, kmeans_assign launched.  Purity, local-step p50,
     tokens/s, the round ms and the peak memory are printed, not gated.
-    Returns (launches by path, the launches at the LM phase-5 shapes)."""
+    With ``keep_dir``, each run's record (``lm_run``: labels, every
+    client's losses, the round's and the final models) goes to a file
+    there on the host for phase 7d, run 1's with one ODCL round of
+    ``engine="host"`` on its trained state.  Returns (launches by path,
+    the launches at the LM phase-5 shapes)."""
     from repro_torch import obs
     from repro_torch.core.federated import (
         params_bytes_per_client, sketch_round_bytes)
-    from repro_torch.launch import train as ttrain
 
     total = torch.cuda.get_device_properties(0).total_memory
     tokens = LM_CLIENTS * LM_FULL_BATCH * LM_FULL_SEQ
@@ -2882,10 +2904,8 @@ def phase_lm_train(ops, card: str) -> tuple:
         obs.reset()
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = ttrain.train(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        out, rec = lm_run(argv)
+        wall = out["wall_s"]
         by_path[f"4h {name}"] = launches = read_counts(ops)
         res, cfg = out["result"], out["cfg"]
         snap = obs.snapshot()
@@ -2921,13 +2941,22 @@ def phase_lm_train(ops, card: str) -> tuple:
                        loss_last=local["losses"][-1],
                        post_loss_last=post["losses"][-1])
             rows[name] = row
+            if keep_dir is not None:
+                rec["host"] = lm_host_round(res.state, cfg)
+                row["host_round_s"] = rec["host"]["seconds"]
             params = res.state.params
             del out, res              # the fp32 moments go with them
             torch.cuda.empty_cache()
             rows["route"] = phase_lm_route(ops, cfg, params, by_path)
             del params
             torch.cuda.empty_cache()
-        else:
+        if keep_dir is not None:
+            rec["local_step_p50_ms"] = step["p50"]
+            t0 = time.perf_counter()
+            torch.save(rec, Path(keep_dir) / f"{name}.pt")
+            row["kept_s"] = time.perf_counter() - t0
+        del rec
+        if name != "odcl":
             lm_losses_finite(name, [x for r in res.round_metrics
                                     for x in r["losses"]])
             check(launches["kmeans_assign"] > 0, "4h ifca: no kmeans_assign")
@@ -4371,6 +4400,9 @@ MESH_LM_C, MESH_LM_K, MESH_LM_SKETCH = 8, 2, 128
 MESH_CENTER_RTOL = 1e-6
 BF16_ULP = 2.0 ** -7
 FP32_SUM_ATOL = 2.0 ** -20
+# 7b's main run serves on rank 0: closed loops of 16 callers, per
+# request and batched, a second each
+MESH_QPS_CALLERS, MESH_QPS_SECONDS = 16, 1.0
 
 
 def mesh_runs(main_c: int, convex_c: int) -> dict:
@@ -4481,16 +4513,379 @@ def calls_by_rows(ops):
             setattr(ops, name, fn)
 
 
+# ---- 7d: phase 4h's training runs on the mesh
+
+# What 7d holds each meshed run to, 4h's unmeshed run.  At bf16 (the
+# card's qwen2-0.5b) everything bit for bit: labels, every client's loss
+# at every step of every phase, the round's, the final and the host
+# round's models.  The local phase runs the same kernels on the same
+# shapes and rows.  An average (the round's, IFCA's initial mean and
+# cluster means) adds each cluster's bf16 members in fp32, in another
+# order under a mesh (two a rank, then the all-reduce); on these runs
+# the two orders gave the same sums on the H100 (every model and loss
+# after an average 0.0 from 4h's; PERF.md), and the data, seeds and
+# kernels are fixed, so a run that parts from 4h has a fault.
+#
+# At fp32 (the reduced config of the CPU rehearsal) exactness does not
+# hold: fp32 members carry all 24 bits, so the two orders round the sums
+# differently (1.7e-7 of the leaf's scale in the rehearsal's round).
+# There the labels and the local phase's losses stay bit for bit; after
+# an average each AdamW step moves an entry by at most lr *
+# ``adam_step_bound(t)`` in either run (an entry whose gradient is
+# rounding noise can step either way), so a model n steps on lies within
+# 2 lr sum_t bound(t) of the other plus (2 + n) bf16 ulps
+# (``lm_drift_tol``), and a loss within one bf16 ulp (``LM_LOSS_RTOL``).
+LM_LOSS_RTOL = BF16_ULP
+
+
+def adam_step_bound(t: int, b1: float = 0.9, b2: float = 0.95) -> float:
+    """The largest |m_hat / sqrt(v_hat)| AdamW can reach at step t after a
+    reset, over every gradient sequence (Cauchy-Schwarz on the two
+    exponential averages; eps and the clip only make it smaller)."""
+    s = sum(((1 - b1) * b1 ** (t - i)) ** 2 / ((1 - b2) * b2 ** (t - i))
+            for i in range(1, t + 1))
+    return (s * (1 - b2 ** t)) ** 0.5 / (1 - b1 ** t)
+
+
+def lm_drift_tol(lr: float, steps: list) -> tuple:
+    """(absolute move, bf16 ulps) two fp32 runs of ``steps`` (the step
+    counts after each reset of the moments) may part by after an
+    average."""
+    move = 2 * lr * sum(adam_step_bound(t) for n in steps
+                        for t in range(1, n + 1))
+    return move, 2 + sum(steps)
+
+
+def lm_rows_err(what: str, got, want, tol, device="cpu") -> float:
+    """The largest |got - want| of two rows (on ``device``).  ``tol`` =
+    None: fails unless they are equal bit for bit; else (move, ulps,
+    scale): unless |got - want| <= move + ulps * BF16_ULP (|want| + move)
+    + 2^-20 scale, elementwise, and the error is returned over
+    ``scale``."""
+    g, w = got.to(device), want.to(device)
+    err = (g.float() - w.float()).abs()
+    worst = float(err.max()) if err.numel() else 0.0
+    if tol is None:
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              f"{what}: not bit for bit (off by {worst:.3g})")
+        return worst
+    move, ulps, scale = tol
+    bound = (move + ulps * BF16_ULP * (w.float().abs() + move)
+             + FP32_SUM_ATOL * scale)
+    check(bool((err <= bound).all()),
+          f"{what}: off by {worst:.3g} (bound at that entry "
+          f"{float(bound.flatten()[int(err.argmax())]):.3g})")
+    return worst / scale
+
+
+@contextlib.contextmanager
+def captured_post_start(keep: dict, meshed: bool):
+    """While the block runs, the models ODCL's post phase starts from (the
+    round's, handed to the second ``local_training`` call) are copied to
+    the host, outside the round's and the steps' timers: every client's
+    rows, or under a mesh this rank's."""
+    from repro_torch.core import federated_methods as fm
+    from repro_torch.utils import tree_map
+
+    inner = fm.local_training
+    calls = []
+
+    def capturing(state, *args, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            keep["rows"] = tree_map(
+                lambda l: (l.to_local() if meshed else l).to(
+                    "cpu", copy=True), state.params)
+        return inner(state, *args, **kw)
+
+    fm.local_training = capturing
+    try:
+        yield keep
+    finally:
+        fm.local_training = inner
+
+
+def first_members(labels: np.ndarray, k: int) -> list:
+    return [int(np.argmax(labels == c)) for c in range(k)]
+
+
+def lm_run(argv: list, mesh=None, rows: tuple | None = None) -> tuple:
+    """One ``launch.train`` run of 4h or 7d.  Returns (train's summary
+    with ``wall_s``, the run's record on the host): labels, every
+    client's loss at every step by phase (ODCL) or round (IFCA), ODCL's
+    round (its labels and models: each cluster's, or under a mesh this
+    rank's ``rows`` = (lo, hi) of the clients), and the final models
+    (every client's, or this rank's)."""
+    from repro_torch.launch import train as ttrain
+    from repro_torch.utils import tree_map
+
+    keep: dict = {}
+    t0 = time.perf_counter()
+    with captured_post_start(keep, rows is not None):
+        out = ttrain.train(argv, mesh=mesh)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    res = out["result"]
+    labels = np.asarray(res.labels)
+    losses = {m.get("phase", f"round{m.get('round')}"):
+              np.asarray(m["client_losses"], np.float32)
+              for m in res.round_metrics if m.get("client_losses")}
+    round_ = None
+    if keep:
+        round_ = {"labels": labels}
+        if rows is None:
+            first = first_members(labels, res.n_clusters)
+            round_["models"] = tree_map(lambda l: l[first], keep["rows"])
+        else:
+            round_["rows"] = keep["rows"]
+    final = tree_map(lambda l: (l.to_local() if rows else l).to(
+        "cpu", copy=True), res.state.params)
+    return out, {"labels": labels, "losses": losses, "round": round_,
+                 "final": final}
+
+
+def lm_host_round(state, cfg, mesh=None, rows=None, device="cuda") -> dict:
+    """One ODCL round with ``engine="host"`` (kmeans++, K = 2, sketch 128)
+    on a trained federation: labels, models as ``captured_round`` keeps
+    them, seconds."""
+    from repro_torch.core.federated import one_shot_aggregate
+    from repro_torch.utils import tree_map
+
+    t0 = time.perf_counter()
+    new, labels, _ = one_shot_aggregate(
+        state, cfg, algorithm="kmeans++", k=LM_CLUSTERS, engine="host",
+        sketch_dim=LM_FULL_SKETCH, seed=0, mesh=mesh, device=device)
+    labels = np.asarray(labels)
+    if rows is None:
+        first = first_members(labels, int(labels.max()) + 1)
+        kept = {"models": tree_map(lambda l: l[first].cpu(), new.params)}
+    else:
+        kept = {"rows": tree_map(lambda l: l.to_local().to("cpu", copy=True),
+                                 new.params)}
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+    return {"labels": labels, **kept, "seconds": time.perf_counter() - t0}
+
+
+def lm_hold(what: str, got: dict, want: dict, lo: int, lr: float,
+            drift_steps: list, local_phase: str | None,
+            device="cpu") -> dict:
+    """Hold a meshed run's record (this rank's clients ``lo`` ...) to the
+    unmeshed one's: bit for bit where the models are bf16; at fp32 only
+    the labels and ``local_phase``'s losses (before any average), the
+    rest within ``lm_drift_tol`` of the AdamW steps after each reset that
+    follow the first average (``drift_steps``).  Returns the largest
+    errors (0.0 where exact; at fp32 the models' over their scale) and
+    the losses' over their value."""
+    from repro_torch.utils import tree_leaves
+
+    exact = all(l.dtype == torch.bfloat16
+                for l in tree_leaves(want["final"]))
+    check(np.array_equal(got["labels"], want["labels"]),
+          f"{what}: labels {got['labels'].tolist()} != "
+          f"{want['labels'].tolist()}")
+    worst = {"exact": exact, "losses": 0.0}
+    for phase, w in want["losses"].items():
+        g = got["losses"][phase]
+        rel = np.abs(g - w) / np.abs(w)
+        worst["losses"] = max(worst["losses"], float(rel.max()))
+        if exact or phase == local_phase:
+            bad = np.flatnonzero((g != w).any(axis=0))
+            check(bad.size == 0, f"{what}: {phase} losses differ from the "
+                  f"unmeshed run for clients {bad.tolist()} (off by "
+                  f"{float(rel.max()):.3g} of their value)")
+        else:
+            check(bool((rel <= LM_LOSS_RTOL).all()),
+                  f"{what}: {phase} losses off by {float(rel.max()):.3g} "
+                  f"of their value")
+    move, ulps = lm_drift_tol(lr, drift_steps)
+
+    def hold_rows(name, got_tree, want_tree, labels, move, ulps):
+        """Each of this rank's rows against its cluster's model
+        (``labels``) or its own row; the scale is the largest magnitude
+        of the models read (every cluster's, or this rank's rows)."""
+        err = 0.0
+        for i, (g, w) in enumerate(zip(tree_leaves(got_tree),
+                                       tree_leaves(want_tree))):
+            if labels is None:
+                w = w[lo:lo + g.shape[0]]
+                pick = list(range(g.shape[0]))
+            else:
+                pick = [int(labels[lo + j]) for j in range(g.shape[0])]
+            tol = None if exact else (
+                move, ulps, float(w.to(device).float().abs().max()) or 1.0)
+            for j, row in enumerate(pick):
+                err = max(err, lm_rows_err(
+                    f"{what}: {name} leaf {i} of client {lo + j}", g[j],
+                    w[row], tol, device))
+        return err
+
+    if want.get("round"):
+        worst["round_models"] = hold_rows(
+            "the round's model", got["round"]["rows"],
+            want["round"]["models"], want["round"]["labels"], 0.0, 1.0)
+    worst["final_models"] = hold_rows("the final model", got["final"],
+                                      want["final"], None, move, ulps)
+    if want.get("host"):
+        check(np.array_equal(got["host"]["labels"], want["host"]["labels"]),
+              f"{what}: the host round's labels differ")
+        # one more average, one more rounding
+        worst["host_round_models"] = hold_rows(
+            "the host round's model", got["host"]["rows"],
+            want["host"]["models"], want["host"]["labels"], move, ulps + 1)
+    return worst
+
+
+def lm_train_child(rank: int, mesh, dev: str, sizes: dict, ops) -> dict:
+    """7d on one rank: 4h's two runs through ``launch.train`` with the
+    mesh, and an ODCL host round on run 1's trained state, each held to
+    4h's records (``sizes["lm_keep"]``)."""
+    from repro_torch import obs
+    from repro_torch.launch import train as ttrain
+
+    keep_dir = Path(sizes["lm_keep"])
+    per = LM_CLIENTS // MESH_RANKS
+    rows = (rank * per, (rank + 1) * per)
+    lr = ttrain.parser().parse_args([]).lr
+    out = {}
+    for name, argv, local_phase, drift in (
+            ("odcl", LM_RUN1, "local", [2]),
+            ("ifca", LM_RUN2, None, [2, 2])):
+        argv = list(argv) + list(sizes.get("lm_argv", ()))
+        memory = None
+        if dev == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            memory = card_memory()
+            print(f"[chip_smoke] 7d {name} rank {rank} before: "
+                  f"{json.dumps(memory)}", flush=True)
+        obs.reset()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        run, rec = lm_run(argv, mesh=mesh, rows=rows)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        snap = obs.snapshot()
+        launches = read_counts(ops) if dev == "cuda" else None
+        peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+        res = run["result"]
+        host = None
+        if name == "odcl":
+            host = lm_host_round(res.state, run["cfg"], mesh=mesh, rows=rows,
+                                 device=dev)
+            rec["host"] = host
+        del run, res
+        gc.collect()
+        want = torch.load(keep_dir / f"{name}.pt", mmap=True,
+                          weights_only=False)
+        what = f"7d {name} (rank {rank})"
+        worst = lm_hold(what, rec, want, rows[0], lr, drift, local_phase,
+                        dev)
+        if dev == "cuda":
+            need = (("kmeans_assign", "pairwise_sqdist") if name == "odcl"
+                    else ("kmeans_assign",))
+            for kernel in need:
+                check(launches[kernel] > 0, f"{what}: no {kernel} launch")
+        step = snap["histograms"].get("fed.local_step.ms", {})
+        out[name] = {
+            "seconds": seconds, "labels": rec["labels"].tolist(),
+            "local_step_p50_ms": step.get("p50"),
+            "local_steps": step.get("count"),
+            "unmeshed_local_step_p50_ms": want["local_step_p50_ms"],
+            "round_ms": snap["histograms"].get("fed.round.ms", {}).get(
+                "sum"),
+            "host_round_s": None if host is None else host["seconds"],
+            "gather_bytes": snap["counters"].get("mesh.gather.bytes", 0.0),
+            "all_reduce_bytes": snap["counters"].get(
+                "mesh.all_reduce.bytes", 0.0),
+            "all_reduce_ms": snap["histograms"].get(
+                "mesh.all_reduce.ms", {}).get("sum", 0.0),
+            "peak_memory_bytes": peak, "memory_at_start": memory,
+            "launches": launches, "max_err": worst}
+        del rec, want, host
+        gc.collect()
+    return out
+
+
+def lm_keep_runs(keep_dir: str, argv_extra=(), device="cuda") -> None:
+    """The unmeshed records 7d holds its runs to, when phase 4h has not
+    made them (the CPU rehearsal): both runs and the host round."""
+    for name, argv in (("odcl", LM_RUN1), ("ifca", LM_RUN2)):
+        run, rec = lm_run(list(argv) + list(argv_extra))
+        if name == "odcl":
+            rec["host"] = lm_host_round(run["result"].state, run["cfg"],
+                                        device=device)
+        rec["local_step_p50_ms"] = None
+        torch.save(rec, Path(keep_dir) / f"{name}.pt")
+        del run, rec
+
+
+def card_memory() -> dict:
+    """This process's allocated and reserved bytes on the card, its five
+    largest segments (total, allocated), and the card's free bytes."""
+    free, total = torch.cuda.mem_get_info()
+    segs = sorted(torch.cuda.memory_snapshot(),
+                  key=lambda g: -g["total_size"])[:5]
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(), "card_free": free,
+            "card_total": total,
+            "largest_segments": [(g["total_size"], g["allocated_size"])
+                                 for g in segs]}
+
+
+def card_used_mib() -> list:
+    """The card's used memory (MiB) and each compute process's, as
+    ``nvidia-smi`` reads them."""
+    def query(what):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-{what}", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30).stdout.split()
+
+    used = query("gpu=memory.used")
+    apps = query("compute-apps=used_memory")
+    return [int(float(x)) for x in used[:1]] + [int(float(x)) for x in apps]
+
+
+def lm_round_worst(rank: int, per: int, labels, state, want) -> float:
+    """7c's check: this rank's client models within one bf16 ulp of the
+    unmeshed cluster models (plus the fp32 sums' rounding); returns the
+    largest error over each leaf's scale.  (Its own frame, so that no
+    full-width row outlives the check.)"""
+    from repro_torch.utils import tree_leaves
+
+    worst = 0.0
+    for i, (got_l, want_l) in enumerate(zip(
+            tree_leaves(state.params), tree_leaves(want["models"]))):
+        mine_rows = got_l.to_local()
+        scale = float(want_l.float().abs().max()) or 1.0
+        atol = FP32_SUM_ATOL * scale
+        for j in range(per):
+            lab = int(labels[rank * per + j])
+            g, w = mine_rows[j].float(), want_l[lab].float()
+            err = (g - w).abs()
+            check(bool((err <= BF16_ULP * w.abs() + atol).all()),
+                  f"7c (rank {rank}): leaf {i} of client "
+                  f"{rank * per + j} off by {float(err.max()):.3g}, "
+                  "more than one bf16 ulp of the unmeshed model")
+            worst = max(worst, float(err.max()) / scale)
+    return worst
+
+
 def mesh_child(rank: int, port: int, out_dir: str, base: dict,
                sizes: dict) -> None:
-    """One rank of phase 7b-c: every run with the mesh, each held to the
-    unmeshed run of the parent (``base``), then one JSON record."""
+    """One rank of phase 7b-d: every run with the mesh, each held to the
+    unmeshed run of the parent (``base``) or of phase 4h, then one JSON
+    record."""
     from repro_torch import obs
     from repro_torch.kernels import ops
+    from repro_torch.kernels.kmeans_assign import assign_plan
     from repro_torch.launch.mesh import client_mesh
     from repro_torch.launch.simulate import simulate
     from repro_torch.sharding.clients import ClientAxis
-    from repro_torch.utils import tree_leaves, tree_map
+    from repro_torch.utils import tree_map
 
     dev = sizes["device"]
     mesh = client_mesh(MESH_RANKS, backend="gloo", device=dev, rank=rank,
@@ -4498,6 +4893,10 @@ def mesh_child(rank: int, port: int, out_dir: str, base: dict,
     axis = ClientAxis(mesh)
     rec = {"rank": rank, "runs": {}}
     for name, kw in mesh_runs(sizes["main_c"], sizes["convex_c"]).items():
+        if name == "main":
+            # the route server over the meshed session, rank 0's
+            kw = dict(kw, qps_callers=MESH_QPS_CALLERS,
+                      qps_duration=MESH_QPS_SECONDS)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         with calls_by_rows(ops) as rows:
@@ -4528,10 +4927,22 @@ def mesh_child(rank: int, port: int, out_dir: str, base: dict,
                   f"{what}: kmeans_assign by rows {calls}, not on the "
                   f"rank's {mine} rows alone")
             if dev == "cuda":
+                # the round's calls, and rank 0's batch routes past the
+                # small-m threshold
+                want = sum(n for m, n in calls.items() if assign_plan(
+                    m, kw["clusters"], kw["sketch_dim"]).variant == "stream")
                 stream = ops.variant_counts()["kmeans_assign"]["stream"]
-                check(stream == calls[mine],
-                      f"{what}: {stream} stream launches for "
-                      f"{calls[mine]} calls on {mine} rows")
+                check(stream == want,
+                      f"{what}: {stream} stream launches for {want} calls "
+                      f"of the stream variant ({calls})")
+        qps = summary["qps_server"]
+        if name == "main" and rank == 0:
+            check(qps is not None and qps["errors"] == 0
+                  and qps["timeouts"] == 0
+                  and qps["labels_equal_batch_route"],
+                  f"{what}: the route server {qps}")
+        else:
+            check(qps is None, f"{what}: rank {rank} served {qps}")
         rec["runs"][name] = {
             "seconds": seconds, "purity": got["purity"], "mse": got["mse"],
             "n_iter": got["n_iter"], "rows_per_rank": (
@@ -4544,7 +4955,8 @@ def mesh_child(rank: int, port: int, out_dir: str, base: dict,
                 "mesh.all_reduce.bytes", 0.0),
             "gather_bytes": summary["obs"]["counters"].get(
                 "mesh.gather.bytes", 0.0),
-            "phases": got["phases"], "spans": got["spans"]}
+            "phases": got["phases"], "spans": got["spans"],
+            "qps_server": qps}
         del summary
     # the unmeshed LM models arrived through CUDA IPC: popped from the
     # shared dict, so the last reference goes with this frame's and the
@@ -4570,21 +4982,7 @@ def mesh_child(rank: int, port: int, out_dir: str, base: dict,
         snap = obs.snapshot()
         check(np.array_equal(np.asarray(labels), want["labels"]),
               f"7c (rank {rank}): labels {labels} != {want['labels']}")
-        worst = 0.0
-        for i, (got_l, want_l) in enumerate(zip(
-                tree_leaves(state.params), tree_leaves(want["models"]))):
-            mine_rows = got_l.to_local()
-            scale = float(want_l.float().abs().max()) or 1.0
-            atol = FP32_SUM_ATOL * scale
-            for j in range(per):
-                lab = int(labels[rank * per + j])
-                g, w = mine_rows[j].float(), want_l[lab].float()
-                err = (g - w).abs()
-                check(bool((err <= BF16_ULP * w.abs() + atol).all()),
-                      f"7c (rank {rank}): leaf {i} of client "
-                      f"{rank * per + j} off by {float(err.max()):.3g}, "
-                      "more than one bf16 ulp of the unmeshed model")
-                worst = max(worst, float(err.max()) / scale)
+        worst = lm_round_worst(rank, per, labels, state, want)
         hist = snap["histograms"].get("mesh.all_reduce.ms", {})
         rec["lm"] = {"seconds": seconds,
                      "all_reduce_bytes": snap["counters"].get(
@@ -4597,6 +4995,8 @@ def mesh_child(rank: int, port: int, out_dir: str, base: dict,
                                            if dev == "cuda" else None)}
         del state, params, want
         gc.collect()
+    if sizes.get("lm_keep"):
+        rec["lm_train"] = lm_train_child(rank, mesh, dev, sizes, ops)
     torch.distributed.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -4612,14 +5012,19 @@ def free_port() -> int:
 
 def phase_client_mesh(card: str, device: str = "cuda",
                       main_c: int = MAIN_M, convex_c: int = MESH_CONVEX_C,
-                      lm_cfg=None, single_backend: str = "nccl") -> dict:
-    """Phase 7: the round's client axis on a mesh.  7a: the main path at
-    one rank of ``single_backend`` equal to the unmeshed run bit for bit
-    (labels, centers, cluster models).  7b: the four runs of
-    ``mesh_runs`` in ``MESH_RANKS`` spawned processes of one gloo group
-    over tensors on the card, each held to the unmeshed run.  7c: the LM
-    round at C = 8 in the same processes, held to the unmeshed round.
-    (``device`` and the sizes let the phase be rehearsed on the CPU.)"""
+                      lm_cfg=None, single_backend: str = "nccl",
+                      lm_keep: str | None = None, lm_argv=()) -> dict:
+    """Phase 7: the client axis on a mesh.  7a: the main path at one rank
+    of ``single_backend`` equal to the unmeshed run bit for bit (labels,
+    centers, cluster models).  7b: the runs of ``mesh_runs`` in
+    ``MESH_RANKS`` spawned processes of one gloo group over tensors on
+    the card, each held to the unmeshed run, the main one serving on
+    rank 0.  7c: the LM round at C = 8 in the same processes, held to
+    the unmeshed round.  7d: phase 4h's two training runs in the same
+    processes, held to 4h's records in ``lm_keep``.  (``device``, the
+    sizes and ``lm_argv``, extra ``launch.train`` flags, let the phase be
+    rehearsed on the CPU; without ``lm_keep`` the records are made here
+    first.)"""
     import torch.distributed as dist
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
@@ -4690,26 +5095,61 @@ def phase_client_mesh(card: str, device: str = "cuda",
         base["lm"] = {"labels": labels, "models": models}
         seconds["unmeshed lm"] = time.perf_counter() - t0
         n_params = sum(l[0].numel() for l in tree_leaves(models))
+        del models, first
     else:
         base["lm"] = None
 
-    # ---- 7b-c: MESH_RANKS processes of gloo
-    t0 = time.perf_counter()
+    # ---- 7b-d: MESH_RANKS processes of gloo
     tmp = tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent)
+    if lm_keep is None and lm_argv:
+        t0 = time.perf_counter()
+        lm_keep = tmp.name
+        lm_keep_runs(lm_keep, lm_argv, device)
+        seconds["unmeshed lm_train"] = time.perf_counter() - t0
+    if device == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["parent_memory"] = card_memory()
+        print(f"[chip_smoke] 7 parent on the card before the ranks: "
+              f"{json.dumps(out['parent_memory'])}", flush=True)
+    t0 = time.perf_counter()
     sizes = {"device": device, "main_c": main_c, "convex_c": convex_c,
-             "lm_cfg": lm_cfg}
-    ctx = mp.start_processes(mesh_child, args=(free_port(), tmp.name, base,
-                                               sizes),
-                             nprocs=MESH_RANKS, join=False,
-                             start_method="spawn")
+             "lm_cfg": lm_cfg, "lm_keep": lm_keep, "lm_argv": list(lm_argv)}
+    # four processes share the card: each returns freed memory to it at
+    # page granularity (expandable segments), since 7d's ranks need ~16 GB
+    # each at their peaks (the setting is read at a process's first CUDA
+    # use, so it reaches the ranks alone)
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ctx = mp.start_processes(mesh_child, args=(free_port(), tmp.name,
+                                                   base, sizes),
+                                 nprocs=MESH_RANKS, join=False,
+                                 start_method="spawn")
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
     deadline = time.monotonic() + MESH_TIMEOUT
+    peak_used = None                    # the card's, polled every 5 s
+    # the LM models went to the ranks through CUDA IPC: the parent lets go
+    # of them, and their memory returns once every rank has let go too
+    base.pop("lm", None)
     try:
         while not ctx.join(timeout=5):
             if time.monotonic() > deadline:
                 fail(f"7b-c: the {MESH_RANKS} ranks ran past "
                      f"{MESH_TIMEOUT} s")
+            if device == "cuda":
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
+                used = card_used_mib()
+                if used and (peak_used is None or used[0] > peak_used[0]):
+                    peak_used = used
     except ProcessException as e:
-        fail(f"7b-c: a rank failed: {e}")
+        fail(f"7b-d: a rank failed (the card's peak use, MiB, and each "
+             f"process's: {peak_used}): {e}")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -4738,7 +5178,8 @@ def phase_client_mesh(card: str, device: str = "cuda",
             "phases_per_rank": [r["phases"] for r in per_rank],
             "spans_rank0": per_rank[0]["spans"],
             "unmeshed_phases": base_phases[name]["phases"],
-            "unmeshed_spans": base_phases[name]["spans"]}
+            "unmeshed_spans": base_phases[name]["spans"],
+            "qps_server_rank0": per_rank[0].get("qps_server")}
         ph = per_rank[0]["phases"]
         print(f"[chip_smoke] 7b {name}: gloo {MESH_RANKS} ranks, "
               f"{per_rank[0]['rows_per_rank']} rows a rank: "
@@ -4766,6 +5207,33 @@ def phase_client_mesh(card: str, device: str = "cuda",
               f"rank: {out['subphases']['7c lm']['seconds']:.1f}s, "
               f"all-reduce {lm[0]['all_reduce_bytes'] / 1e9:.2f} GB a rank "
               f"in {lm[0]['all_reduce_ms'] / 1e3:.1f}s  ({card})", flush=True)
+    if recs[0].get("lm_train") is not None:
+        for name in ("odcl", "ifca"):
+            per_rank = [r["lm_train"][name] for r in recs]
+            sub = {
+                "backend": "gloo", "ranks": MESH_RANKS, "arch": SERVE_ARCH,
+                "argv": " ".join(LM_RUN1 if name == "odcl" else LM_RUN2),
+                "clients": LM_CLIENTS,
+                "clients_per_rank": LM_CLIENTS // MESH_RANKS,
+                "labels": per_rank[0]["labels"],
+                "seconds": max(r["seconds"] for r in per_rank),
+                **{key: [r[key] for r in per_rank] for key in (
+                    "local_step_p50_ms", "round_ms", "host_round_s",
+                    "gather_bytes", "all_reduce_bytes", "all_reduce_ms",
+                    "peak_memory_bytes", "memory_at_start", "launches")},
+                "local_steps": per_rank[0]["local_steps"],
+                "unmeshed_local_step_p50_ms":
+                    per_rank[0]["unmeshed_local_step_p50_ms"],
+                "max_err": {key: max(r["max_err"][key] for r in per_rank)
+                            for key in per_rank[0]["max_err"]}}
+            out["subphases"][f"7d {name}"] = sub
+            print(f"[chip_smoke] 7d {name} {SERVE_ARCH} C={LM_CLIENTS}: "
+                  f"gloo {MESH_RANKS} ranks, {sub['clients_per_rank']} "
+                  f"clients a rank: {sub['seconds']:.1f}s, local step p50 "
+                  f"{sub['local_step_p50_ms']} ms a rank (unmeshed "
+                  f"{sub['unmeshed_local_step_p50_ms']}), errors "
+                  f"{sub['max_err']}  ({card})", flush=True)
+    out["card_used_mib_peak"] = peak_used     # [card, each process]
     out["spawned_seconds"] = wall
     out["seconds"] = time.perf_counter() - t_all
     print(json.dumps({"client_mesh": out}), flush=True)
@@ -4885,7 +5353,10 @@ def main() -> None:
     paper, launches = phase_paper_methods(ops, card)
     by_path.update(paper)
     shape_launches.update(launches)
-    lm, launches = phase_lm_train(ops, card)
+    # 4h's records for 7d, on the host (files beside the script)
+    lm_keep = tempfile.TemporaryDirectory(
+        dir=Path(__file__).resolve().parent)
+    lm, launches = phase_lm_train(ops, card, lm_keep.name)
     by_path.update(lm)
     shape_launches.update(launches)
     families, launches = phase_families(ops, card, args.profile)
@@ -4895,7 +5366,10 @@ def main() -> None:
     print(json.dumps({"kernels": rows}), flush=True)
     phase_roofline(card, summary["obs"])
     phase_dryrun(card)
-    phase_client_mesh(card)
+    try:
+        phase_client_mesh(card, lm_keep=lm_keep.name)
+    finally:
+        lm_keep.cleanup()
     if args.profile:
         phase_traces(simulate, generate)
     print(f"[chip_smoke] every phase passed in "

@@ -8,6 +8,12 @@ and its raw little-endian bytes.  Either package reads the other's
 files.  The port writes zlib; it reads zlib, and zstd where the
 ``zstandard`` module imports (the reference writes zstd when it can).
 The msgpack subset is the port's own (``msgpack_lite``).
+
+A federation whose client axis is sharded over a mesh (``Shard(0)``
+DTensors, ``sharding/clients.py``) is saved as one file of the whole
+stack, the same bytes as the unmeshed tree's: each leaf's rows are
+gathered and rank 0 writes.  Restored onto a ``Shard(0)`` template, each
+rank keeps its own rows.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import zlib
 import torch
 
 from repro_torch.checkpoint.msgpack_lite import packb, unpackb
+from repro_torch.sharding.clients import tree_axis
 from repro_torch.utils import tree_leaves_with_path, tree_map
 
 try:                              # optional: only to read zstd files
@@ -52,15 +59,24 @@ def _record(leaf: torch.Tensor) -> dict:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
-    """Write ``tree`` as ``<ckpt_dir>/step_<step>.ckpt``; returns the path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    payload = packb({path: _record(leaf)
-                     for path, leaf in tree_leaves_with_path(tree)})
+    """Write ``tree`` as ``<ckpt_dir>/step_<step>.ckpt``; returns the path.
+    A ``Shard(0)`` tree is gathered leaf by leaf and written by rank 0;
+    every rank returns once the file is in place."""
+    axis = tree_axis(tree)
+    records = {}
+    for name, leaf in tree_leaves_with_path(tree):
+        whole = axis.full(leaf)
+        if axis.rank == 0:
+            records[name] = _record(whole)
+        del whole
     path = os.path.join(ckpt_dir, f"step_{step}.ckpt")
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(zlib.compress(payload, 6))
-    os.replace(tmp, path)
+    if axis.rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(zlib.compress(packb(records), 6))
+        os.replace(tmp, path)
+    axis.barrier()
     return path
 
 
@@ -77,12 +93,20 @@ def _tensor(rec: dict) -> torch.Tensor:
 def restore_checkpoint(ckpt_dir: str, step: int, tree_template):
     """Read step ``step`` into the structure of ``tree_template`` (its
     keys; the stored shapes and dtypes win, so a single-model template
-    restores a stacked federated checkpoint).  Returns CPU tensors."""
+    restores a stacked federated checkpoint).  Returns CPU tensors; onto
+    a ``Shard(0)`` template, ``Shard(0)`` DTensors of each rank's rows on
+    the mesh's device."""
     path = os.path.join(ckpt_dir, f"step_{step}.ckpt")
     with open(path, "rb") as f:
         stored = unpackb(_decompress(f.read()))
-    it = iter([_tensor(stored[p])
-               for p, _ in tree_leaves_with_path(tree_template)])
+    axis = tree_axis(tree_template)
+    leaves = []
+    for p, _ in tree_leaves_with_path(tree_template):
+        t = _tensor(stored[p])
+        if axis.mesh is not None:   # (a plain template's leaves may be 0-d)
+            t = axis.place(axis.local_rows(t, t.shape[0]), t.shape[0])
+        leaves.append(t)
+    it = iter(leaves)
     return tree_map(lambda _: next(it), tree_template)
 
 

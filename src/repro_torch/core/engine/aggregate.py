@@ -37,7 +37,7 @@ from repro_torch.core.clustering.api import (
     is_device_algorithm,
     meta_to_host,
 )
-from repro_torch.core.engine.aggregators import get_aggregator
+from repro_torch.core.engine.aggregators import cluster_reps, get_aggregator
 from repro_torch.core.federated import FederatedState, _leaf_filter_for
 from repro_torch.core.sketch import make_generator, sketch_stacked
 from repro_torch.device import resolve_device
@@ -47,31 +47,12 @@ from repro_torch.sharding.clients import client_axis_of
 from repro_torch.utils import tree_leaves, tree_map
 
 
-def cluster_reps(labels, centers, params, aggregator, shard):
-    """Step 3: every leaf's (K, ...) per-cluster representatives, in the
-    leaf's dtype, on every rank, from this rank's rows (``labels`` and
-    ``params``) and the all-reduced (K,) counts.  One leaf at a time, so
-    under a mesh no (K, n) buffer of the whole model is held at once."""
-    kk = centers.shape[0]
-    agg = get_aggregator(aggregator)
-    onehot = torch.nn.functional.one_hot(labels.long(), kk).to(torch.float32)
-    counts = shard.all_reduce(torch.sum(onehot, dim=0))
-
-    def rep(leaf):
-        flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
-        return agg(flat, labels, onehot, counts, shard=shard).reshape(
-            (kk,) + tuple(leaf.shape[1:])).to(leaf.dtype)
-
-    return tree_map(rep, params)
-
-
-def weighted_reps(labels, centers, params, weights, shard):
+def weighted_reps(labels, kk: int, params, weights, shard, then=None):
     """The exp-decay staleness policy's step 3: (K, ...) representatives
     ``sum_i w_i x_i / sum_i w_i`` from this rank's rows, the sums and the
     denominator (floored at 1e-12) all-reduced.  Only the mean has a
     weighted form; the session refuses weighting for any other
-    aggregator."""
-    kk = centers.shape[0]
+    aggregator.  ``then`` as in :func:`cluster_reps`."""
     onehot = torch.nn.functional.one_hot(labels.long(), kk).to(torch.float32)
     weighted = onehot * weights.to(torch.float32)[:, None]
     denom = torch.clamp_min(shard.all_reduce(torch.sum(weighted, dim=0)),
@@ -80,7 +61,8 @@ def weighted_reps(labels, centers, params, weights, shard):
     def rep(leaf):
         flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
         means = shard.all_reduce(weighted.T @ flat) / denom
-        return means.reshape((kk,) + tuple(leaf.shape[1:])).to(leaf.dtype)
+        out = means.reshape((kk,) + tuple(leaf.shape[1:])).to(leaf.dtype)
+        return out if then is None else then(out)
 
     return tree_map(rep, params)
 
@@ -172,24 +154,38 @@ def _cluster_program(algo, k, options):
     return _Program("session.finalize.cluster", cluster_fn)
 
 
-def _average(labels, centers, params, aggregator, shard, weights=None):
-    """Steps 3-4: the (K, ...) representatives from this rank's rows
-    (``cluster_reps``, or ``weighted_reps`` with per-client weights), then
-    each client's row from its cluster's (``expand``: this rank's
-    ``Shard(0)`` chunk under a mesh).  ``labels`` are every client's.
-    Returns ``(per-client params, representatives)``."""
+def _average(labels, kk: int, params, aggregator, shard, weights=None,
+             keep_reps: bool = True):
+    """Steps 3-4: the (K, ...) representatives (K = ``kk``) from this
+    rank's rows (``cluster_reps``, or ``weighted_reps`` with per-client
+    weights), then each client's row from its cluster's (``expand``: this
+    rank's ``Shard(0)`` chunk under a mesh).  ``labels`` are every
+    client's.  Returns ``(per-client params, representatives)``; with
+    ``keep_reps=False`` each leaf's representatives are dropped once its
+    rows are written (``None`` in their place: a round that hands back
+    only the per-client rows holds one leaf's at a time)."""
     mine = shard.local_part(labels)
-    reps = (cluster_reps(mine, centers, params, aggregator, shard)
-            if weights is None else
-            weighted_reps(mine, centers, params, weights, shard))
-    return tree_map(lambda r: shard.axis.expand(r, labels), reps), reps
+
+    def reps(then=None):
+        if weights is None:
+            return cluster_reps(mine, kk, params, aggregator, shard, then)
+        return weighted_reps(mine, kk, params, weights, shard, then)
+
+    def expand(r):
+        return shard.axis.expand(r, labels)
+
+    if not keep_reps:
+        return reps(expand), None
+    table = reps()
+    return tree_map(expand, table), table
 
 
 def _mean_program(aggregator="mean"):
     """Steps 3-4 alone: the session finalize's averaging phase."""
 
     def mean_fn(labels, centers, params, shard, weights=None):
-        return _average(labels, centers, params, aggregator, shard, weights)
+        return _average(labels, centers.shape[0], params, aggregator, shard,
+                        weights)
 
     return _Program("session.finalize.mean", mean_fn, _mean_work)
 
@@ -317,8 +313,8 @@ def one_shot_aggregate_device(state: FederatedState, cfg=None, *,
                                   leaf_filter=_leaf_filter_for(cfg))
         res = algo.device_call(generator, sketches, k=k, shard=shard,
                                **(algo_options or {}))
-        new_params, _ = _average(res.labels, res.centers, params,
-                                 aggregator, shard)
+        new_params, _ = _average(res.labels, res.centers.shape[0], params,
+                                 aggregator, shard, keep_reps=False)
         return new_params, res, sketches
 
     with obs.span("engine.one_shot"):

@@ -88,7 +88,7 @@ class MeanAggregator:
 
     def __call__(self, flat, labels, onehot, counts, shard=None):
         sums = shard_of(flat, shard).all_reduce(onehot.T @ flat)
-        return sums / torch.clamp_min(counts, 1.0)[:, None]
+        return sums.div_(torch.clamp_min(counts, 1.0)[:, None])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,36 +210,44 @@ def _by_column_blocks(columns, flat, labels, counts, shard):
 
 # --------------------------------------------------------- tree wrappers
 
-def _reduce_leaf(leaf, labels, onehot, counts, aggregator):
-    flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
-    return aggregator(flat, labels, onehot, counts)
-
-
-def cluster_reduce_tree(params, labels, onehot, counts, aggregator):
-    """Step 3 alone: the (K, ...) per-cluster representatives of a stacked
-    tree."""
+def cluster_reduce_tree(params, labels, onehot, counts, aggregator,
+                        shard=None, then=None):
+    """Step 3: every leaf's (K, ...) per-cluster representatives, in the
+    leaf's dtype, one leaf at a time (under a mesh no (K, n) buffer of the
+    whole model is held at once), from this rank's rows (``labels``,
+    ``onehot`` and ``params``; every row where ``shard`` is None) and the
+    (K,) ``counts`` of all of them.  ``then`` maps each leaf's
+    representatives as soon as they exist (so they need not all be held
+    either).  The one body of every per-cluster mean of the port."""
     agg = get_aggregator(aggregator)
     k = onehot.shape[1]
 
-    def red(leaf):
-        reduced = _reduce_leaf(leaf, labels, onehot, counts, agg)
-        return reduced.reshape((k,) + tuple(leaf.shape[1:])).to(leaf.dtype)
+    def rep(leaf):
+        flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+        out = agg(flat, labels, onehot, counts, shard=shard).reshape(
+            (k,) + tuple(leaf.shape[1:])).to(leaf.dtype)
+        return out if then is None else then(out)
 
-    return tree_map(red, params)
+    return tree_map(rep, params)
+
+
+def cluster_reps(labels, kk: int, params, aggregator, shard=None,
+                 then=None):
+    """``cluster_reduce_tree`` of K = ``kk`` clusters from this rank's
+    ``labels`` alone: the one-hot made here, the counts all-reduced."""
+    onehot = _onehot(labels, kk)
+    counts = shard_of(labels, shard).all_reduce(torch.sum(onehot, dim=0))
+    return cluster_reduce_tree(params, labels, onehot, counts, aggregator,
+                               shard, then)
 
 
 def cluster_aggregate_tree(params, labels, onehot, counts, aggregator):
     """Steps 3-4: per-cluster reduction of every leaf, gathered back per
     client (row i gets its cluster's aggregate; the gather equals the
     reference's ``onehot @ reduced`` exactly)."""
-    agg = get_aggregator(aggregator)
     idx = labels.long()
-
-    def back(leaf):
-        reduced = _reduce_leaf(leaf, labels, onehot, counts, agg)
-        return reduced[idx].reshape(leaf.shape).to(leaf.dtype)
-
-    return tree_map(back, params)
+    return cluster_reduce_tree(params, labels, onehot, counts, aggregator,
+                               then=lambda reps: reps[idx])
 
 
 # ------------------------------------------------------------- registry

@@ -13,6 +13,15 @@ full parameters within each recovered cluster.
 Training advances a state's tensors in place: ``local_training`` and the
 round's fresh AdamW moments reuse the buffers of the state they are
 given (at qwen2-0.5b, C = 8, the fp32 moments alone take 32 GB).
+
+The client axis may be sharded over a mesh, as the reference's
+federation on the ``data`` axis (``init_federation(mesh=)`` places it;
+``sharding/clients.py``): every leaf, moment and per-client step is a
+``Shard(0)`` DTensor and rank r holds clients ``[r C / R, (r + 1) C /
+R)``.  Each rank then trains, evaluates and sketches its own clients;
+the only cross-rank traffic is the round's (its gathered sketches or
+all-reduced sums) and the (C,) per-client losses gathered for the
+caller, so every rank returns what the unmeshed call returns.
 """
 from __future__ import annotations
 
@@ -32,7 +41,7 @@ class FederatedState(NamedTuple):
 
 
 def init_federation(key, cfg, n_clients: int, same_init: bool = True,
-                    device=None) -> FederatedState:
+                    device=None, mesh=None) -> FederatedState:
     """Stacked per-client parameters (the reference's tree layout) and
     AdamW moments of zeros, on ``device`` (CUDA unless "cpu").
 
@@ -42,23 +51,37 @@ def init_federation(key, cfg, n_clients: int, same_init: bool = True,
     give it on any backend).  ``same_init=True`` starts every client from
     one init (the common FL setting); False draws C independent inits
     from the generator in turn (the paper's local ERMs need no shared
-    init, Remark 3)."""
+    init, Remark 3).
+
+    ``mesh`` (the port's own; the reference places a federation
+    afterwards with ``jax.device_put``): the client axis sharded over
+    the mesh's one dim.  Each rank builds only its own clients'
+    rows, their moments and steps, as ``Shard(0)`` DTensors; every rank
+    draws every independent init in turn and keeps its own, so each
+    client's values equal the unmeshed federation's."""
     from repro_torch.device import resolve_device
     from repro_torch.models.transformer import init_tree
     from repro_torch.optim import adamw_init
+    from repro_torch.sharding.clients import client_axis_of
 
     dev = resolve_device(device)
+    axis = client_axis_of(mesh)
+    lo, hi = axis.owned(n_clients)
     gen = (key if isinstance(key, torch.Generator)
            else torch.Generator().manual_seed(int(key)))
     if same_init:
         p0 = init_tree(cfg, generator=gen, device=dev)
         params = tree_map(
-            lambda l: l[None].expand((n_clients,) + tuple(l.shape)).clone(),
+            lambda l: l[None].expand((hi - lo,) + tuple(l.shape)).clone(),
             p0)
     else:
-        inits = [init_tree(cfg, generator=gen, device=dev)
-                 for _ in range(n_clients)]
+        inits = []
+        for c in range(n_clients):      # every draw, in turn
+            tree = init_tree(cfg, generator=gen, device=dev)
+            if lo <= c < hi:
+                inits.append(tree)
         params = tree_map(lambda *ls: torch.stack(ls), *inits)
+    params = axis.place(params, n_clients)
     return FederatedState(params=params,
                           opt_state=adamw_init(params, n_clients),
                           n_clients=n_clients)
@@ -71,14 +94,17 @@ def local_training(state: FederatedState, cfg, batches: Iterator,
     the state's tensors.  ``batches`` yields dicts of (C, b, s) arrays.
     Returns (state advanced by ``steps``, [(C,) losses as numpy]).  Each
     step's time, to its losses on the host, feeds the
-    ``fed.local_step.ms`` histogram."""
+    ``fed.local_step.ms`` histogram.  On a ``Shard(0)`` state each rank
+    steps its own clients and every rank gets every client's losses."""
     import time
 
     from repro_torch import obs
     from repro_torch.launch.steps import make_local_train_step
     from repro_torch.optim import adamw_init
+    from repro_torch.sharding.clients import tree_axis
 
     local_step = make_local_train_step(cfg, opt_cfg, remat=remat)
+    axis = tree_axis(state.params)
     params = state.params
     opt_state = (state.opt_state if state.opt_state is not None
                  else adamw_init(params, state.n_clients))
@@ -87,7 +113,8 @@ def local_training(state: FederatedState, cfg, batches: Iterator,
         t0 = time.perf_counter()
         loss, params, opt_state = local_step(params, opt_state,
                                              next(batches))
-        losses.append(loss.cpu().numpy())
+        losses.append(axis.gather_clients(loss, state.n_clients)
+                      .cpu().numpy())
         obs.observe("fed.local_step.ms", (time.perf_counter() - t0) * 1e3)
     return FederatedState(params=params, opt_state=opt_state,
                           n_clients=state.n_clients,
@@ -115,25 +142,24 @@ def _leaf_filter_for(cfg):
             if cfg is not None and getattr(cfg, "is_moe", False) else None)
 
 
-def _flat_cluster_means(leaf, onehot, counts):
-    """(K', n) fp32 per-cluster mean of one stacked leaf."""
-    flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
-    return (onehot.T @ flat) / counts[:, None]
-
-
 def cluster_mean_tree(params, onehot, counts):
     """Step 3 alone: the (K', ...) per-cluster means of a stacked tree
-    (``onehot`` (C, K'), ``counts`` (K'), as given: no floor)."""
-    k = onehot.shape[1]
-    return tree_map(lambda l: _flat_cluster_means(l, onehot, counts).reshape(
-        (k,) + tuple(l.shape[1:])).to(l.dtype), params)
+    (``onehot`` (C, K'), ``counts`` (K'); the mean aggregator's
+    ``cluster_reduce_tree``, so an empty cluster's mean is 0 where the
+    reference divides 0 by 0)."""
+    from repro_torch.core.engine.aggregators import cluster_reduce_tree
+
+    return cluster_reduce_tree(params, None, onehot, counts, "mean")
 
 
 def cluster_average_tree(params, onehot, counts):
     """Steps 3-4: every leaf's per-cluster mean, gathered back per client
     (``counts`` clamped >= 1 by the caller)."""
-    return tree_map(lambda l: (onehot @ _flat_cluster_means(
-        l, onehot, counts)).reshape(l.shape).to(l.dtype), params)
+    from repro_torch.core.engine.aggregators import cluster_reduce_tree
+
+    idx = torch.argmax(onehot, dim=1)
+    return cluster_reduce_tree(params, None, onehot, counts, "mean",
+                               then=lambda means: means[idx])
 
 
 def one_shot_aggregate(state: FederatedState, cfg=None, *,
@@ -165,15 +191,20 @@ def one_shot_aggregate(state: FederatedState, cfg=None, *,
     own (``adamw_reset_``), since a second set takes 8 bytes a parameter
     (32 GB at qwen2-0.5b with 8 clients).
 
-    ``mesh`` / ``client_axis``: the fused round with the client axis
-    sharded over that mesh dim (``one_shot_aggregate_device``); the host
-    path runs on one device and refuses a mesh."""
+    ``mesh`` / ``client_axis``: the client axis sharded over that mesh
+    dim; without them, the mesh a ``Shard(0)`` state lies on.  The fused
+    round runs per shard (``one_shot_aggregate_device``); on the host
+    path each rank sketches its own clients, the (C, sketch_dim) matrix
+    is gathered and ``run_clustering`` runs on it on every rank from the
+    same seed, then the mean phase all-reduces per-cluster sums and each
+    rank writes its own clients' rows (``Shard(0)`` DTensors)."""
     from repro_torch.core.clustering.api import (
         device_twin, get_algorithm, is_device_algorithm)
-    from repro_torch.core.engine.aggregators import cluster_aggregate_tree
+    from repro_torch.core.engine.aggregate import _average
     from repro_torch.core.odcl import run_clustering
     from repro_torch.core.sketch import make_generator, sketch_stacked
     from repro_torch.device import resolve_device
+    from repro_torch.sharding.clients import client_axis_of, tree_axis
 
     if engine not in ("auto", "host", "device"):
         raise ValueError(f"engine must be auto|host|device, got {engine!r}")
@@ -192,9 +223,8 @@ def one_shot_aggregate(state: FederatedState, cfg=None, *,
             raise ValueError("assert_separable requires engine='host' (the "
                              "Definition-1 margin is computed host-side)")
         use_device = False
-    if mesh is not None and not use_device:
-        raise ValueError("a mesh needs the device engine: the host path "
-                         "runs on one device")
+    axis = (client_axis_of(mesh, client_axis) if mesh is not None
+            else tree_axis(state.params))
     if use_device:
         from repro_torch.core.engine.aggregate import (
             one_shot_aggregate_device)
@@ -203,26 +233,27 @@ def one_shot_aggregate(state: FederatedState, cfg=None, *,
             state, cfg, algorithm=dev_algo, k=k, algo_options=algo_options,
             sketch_dim=sketch_dim, seed=seed, cluster_seed=cluster_seed,
             aggregator=aggregator, projection=projection,
-            return_sketches=return_sketches, mesh=mesh,
-            client_axis=client_axis, device=device)
+            return_sketches=return_sketches, mesh=axis.mesh,
+            client_axis=axis.name, device=device)
         return (new_state._replace(
             opt_state=_round_opt_state(state, new_state.params)),
             labels, info)
 
     dev = resolve_device(device)
-    params = tree_map(lambda l: torch.as_tensor(l).to(dev), state.params)
-    sketches = sketch_stacked(params, projection, sketch_dim=sketch_dim,
-                              seed=seed, leaf_filter=_leaf_filter_for(cfg))
+    shard = axis.even(state.n_clients)
+    params = tree_map(lambda l: axis.local_rows(l, state.n_clients).to(dev),
+                      state.params)
+    sketches = shard.gather(sketch_stacked(
+        params, projection, sketch_dim=sketch_dim, seed=seed,
+        leaf_filter=_leaf_filter_for(cfg)))
     result = run_clustering(make_generator(cluster_seed, dev), sketches,
                             algo, k=k, assert_separable=assert_separable,
                             **(algo_options or {}))
     labels = result.labels
     n_clusters = int(labels.max()) + 1
     labels_t = torch.as_tensor(labels).to(dev)
-    onehot = torch.nn.functional.one_hot(labels_t.long(), n_clusters).to(
-        torch.float32)
-    new_params = cluster_aggregate_tree(params, labels_t, onehot,
-                                        torch.sum(onehot, dim=0), aggregator)
+    new_params, _ = _average(labels_t, n_clusters, params, aggregator, shard,
+                             keep_reps=False)
     new_state = FederatedState(
         params=new_params, opt_state=_round_opt_state(state, new_params),
         n_clients=state.n_clients, step=state.step)
@@ -235,14 +266,23 @@ def one_shot_aggregate(state: FederatedState, cfg=None, *,
 @torch.no_grad()
 def evaluate_per_client(state: FederatedState, cfg, batch) -> np.ndarray:
     """(C,) mean loss of each client's model on its own eval batch
-    (``train_loss``: the differentiable attention, run without grad)."""
+    (``train_loss``: the differentiable attention, run without grad).  On
+    a ``Shard(0)`` state each rank scores its own clients and every rank
+    gets every client's loss."""
     from repro_torch.launch.steps import _as_batch, client_slice
     from repro_torch.models.transformer import train_loss
+    from repro_torch.sharding.clients import tree_axis
 
-    batch = _as_batch(batch, tree_leaves(state.params)[0].device)
-    return np.array([float(train_loss(client_slice(state.params, c), cfg,
-                                      client_slice(batch, c)))
-                     for c in range(state.n_clients)], dtype=np.float32)
+    n = state.n_clients
+    axis = tree_axis(state.params)
+    params = axis.mine(state.params, n)
+    dev = tree_leaves(params)[0].device
+    batch = _as_batch(axis.mine(batch, n), dev)
+    losses = [float(train_loss(client_slice(params, c), cfg,
+                               client_slice(batch, c)))
+              for c in range(int(tree_leaves(params)[0].shape[0]))]
+    return axis.gather_clients(torch.tensor(
+        losses, dtype=torch.float32, device=dev), n).cpu().numpy()
 
 
 def params_bytes_per_client(state: FederatedState) -> int:

@@ -14,6 +14,16 @@ ODCL runs its round with the client axis on that mesh dim
 (``one_shot_aggregate``); IFCA, FedAvg and local-only take them and do
 not use them, as in the reference.
 
+Every method runs on a federation whose client axis is sharded over a
+mesh (``Shard(0)`` DTensors, ``init_federation(mesh=)``), with or
+without ``mesh=``: the axis is the one the leaves lie on.  Each rank
+trains, scores and sketches its own clients; the cross-rank traffic is
+the round's, the gathered (C,) losses and labels, and the per-cluster
+(IFCA) or global (FedAvg) averages, which all-reduce their sums and
+counts.  The reference returns IFCA's and FedAvg's parameters replicated
+(``P()``); the port keeps them ``Shard(0)``, each rank writing its own
+clients' rows, so parity with it is on values.
+
 Registered methods: ``ODCLFederated`` (Algorithm 1: local steps, the ONE
 clustered round, optional personalized steps), ``IFCAFederated`` (the
 iterative baseline, with the lowest-loss or the sketch assignment),
@@ -37,12 +47,11 @@ from repro_torch.core.clustering.api import (
     get_algorithm,
     resolve_device_request,
 )
-from repro_torch.core.engine.aggregators import cluster_reduce_tree
+from repro_torch.core.engine.aggregators import cluster_reps
 from repro_torch.core.federated import (
     FederatedState,
     _leaf_filter_for,
     cluster_agreement,
-    cluster_mean_tree,
     local_training,
     one_shot_aggregate,
     params_bytes_per_client,
@@ -51,6 +60,7 @@ from repro_torch.core.federated import (
 from repro_torch.core.sketch import sketch_stacked
 from repro_torch.kernels import ops as kops
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_reset_
+from repro_torch.sharding.clients import tree_axis
 from repro_torch.utils import tree_leaves, tree_map
 
 __all__ = [
@@ -151,10 +161,6 @@ class ODCLFederated:
             client_axis: str = "data") -> FederatedMethodResult:
         _require_training_inputs(self.name, cfg, batches,
                                  self.local_steps + self.post_steps)
-        if mesh is not None and self.post_steps:
-            raise ValueError("post-round local steps on a client-sharded "
-                             "state are not ported: run odcl under a mesh "
-                             "with post_steps=0")
         rounds = []
         if self.local_steps:
             state, losses = local_training(state, cfg, batches,
@@ -162,7 +168,8 @@ class ODCLFederated:
             rounds.append({"phase": "local", "steps": self.local_steps,
                            "loss_first": float(np.mean(losses[0])),
                            "loss_last": float(np.mean(losses[-1])),
-                           "losses": [float(np.mean(l)) for l in losses]})
+                           "losses": [float(np.mean(l)) for l in losses],
+                           "client_losses": [l.tolist() for l in losses]})
 
         algorithm, options = self._resolve()
         k = self.k if get_algorithm(algorithm).requires_k else None
@@ -188,7 +195,8 @@ class ODCLFederated:
                                            self.post_steps, self.opt)
             rounds.append({"phase": "post", "steps": self.post_steps,
                            "loss_last": float(np.mean(losses[-1])),
-                           "losses": [float(np.mean(l)) for l in losses]})
+                           "losses": [float(np.mean(l)) for l in losses],
+                           "client_losses": [l.tolist() for l in losses]})
 
         bytes_per = params_bytes_per_client(state)
         comm = sketch_round_bytes(state.n_clients, self.sketch_dim,
@@ -242,12 +250,15 @@ class IFCAFederated:
     projection: Any = None
     name: str = "ifca"
 
-    def _theta0(self, key, state: FederatedState):
+    def _theta0(self, key, state: FederatedState, axis):
+        """The k initial cluster models, replicated on every rank."""
+        n = state.n_clients
         if self.init == "clients":
             idx = torch.as_tensor(
-                np.linspace(0, state.n_clients - 1, self.k).round().astype(
-                    np.int64), device=tree_leaves(state.params)[0].device)
-            return tree_map(lambda l: l[idx], state.params)
+                np.linspace(0, n - 1, self.k).round().astype(np.int64),
+                device=tree_leaves(state.params)[0].device)
+            return tree_map(lambda l: axis.even(n).take_rows(
+                axis.local_rows(l, n), idx), state.params)
         if self.init == "perturb":
             leaves = tree_leaves(state.params)
             noise = (tree_leaves(self.perturb_noise)
@@ -256,11 +267,15 @@ class IFCAFederated:
                    else _generator(key, leaves[0].device))
             out = []
             for i, leaf in enumerate(leaves):
-                mean = torch.mean(leaf, dim=0)
-                draw = (torch.as_tensor(noise[i]).to(leaf.device, leaf.dtype)
+                # the clients' mean: fp32 sums of the rank's rows,
+                # all-reduced, over n (what the CPU's torch.mean computes)
+                mean = (axis.all_reduce(torch.sum(
+                    axis.local_rows(leaf, n), dim=0, dtype=torch.float32))
+                    / n).to(leaf.dtype)
+                draw = (torch.as_tensor(noise[i]).to(mean.device, leaf.dtype)
                         if noise is not None else
                         torch.randn((self.k,) + tuple(mean.shape),
-                                    generator=gen, device=leaf.device,
+                                    generator=gen, device=mean.device,
                                     dtype=torch.float32).to(leaf.dtype))
                 out.append(mean[None] + self.init_scale * draw)
             it = iter(out)
@@ -268,6 +283,8 @@ class IFCAFederated:
         raise ValueError(f"unknown init {self.init!r}")
 
     def _assign(self, cfg, leaf_filter, theta, params, batch):
+        """The cluster estimate of each client of ``params`` (this rank's
+        rows): (m,) int32 on the parameters' device."""
         if self.assign == "loss":
             from repro_torch.launch.steps import _as_batch, client_slice
             from repro_torch.models.transformer import train_loss
@@ -308,8 +325,12 @@ class IFCAFederated:
         if self.warmup_steps:
             state, _ = local_training(state, cfg, batches, self.warmup_steps,
                                       self.opt)
+        n = state.n_clients
+        axis = tree_axis(state.params)
+        shard = axis.even(n)
+        lo, hi = axis.owned(n)
         device = tree_leaves(state.params)[0].device
-        theta = self._theta0(key, state)
+        theta = self._theta0(key, state, axis)
         leaf_filter = _leaf_filter_for(cfg)
         local_step = None
         if self.local_steps:
@@ -322,43 +343,48 @@ class IFCAFederated:
         bytes_per = params_bytes_per_client(state)
         if self.assign == "loss":
             # down: k models per client; up: one trained model per client
-            per_round = state.n_clients * (self.k + 1) * bytes_per
+            per_round = n * (self.k + 1) * bytes_per
         else:
             # up: sketch + trained model; down: the assigned model
-            per_round = sketch_round_bytes(state.n_clients, self.sketch_dim,
-                                           bytes_per)
+            per_round = sketch_round_bytes(n, self.sketch_dim, bytes_per)
 
         params, opt_state = state.params, state.opt_state
+        mine = axis.mine(params, n)          # this rank's clients (views)
         labels, rounds = None, []
         for r in range(self.rounds):
             t0 = time.perf_counter()
-            batch = next(batches) if self.assign == "loss" else None
-            new_labels = self._assign(cfg, leaf_filter, theta, params, batch)
+            batch = None
+            if self.assign == "loss":
+                batch = axis.mine(next(batches), n)
+            new_labels = axis.gather_clients(
+                self._assign(cfg, leaf_filter, theta, mine, batch), n)
             idx = new_labels.long()
             host = new_labels.cpu().numpy()
             churn = (float(np.mean(host != labels))
                      if labels is not None else 1.0)
             labels = host
 
-            losses = []
+            losses, client_losses = [], []
             if self.local_steps:
                 # clients adopt their cluster's model (and moments) and
                 # refine it locally; the state's buffers take them
-                for dst, src in zip(tree_leaves(params), tree_leaves(theta)):
-                    dst.copy_(src[idx])
+                for dst, src in zip(tree_leaves(mine), tree_leaves(theta)):
+                    dst.copy_(src[idx[lo:hi]])
                 if opt_state is None:
-                    opt_state = adamw_init(params, state.n_clients)
+                    opt_state = adamw_init(params, n)
                 if cluster_opt is not None:
-                    for dst, src in zip(tree_leaves(opt_state),
+                    for dst, src in zip(tree_leaves(axis.mine(opt_state, n)),
                                         tree_leaves(cluster_opt)):
-                        dst.copy_(src[idx])
+                        dst.copy_(src[idx[lo:hi]])
                 else:
                     adamw_reset_(opt_state)
                 for _ in range(self.local_steps):
                     ts = time.perf_counter()
                     loss, params, opt_state = local_step(params, opt_state,
                                                          next(batches))
+                    loss = axis.gather_clients(loss, n)
                     losses.append(float(torch.mean(loss)))
+                    client_losses.append(loss.cpu().numpy().tolist())
                     obs.observe("fed.local_step.ms",
                                 (time.perf_counter() - ts) * 1e3)
             # local_steps == 0: clients upload their standing models, so
@@ -367,20 +393,28 @@ class IFCAFederated:
             onehot = torch.nn.functional.one_hot(idx, self.k).to(
                 torch.float32)
             counts = torch.sum(onehot, dim=0)                      # (k,)
-            means = cluster_reduce_tree(params, new_labels, onehot, counts,
-                                        self.aggregator)
             hit = counts > 0
 
             def keep(mean, prev):
                 mask = hit.reshape((self.k,) + (1,) * (mean.ndim - 1))
                 return torch.where(mask, mean, prev)
 
-            theta = tree_map(keep, means, theta)
+            # where every cluster has members the means replace the k
+            # models as they are, and the old ones go first (at full width
+            # each set of k models is k GB)
+            every = bool(hit.all())
+            if every:
+                theta = None
+            means = cluster_reps(shard.local_part(new_labels), self.k, mine,
+                                 self.aggregator, shard)
+            theta = means if every else tree_map(keep, means, theta)
+            del means
             if cluster_opt is not None:
                 # per-cluster moment means; the integer step is uniform
                 # within a cluster, so its mean is exact
-                opt_means = cluster_mean_tree(opt_state, onehot,
-                                              torch.clamp_min(counts, 1.0))
+                opt_means = cluster_reps(shard.local_part(new_labels),
+                                         self.k, axis.mine(opt_state, n),
+                                         "mean", shard)
                 cluster_opt = tree_map(keep, opt_means, cluster_opt)
             _sync(device)
             round_s = time.perf_counter() - t0
@@ -388,21 +422,22 @@ class IFCAFederated:
             obs.observe("fed.round.ms", round_s * 1000.0)
             obs.event("fed.round", method=self.name, round=r,
                       seconds=round_s, bytes=float(per_round),
-                      clients=state.n_clients, churn=churn)
+                      clients=n, churn=churn)
             rounds.append({"round": r, "assign_churn": churn,
                            "cluster_sizes": counts.cpu().numpy().tolist(),
                            "loss_last": losses[-1] if losses else None,
-                           "losses": losses, "round_ms": round_s * 1e3})
+                           "losses": losses, "client_losses": client_losses,
+                           "round_ms": round_s * 1e3})
 
         if not self.local_steps:
             # each client receives its final cluster's averaged model
             idx = torch.as_tensor(labels, device=device).long()
-            params = tree_map(lambda t: t[idx], theta)
+            params = tree_map(lambda t: axis.expand(t, idx), theta)
         new_state = FederatedState(
             params=params,
             opt_state=_fresh_opt_state(
                 state._replace(opt_state=opt_state), params),
-            n_clients=state.n_clients,
+            n_clients=n,
             step=state.step + self.rounds * self.local_steps)
         return FederatedMethodResult(
             state=new_state, labels=labels,
@@ -431,8 +466,7 @@ class FedAvgGlobal:
         _require_training_inputs(self.name, cfg, batches, self.local_steps)
         c = state.n_clients
         device = tree_leaves(state.params)[0].device
-        onehot = torch.ones((c, 1), dtype=torch.float32, device=device)
-        counts = torch.full((1,), float(c), device=device)
+        zeros = torch.zeros((c,), dtype=torch.int32, device=device)
         per_round = c * 2 * params_bytes_per_client(state)
         rounds = []
         for r in range(self.rounds):
@@ -442,9 +476,13 @@ class FedAvgGlobal:
                                                self.local_steps, self.opt)
                 rounds.append({"round": r,
                                "loss_last": float(np.mean(losses[-1]))})
-            mean = cluster_mean_tree(state.params, onehot, counts)
-            params = tree_map(lambda m: m[0].expand(
-                (c,) + tuple(m.shape[1:])).clone(), mean)
+            # the one global mean (its sums all-reduced under a mesh),
+            # written back into every client's row (each rank its own)
+            axis = tree_axis(state.params)
+            shard = axis.even(c)
+            mean = cluster_reps(shard.local_part(zeros), 1,
+                                axis.mine(state.params, c), "mean", shard)
+            params = tree_map(lambda m: axis.expand(m, zeros), mean)
             state = FederatedState(params=params,
                                    opt_state=_fresh_opt_state(state, params),
                                    n_clients=c, step=state.step)

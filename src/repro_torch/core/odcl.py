@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core.clustering.admissible import separability_alpha
 from repro_torch.core.clustering.api import ClusteringResult, get_algorithm
-from repro_torch.core.engine.aggregators import cluster_reduce_tree
+from repro_torch.core.engine.aggregators import cluster_reps
 from repro_torch.core.sketch import make_generator
 from repro_torch.device import resolve_device
 
@@ -77,11 +77,8 @@ def aggregate(local_models, labels, aggregator="mean", device=None):
     labels = np.asarray(labels)
     n_clusters = int(labels.max()) + 1
     labels_t = torch.as_tensor(labels, dtype=torch.int32, device=local.device)
-    onehot = torch.nn.functional.one_hot(labels_t.long(), n_clusters).to(
-        torch.float32)
-    counts = torch.sum(onehot, dim=0)
-    cluster_avg = cluster_reduce_tree(local, labels_t, onehot, counts,
-                                      aggregator).cpu().numpy()
+    cluster_avg = cluster_reps(labels_t, n_clusters, local,
+                               aggregator).cpu().numpy()
     return cluster_avg, cluster_avg[labels]
 
 

@@ -55,8 +55,11 @@ round with the client axis on its ``client_axis`` dim, one process a
 rank: every rank draws every wave from the seed and its session keeps
 the rows it owns; the labels, the purity and the MSE cover every
 client.  The other methods run on the gathered federation.  There is no
-CLI flag for it, as in the reference; the route server
-(``qps_callers``) is refused under a mesh.
+CLI flag for it, as in the reference.  Under a mesh the route server
+(``qps_callers``) runs on rank 0 alone, over its session (the served
+centers are replicated, so a route sends no collective), as the
+reference's single controller runs it; the other ranks wait at a
+barrier, and only rank 0's summary has ``qps_server``.
 
   python -m repro_torch.launch.simulate --clients 4096 --clusters 8
   python -m repro_torch.launch.simulate --clients 4096 --device cpu
@@ -215,10 +218,9 @@ def simulate(*, clients: int, clusters: int, dim: int = 16, samples: int = 64,
     if shards > 1 and method != "odcl":
         raise ValueError(f"--shards > 1 only runs the one-shot round "
                          f"(method='odcl'), got method={method!r}")
-    if qps_callers > 0 and (shards > 1 or method != "odcl"
-                            or mesh is not None):
+    if qps_callers > 0 and (shards > 1 or method != "odcl"):
         raise ValueError("--qps-callers needs the flat session's one-shot "
-                         "round (shards=1, method='odcl', no mesh)")
+                         "round (shards=1, method='odcl')")
     obs.reset()                       # per-run aggregates; sinks survive
     trace_sink = obs.add_sink(obs.JsonlSink(trace)) if trace else None
     try:
@@ -433,7 +435,7 @@ def _simulate(dev, *, clients, clusters, dim, samples, wave, task,
     if qps_callers > 0:
         qps_server = _qps(session, gen, optima, clusters=clusters,
                           samples=samples, callers=qps_callers,
-                          duration_s=qps_duration, task=task)
+                          duration_s=qps_duration, task=task, axis=axis)
 
     summary = Summary({
         "clients": clients, "clusters": clusters, "dim": dim,
@@ -558,9 +560,11 @@ def _mutate(session, gen, optima, true_labels, *, samples, clusters,
 
 
 def _qps(session, gen, optima, *, clusters, samples, callers,
-         duration_s, task) -> dict:
+         duration_s, task, axis) -> dict | None:
     """The ``RouteServer`` over the finalized session: ``callers``
-    closed-loop threads per request, then batched across callers."""
+    closed-loop threads per request, then batched across callers, then
+    every probe through the server against one batch route.  Under a
+    mesh rank 0 serves and the others wait at a barrier (``None``)."""
     from repro_torch.serving.loadgen import closed_loop, warm_route_buckets
     from repro_torch.serving.server import RouteServer
 
@@ -569,16 +573,24 @@ def _qps(session, gen, optima, *, clusters, samples, callers,
         gen, optima, torch.arange(n_probe, device=optima.device) % clusters,
         n=samples, task=task)
     probes = session.sketch_params({"theta": theta_q}).cpu().numpy()
-    warm_route_buckets(session, probes[0], 64)
-    server = RouteServer(session, max_batch=64, max_wait_ms=0.5)
-    server.start()
+    if axis.rank != 0:
+        axis.barrier()
+        return None
     try:
-        direct = closed_loop(server, probes, callers=callers,
-                             duration_s=duration_s, batched=False)
-        batched = closed_loop(server, probes, callers=callers,
-                              duration_s=duration_s, batched=True)
+        warm_route_buckets(session, probes[0], 64)
+        server = RouteServer(session, max_batch=64, max_wait_ms=0.5)
+        server.start()
+        try:
+            direct = closed_loop(server, probes, callers=callers,
+                                 duration_s=duration_s, batched=False)
+            batched = closed_loop(server, probes, callers=callers,
+                                  duration_s=duration_s, batched=True)
+            futures = [server.submit(p, timeout=60.0) for p in probes]
+            served = np.asarray([f.result(60.0) for f in futures])
+        finally:
+            server.stop()
     finally:
-        server.stop()
+        axis.barrier()          # the other ranks go on, whatever happened
     return {
         "callers": int(callers), "duration_s": float(duration_s),
         "direct_qps": direct["qps"], "batched_qps": batched["qps"],
@@ -588,6 +600,8 @@ def _qps(session, gen, optima, *, clusters, samples, callers,
         "direct_p99_ms": direct["route_p99_ms"],
         "timeouts": batched["timeouts"] + direct["timeouts"],
         "errors": batched["n_errors"] + direct["n_errors"],
+        "labels_equal_batch_route": bool(np.array_equal(
+            served, np.asarray(session.route(probes)))),
     }
 
 

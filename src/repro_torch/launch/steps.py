@@ -117,15 +117,28 @@ def make_local_train_step(cfg: ModelConfig,
                           remat: str = "full",
                           unroll: bool = False) -> Callable:
     """ODCL's local phase: ``local_step(params_c, opt_state_c, batch_c) ->
-    ((C,) losses, params_c, opt_state_c)`` over stacked parameters,
-    moments and (C, b, s) batches, one client after another."""
+    (losses, params_c, opt_state_c)`` over stacked parameters, moments
+    and (C, b, s) batches, one client after another.
+
+    On a federation sharded over a mesh (``Shard(0)`` DTensors,
+    ``sharding.clients.tree_axis``) each rank steps only its own clients,
+    on views of its local shards and its own rows of the batch: a step
+    sends no collective.  The losses are then this rank's clients'
+    (``ClientAxis.gather_clients`` gives every client's); the stacks come
+    back with their placements."""
+    from repro_torch.sharding.clients import tree_axis
+
     opt_cfg = opt_cfg or AdamWConfig()
 
     def local_step(params_c, opt_state_c, batch_c):
-        batch_c = _as_batch(batch_c, tree_leaves(params_c)[0].device)
-        c = int(tree_leaves(params_c)[0].shape[0])
-        losses = [_one_model_step(client_slice(params_c, i),
-                                  client_slice(opt_state_c, i),
+        axis = tree_axis(params_c)
+        n = int(tree_leaves(params_c)[0].shape[0])
+        params, opt_state = axis.mine(params_c, n), axis.mine(opt_state_c, n)
+        batch_c = _as_batch(axis.mine(batch_c, n),
+                            tree_leaves(params)[0].device)
+        c = int(tree_leaves(params)[0].shape[0])
+        losses = [_one_model_step(client_slice(params, i),
+                                  client_slice(opt_state, i),
                                   client_slice(batch_c, i), cfg, opt_cfg,
                                   remat)
                   for i in range(c)]

@@ -19,6 +19,12 @@ on the card unless ``--device cpu``.
   # the iterative baseline with the sketch assignment:
   PYTHONPATH=src python -m repro_torch.launch.train --method ifca \\
       --ifca-assign sketch --rounds 2 --local-steps 2
+
+``train(argv, mesh=)`` (no CLI flag, as ``simulate``'s) runs the same
+federation with its client axis sharded over a mesh, one process a rank
+(``launch.mesh.client_mesh``): each rank builds, trains and evaluates
+its own clients, and every rank returns the whole run's labels and
+losses; rank 0 prints.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.data import ClusteredTokenStream, make_lm_batch_iterator
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_eval_batch
 from repro_torch.optim import AdamWConfig
+from repro_torch.sharding.clients import client_axis_of
 
 
 def parser() -> argparse.ArgumentParser:
@@ -97,15 +104,18 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def train(argv=None) -> dict:
+def train(argv=None, *, mesh=None) -> dict:
     """Parse ``argv``, run the method, print the reference driver's lines
     and return a summary: the ``FederatedMethodResult`` (``result``), the
-    token ``stream``, the eval losses, ``seconds`` and ``purity``."""
+    token ``stream``, the eval losses, ``seconds`` and ``purity``.
+    ``mesh``: the client axis sharded over the mesh's one dim (the
+    state's leaves are then ``Shard(0)`` DTensors, and the method finds
+    the axis on them)."""
     args = parser().parse_args(argv)
     dev = resolve_device(args.device)
     sink = obs.add_sink(obs.JsonlSink(args.trace)) if args.trace else None
     try:
-        return _train(args, dev)
+        return _train(args, dev, mesh)
     finally:
         if sink is not None:
             obs.remove_sink(sink)
@@ -118,13 +128,16 @@ def main(argv=None):
     return out["result"].state, np.asarray(out["result"].labels)
 
 
-def _train(args, dev) -> dict:
+def _train(args, dev, mesh) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(max_vocab=256)
-    print(f"arch={cfg.name} d_model={cfg.d_model} L={cfg.n_layers} "
-          f"vocab={cfg.vocab_size} clients={args.clients} "
-          f"true_clusters={args.clusters} method={args.method}")
+    # every rank runs this same code; rank 0 speaks for it
+    quiet = client_axis_of(mesh).rank != 0
+    say = (lambda *a, **k: None) if quiet else print
+    say(f"arch={cfg.name} d_model={cfg.d_model} L={cfg.n_layers} "
+        f"vocab={cfg.vocab_size} clients={args.clients} "
+        f"true_clusters={args.clusters} method={args.method}")
 
     stream = ClusteredTokenStream(
         n_clients=args.clients, n_clusters=args.clusters,
@@ -134,7 +147,8 @@ def _train(args, dev) -> dict:
         per_client_batch=args.batch, seq_len=args.seq_len)
     it = ({"tokens": toks, "labels": labels} for toks, labels in batches)
     opt = AdamWConfig(lr=args.lr, weight_decay=0.0)
-    state = init_federation(args.seed, cfg, args.clients, device=dev)
+    state = init_federation(args.seed, cfg, args.clients, device=dev,
+                            mesh=mesh)
 
     algo_options = {}
     if args.restarts > 1:
@@ -143,9 +157,9 @@ def _train(args, dev) -> dict:
         algo_options["batch_m"] = args.batch_m
     if algo_options and (args.engine != "device"
                          or args.algo.startswith(("convex", "clusterpath"))):
-        print(f"[warn] {sorted(algo_options)} only apply to the device "
-              f"kmeans family; ignored for --engine {args.engine} "
-              f"--algo {args.algo}")
+        say(f"[warn] {sorted(algo_options)} only apply to the device "
+            f"kmeans family; ignored for --engine {args.engine} "
+            f"--algo {args.algo}")
         algo_options = {}
 
     method = build_federated_method(
@@ -161,21 +175,23 @@ def _train(args, dev) -> dict:
     res = method.run(args.seed, state, cfg, it)
     elapsed = time.time() - t0
     for r in res.round_metrics:
-        print(f"[{method.name}] {r}")
+        # the reference's line; the per-client losses stay in the result
+        say(f"[{method.name}] "
+            f"{ {k: v for k, v in r.items() if k != 'client_losses'} }")
     agreement = cluster_agreement(res.labels, stream.true_labels)
-    print(f"[{method.name}] {elapsed:.1f}s  rounds={res.comm_rounds:g} "
-          f"comm={res.comm_bytes / 1e6:.2f}MB  K'={res.n_clusters} "
-          f"cluster purity={agreement:.3f} labels={res.labels.tolist()}")
+    say(f"[{method.name}] {elapsed:.1f}s  rounds={res.comm_rounds:g} "
+        f"comm={res.comm_bytes / 1e6:.2f}MB  K'={res.n_clusters} "
+        f"cluster purity={agreement:.3f} labels={res.labels.tolist()}")
 
     eval_batch = make_eval_batch(stream, n_clients=args.clients,
                                  batch=args.batch, seq_len=args.seq_len)
     final_eval = evaluate_per_client(res.state, cfg, eval_batch)
-    print(f"[eval] per-client loss {final_eval.mean():.4f} "
-          f"(min {final_eval.min():.4f} max {final_eval.max():.4f})")
+    say(f"[eval] per-client loss {final_eval.mean():.4f} "
+        f"(min {final_eval.min():.4f} max {final_eval.max():.4f})")
 
     if args.ckpt_dir:
         path = save_checkpoint(args.ckpt_dir, res.state.step, res.state.params)
-        print(f"[ckpt] saved {path}")
+        say(f"[ckpt] saved {path}")
     return {"result": res, "stream": stream, "eval_loss": final_eval,
             "seconds": elapsed, "purity": agreement, "cfg": cfg}
 

@@ -9,7 +9,12 @@ does the same arithmetic in place (parameters, moments and step), which
 is how training runs at full width: a copy of the moments would add 8
 bytes a parameter.  On a stacked federation the caller runs it once per
 client on views of the client's slices, so the clip, the norm and the
-step are per client, as ``jax.vmap`` gives them.
+step are per client, as ``jax.vmap`` gives them.  A federation whose
+client axis is sharded over a mesh (``Shard(0)`` DTensors) keeps its
+moments and steps sharded the same way: ``adamw_init`` builds them on
+each rank's own rows, the local step updates views of the local shards
+in place, and ``adamw_reset_`` zeroes the local shards, so no moment
+ever leaves its rank or changes its placement.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.utils import tree_leaves, tree_map
 
@@ -34,7 +40,11 @@ class AdamWConfig:
 def adamw_init(params, n_clients: Optional[int] = None) -> dict:
     """First and second moments of zeros in fp32 (whatever the parameters'
     dtype) and a zero step count: () for one model, (n_clients,) for a
-    stacked tree (the reference's ``jax.vmap(adamw_init)``)."""
+    stacked tree (the reference's ``jax.vmap(adamw_init)``).  Moments of
+    ``Shard(0)`` DTensor parameters are sharded as they are, and so is a
+    stacked tree's (n_clients,) step."""
+    from repro_torch.sharding.clients import tree_axis
+
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
 
@@ -43,16 +53,23 @@ def adamw_init(params, n_clients: Optional[int] = None) -> dict:
         return torch.zeros_like(p, dtype=torch.float32,
                                 memory_format=torch.contiguous_format)
 
-    shape = () if n_clients is None else (int(n_clients),)
+    if n_clients is None:
+        step = torch.zeros((), dtype=torch.int32, device=device)
+    else:
+        axis = tree_axis(params)
+        lo, hi = axis.owned(int(n_clients))
+        step = axis.place(torch.zeros((hi - lo,), dtype=torch.int32,
+                                      device=device), int(n_clients))
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
-            "step": torch.zeros(shape, dtype=torch.int32, device=device)}
+            "step": step}
 
 
 def adamw_reset_(state: dict) -> dict:
     """Zero a state's moments and steps in place (a fresh ``adamw_init``
-    without a second allocation).  Returns it."""
+    without a second allocation; a ``DTensor``'s local shard).  Returns
+    it."""
     for t in tree_leaves(state):
-        t.zero_()
+        (t.to_local() if isinstance(t, DTensor) else t).zero_()
     return state
 
 
@@ -87,10 +104,17 @@ def adamw_update_(params, grads, state: dict, cfg: AdamWConfig,
         g = g.float() if scale is None else g.float() * scale
         mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        delta = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
+        del g
+        # (mu / bc1) / (sqrt(nu / bc2) + eps) - wd p, op for op, with two
+        # temporaries a leaf (a full-width leaf's fp32 copies are 0.5 GB)
+        denom = nu / bc2
+        denom.sqrt_().add_(cfg.eps)
+        delta = (mu / bc1).div_(denom)
+        del denom
         if p.ndim >= 2:
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - cfg.lr * lr_scale * delta)
+            delta.add_(cfg.weight_decay * p.float())
+        # p - lr delta (a - b is a + (-b) exactly)
+        p.copy_(delta.mul_(cfg.lr * lr_scale).neg_().add_(p.float()))
 
 
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig,

@@ -38,6 +38,11 @@ The ``stream`` variant of ``kmeans_assign`` keeps its scratch per
 finalize lock), and the batcher's flushes of at most 256 rows take the
 ``small`` variant, which has no scratch.
 
+Under a client mesh (a session built with ``mesh=``) the server routes:
+the served centers are replicated, so a route is one rank's own work and
+sends no collective.  Ingest and rounds through the server are refused
+there: each would need every rank inside the call (ROADMAP.md, queue A).
+
 Example, serving while uploading::
 
     from repro_torch.core.engine.session import AggregationSession
@@ -221,10 +226,19 @@ class RouteServer:
 
     # ------------------------------------------------------------- ingest
 
+    def _refuse_meshed(self, what: str) -> None:
+        if self.session.mesh is not None:
+            raise ValueError(
+                f"{what} through a RouteServer over a client-sharded "
+                "session is not ported: every rank would have to enter "
+                "the call (ROADMAP.md, queue A); call the session's own "
+                f"{what} on every rank, and route through the server")
+
     def ingest(self, wave=None, *, sketches=None, client_ids=None):
         """Thread-safe ingest; returns ``(rows_or_offset, clock)`` with
         ``clock`` the session clock right after this wave (the replay key
         of the serialized-equivalence contract)."""
+        self._refuse_meshed("ingest")
         with self._ingest_lock:
             if self._snapped is not None:
                 # the last snapshot's copy reads the rows this may overwrite
@@ -267,6 +281,7 @@ class RouteServer:
 
     def _start_round(self, *, warm: bool, kwargs: dict, background: bool,
                      non_blocking: bool = False):
+        self._refuse_meshed("refinalize" if warm else "finalize")
         if not self._finalize_lock.acquire(blocking=not non_blocking):
             return None
         try:

@@ -30,6 +30,15 @@ holding every row, whose collectives are the identity and whose
 per-client results are plain tensors (``LocalShard`` is its
 ``RowShard``).
 
+A federation is placed on the axis by ``place`` (the reference's
+``jax.device_put(state, NamedSharding(mesh, P(client_axis)))``, built
+from each rank's own rows: ``core.federated.init_federation(mesh=)``
+draws no other rank's rows on its card).  Training finds the axis of a
+stacked tree from its leaves (``tree_axis``: the mesh dim their
+``DTensor``s are ``Shard(0)`` on), walks this rank's clients through
+``mine`` (views of the local shards) and gathers the (C,) per-client
+losses for the caller (``gather_clients``).
+
 The backend decides once, here, where a collective's buffer lives: gloo
 reduces on the host, so a tensor on the card goes through a host copy;
 NCCL takes it on the card.  Every all-reduce and gather is counted in
@@ -38,13 +47,14 @@ the ``mesh.all_reduce`` / ``mesh.gather`` spans.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import obs
+from repro_torch.utils import tree_leaves, tree_map
 
 
 def chunk_sizes(total: int, ranks: int) -> list:
@@ -107,6 +117,26 @@ class ClientAxis:
             return local
         return torch.as_tensor(leaf)[lo:hi]
 
+    def mine(self, tree, total: int):
+        """This rank's rows of every leaf of a stacked tree of ``total``
+        clients (``local_rows``: views of ``DTensor`` shards)."""
+        return tree_map(lambda l: self.local_rows(l, total), tree)
+
+    def place(self, tree, total: int):
+        """``Shard(0)`` DTensors of a tree whose leaves hold this rank's
+        rows of ``total`` clients, on the mesh's device (no row moves
+        between ranks)."""
+        lo, hi = self.owned(total)
+
+        def wrap(local):
+            if local.shape[0] != hi - lo:
+                raise ValueError(f"{local.shape[0]} rows where the mesh "
+                                 f"holds {hi - lo} a rank")
+            return self._wrap(local.to(self.mesh.device_type).contiguous(),
+                              total)
+
+        return tree_map(wrap, tree)
+
     # ------------------------------------------------------- collectives
 
     def _staged(self, t: torch.Tensor) -> torch.Tensor:
@@ -129,6 +159,14 @@ class ClientAxis:
         flat = self.all_reduce(torch.cat([t.reshape(-1) for t in ts]))
         return tuple(p.reshape(t.shape) for p, t in zip(
             torch.split(flat, [t.numel() for t in ts]), ts))
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
+
+    def gather_clients(self, local: torch.Tensor, total: int) -> torch.Tensor:
+        """A per-client (C,) vector (a step's losses, labels) on every
+        rank, from this rank's block of ``total`` clients."""
+        return self.even(total).gather(local)
 
     def gather(self, local: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
         """The rows of every rank, concatenated in rank order, on every
@@ -283,6 +321,18 @@ class LocalAxis:
     def local_rows(self, leaf, total: int) -> torch.Tensor:
         return torch.as_tensor(leaf)
 
+    def mine(self, tree, total: int):
+        return tree
+
+    def place(self, tree, total: int):
+        return tree
+
+    def barrier(self) -> None:
+        pass
+
+    def gather_clients(self, local: torch.Tensor, total: int) -> torch.Tensor:
+        return local
+
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         return t
 
@@ -320,9 +370,14 @@ class LocalShard(RowShard):
         return idx, LocalShard(self.axis, [idx.shape[0]])
 
 
-def client_axis_of(mesh, client_axis: str = "data"):
-    """``ClientAxis`` of a mesh, ``LocalAxis`` without one."""
-    return LocalAxis() if mesh is None else ClientAxis(mesh, client_axis)
+def client_axis_of(mesh, client_axis: Optional[str] = None):
+    """``ClientAxis`` of a mesh's ``client_axis`` dim (its only dim where
+    none is named), ``LocalAxis`` without a mesh."""
+    if mesh is None:
+        return LocalAxis()
+    if client_axis is None:
+        (client_axis,) = mesh.mesh_dim_names
+    return ClientAxis(mesh, client_axis)
 
 
 def shard_of(points: torch.Tensor, shard=None):
@@ -330,3 +385,17 @@ def shard_of(points: torch.Tensor, shard=None):
     of ``points``."""
     return LocalShard(LocalAxis(), [points.shape[0]]) if shard is None \
         else shard
+
+
+def tree_axis(tree):
+    """The client axis a stacked tree lies on, read from its first leaf:
+    the ``ClientAxis`` of the mesh dim a ``DTensor`` is ``Shard(0)`` on,
+    else ``LocalAxis`` (plain tensors, or a ``DTensor`` whose first dim
+    is not sharded, as the dry run's one-client stacks)."""
+    leaves = tree_leaves(tree)
+    leaf = leaves[0] if leaves else None
+    if isinstance(leaf, DTensor) and leaf.device_mesh.mesh_dim_names:
+        for name, p in zip(leaf.device_mesh.mesh_dim_names, leaf.placements):
+            if p.is_shard(0):
+                return ClientAxis(leaf.device_mesh, name)
+    return LocalAxis()

@@ -643,3 +643,71 @@ def test_every_mesh_function_has_a_port_that_takes_the_mesh(key):
     if key[0].startswith(ROUND_LAYERS):
         assert "client_axis" in port[(path, name)], \
             f"{path}::{name} takes no client_axis"
+
+
+# ------------------------------------------------ the refusals under a mesh
+
+# The port's own refusals under a mesh, each listed in ROADMAP.md's queue
+# A: ingest and rounds submitted through a RouteServer over a sharded
+# session would need every rank inside the call.
+MESH_REFUSALS = {("serving/server.py", "RouteServer._refuse_meshed")}
+
+
+def _mesh_refusals(root: Path) -> dict:
+    """{(module path, qualified name): [raise statements]} of every
+    function under ``root`` that raises in the body of an ``if`` whose
+    test asks whether a mesh ``is not None``."""
+    found = {}
+
+    def own_nodes(fn):
+        """The function's nodes, nested functions and classes left out."""
+        todo = list(fn.body)
+        while todo:
+            node = todo.pop()
+            yield node
+            todo.extend(c for c in ast.iter_child_nodes(node)
+                        if not isinstance(c, (ast.FunctionDef,
+                                              ast.AsyncFunctionDef,
+                                              ast.ClassDef)))
+
+    for path in sorted(root.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        stack = [(tree, "")]
+        while stack:
+            node, prefix = stack.pop()
+            for child in ast.iter_child_nodes(node):
+                if isinstance(child, ast.ClassDef):
+                    stack.append((child, prefix + child.name + "."))
+                elif isinstance(child, (ast.FunctionDef,
+                                        ast.AsyncFunctionDef)):
+                    name = prefix + child.name
+                    stack.append((child, name + "."))
+                    raises = [
+                        ast.unparse(r) for n in own_nodes(child)
+                        if isinstance(n, ast.If)
+                        and "mesh" in ast.unparse(n.test)
+                        and "is not None" in ast.unparse(n.test)
+                        for stmt in n.body for r in ast.walk(stmt)
+                        if isinstance(r, ast.Raise)]
+                    if raises:
+                        found[(str(path.relative_to(root)), name)] = raises
+    return found
+
+
+def test_no_port_function_refuses_a_mesh_the_reference_takes():
+    """Every refusal under a mesh in the port is its reference
+    counterpart's own, or one of ``MESH_REFUSALS``."""
+    ref = _mesh_refusals(REPO / "src" / "repro")
+    port = _mesh_refusals(REPO / "src" / "repro_torch")
+    as_ref = {v: k for k, v in PORTED_AS.items()}
+    extra = sorted(key for key in port if key not in MESH_REFUSALS
+                   and as_ref.get(key, key) not in ref)
+    assert not extra, f"refused under a mesh, not in the reference: {extra}"
+
+
+@pytest.mark.parametrize("key", sorted(MESH_REFUSALS), ids="::".join)
+def test_the_ports_own_mesh_refusals_name_the_roadmap(key):
+    raises = _mesh_refusals(REPO / "src" / "repro_torch").get(key)
+    assert raises, f"{key} no longer refuses under a mesh: drop it from " \
+                   "MESH_REFUSALS and ROADMAP.md's queue A"
+    assert all("ROADMAP.md, queue A" in r for r in raises)
