@@ -357,8 +357,22 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     every rank's kmeans_assign
     launched (and pairwise_sqdist in run 1); each rank's local-step p50
     beside 4h's, the round ms, the gathered and all-reduced bytes and
-    the peak memory printed.  Each subphase prints its backend, ranks,
-    rows a rank and seconds with the card line; one
+    the peak memory printed; (e) in the same processes phase 4d's
+    ingest row on the meshed session (``loadgen.build_session(mesh=)``,
+    C = 1 048 576, sketch 64, k = 8): ``loadgen.run_row`` through rank
+    0's ``RouteServer`` (16 batched callers for 3 s, keyed waves of 256
+    every 0.2 s, one background warm refinalize midway) while the other
+    ranks' servers follow its log, then 4096 probes through a fresh
+    server equal to one batch route; no error, timeout or flush error,
+    waves ingested and the round warm; every rank at rank 0's clock with
+    its served round (labels, centers bit for bit); each rank's round
+    equal bit for bit to the serialized replay of rank 0's log on the
+    mesh, and rank 0's labels to the unmeshed replay's; the same row at
+    the one NCCL rank of (a) (the log on a gloo group beside it), held
+    bit for bit to the unmeshed replay.  qps, ``refinalize_under_load_ms``,
+    the route p99 during the refinalize, and each rank's log entries and
+    bytes and ``mesh.broadcast`` ms printed.  Each subphase prints its
+    backend, ranks, rows a rank and seconds with the card line; one
     ``{"client_mesh": {...}}`` line;
  8. the card's name and power limit again, then the last line
     ``{"ok": true, "device": {...}}``.
@@ -424,6 +438,8 @@ SERVING_CLIENTS = (1_048_576, 4096)
 SERVING_CALLERS = (4, 16)
 SERVING_SECONDS = 3.0
 SERVING_PROBES = 4096
+# 4d's and 7e's route servers: flushes of up to 64, a 0.5 ms window
+SERVER_KW = dict(max_batch=FLUSH_BUCKETS[-1], max_wait_ms=0.5)
 # the mutation run of phase 4d (C = 1 048 576) and the convex warm path
 MUTATION = {"reupload_frac": 0.25, "churn": 64, "max_age": 3,
             "refinalize_threshold": 1.5}
@@ -2091,6 +2107,61 @@ def check_rows(name: str, rows: list) -> None:
         check(row["n_requests"] > 0, f"{what}: no request was answered")
 
 
+def check_ingest_row(what: str, row: dict, session) -> None:
+    """The ingest row ran waves and its one background refinalize, warm."""
+    check(row["ingest_waves"] > 0 and row["refinalize_under_load_ms"]
+          is not None, f"{what}: the ingest row ran {row['ingest_waves']} "
+          "waves and no refinalize")
+    mode = session.served_round.out[2]["refinalize"]
+    check(mode == "warm", f"{what}: the background refinalize ran {mode}, "
+          "not warm")
+
+
+def check_probes(what: str, session, rows, timeout: float) -> None:
+    """The labels of SERVING_PROBES probes through a fresh server equal
+    one batch route."""
+    from repro_torch.serving.server import RouteServer
+
+    probes = rows[:SERVING_PROBES]
+    srv = RouteServer(session, queue_depth=2 * SERVING_PROBES,
+                      **SERVER_KW).start()
+    futures = [srv.submit(p, timeout=60.0) for p in probes]
+    got = np.asarray([f.result(60.0) for f in futures])
+    srv.stop(timeout=timeout)
+    want = np.asarray(session.route(probes))
+    check(np.array_equal(got, want), f"{what}: the server's labels differ "
+          f"from one batch route on {int((got != want).sum())} of "
+          f"{len(probes)} probes")
+
+
+def replay_log(log: list, upto: int, clients: int, device, mesh=None):
+    """The serialized replay: the fixture (its cold finalize), the logged
+    keyed waves in clock order up to ``upto``, then a warm refinalize
+    right after (the background round's snapshot clock)."""
+    from repro_torch.serving import loadgen
+
+    replay, _ = loadgen.build_session(clients=clients, clusters=MAIN_K,
+                                      sketch_dim=MAIN_D, seed=0,
+                                      device=device, mesh=mesh)
+    for clock, ids, chunk in sorted(log, key=lambda w: w[0]):
+        if clock > upto:
+            break
+        replay.ingest(sketches=chunk, client_ids=ids)
+        check(replay.clock == clock, f"replay clock {replay.clock} != "
+              f"{clock}")
+    replay.refinalize()
+    return replay.served_round
+
+
+def same_round(a, b) -> bool:
+    """Two served rounds equal bit for bit."""
+    return (a.clock == b.clock and a.n_clusters == b.n_clusters
+            and np.array_equal(a.out[1], b.out[1])
+            and np.array_equal(a.first_idx, b.first_idx)
+            and torch.equal(a.centers.cpu(), b.centers.cpu())
+            and a.finalized_d2 == b.finalized_d2)
+
+
 def phase_serving(ops, card: str, clients: int) -> tuple:
     """The route server over a sketch-only session of ``clients`` rows
     (sketch 64, k = 8, built by the port's ``loadgen.build_session``):
@@ -2102,7 +2173,6 @@ def phase_serving(ops, card: str, clients: int) -> tuple:
     the rows' flushes by the bucket they launched at, the per-request
     routes of the direct rows, the printed line)."""
     from repro_torch.serving import loadgen
-    from repro_torch.serving.server import RouteServer
 
     callers = SERVING_CALLERS
     torch.cuda.synchronize()
@@ -2113,8 +2183,8 @@ def phase_serving(ops, card: str, clients: int) -> tuple:
                                           device="cuda")
     build_s = time.perf_counter() - t0
     config = {"clients": clients, "clusters": MAIN_K, "sketch_dim": MAIN_D}
-    kw = dict(duration_s=SERVING_SECONDS, max_batch=FLUSH_BUCKETS[-1],
-              max_wait_ms=0.5, queue_depth=1024, config=config)
+    kw = dict(duration_s=SERVING_SECONDS, queue_depth=1024, config=config,
+              **SERVER_KW)
     bench, criterion = [], {}
     for m in callers:
         direct = loadgen.run_row(session, rows, mode="closed", batched=False,
@@ -2132,24 +2202,9 @@ def phase_serving(ops, card: str, clients: int) -> tuple:
                             ingest_log=log, **kw)
     bench.append(under)
     check_rows(f"serving C={clients}", bench)
-    check(under["ingest_waves"] > 0 and under["refinalize_under_load_ms"]
-          is not None, f"serving C={clients}: the ingest row ran "
-          f"{under['ingest_waves']} waves and no refinalize")
+    check_ingest_row(f"serving C={clients}", under, session)
     served = session.served_round
-    check(served.out[2]["refinalize"] == "warm",
-          f"serving C={clients}: the background refinalize ran "
-          f"{served.out[2]['refinalize']}, not warm")
-    # the server's labels for 4096 probes against one batch route
-    probes = rows[:SERVING_PROBES]
-    srv = RouteServer(session, max_batch=FLUSH_BUCKETS[-1], max_wait_ms=0.5,
-                      queue_depth=2 * SERVING_PROBES).start()
-    futures = [srv.submit(p, timeout=60.0) for p in probes]
-    got = np.asarray([f.result(60.0) for f in futures])
-    srv.stop(timeout=60.0)
-    want = np.asarray(session.route(probes))
-    check(np.array_equal(got, want), f"serving C={clients}: the server's "
-          f"labels differ from one batch route on "
-          f"{int((got != want).sum())} of {len(probes)} probes")
+    check_probes(f"serving C={clients}", session, rows, 60.0)
     launches = read_counts(ops)
     # one kmeans_assign launch per flush, at its bucket (the server's own
     # serving.flush_size observations), and one at m = 1 per request of
@@ -2159,27 +2214,9 @@ def phase_serving(ops, card: str, clients: int) -> tuple:
         for b, n in r["flushes_by_bucket"].items():
             flushes[int(b)] = flushes.get(int(b), 0) + n
     direct_routes = sum(r["n_requests"] for r in bench if not r["batched"])
-    # the serialized replay: the same keyed waves in clock order, the
-    # same cold finalize, and a warm refinalize right after the clock of
-    # the background round's snapshot
-    replay, _ = loadgen.build_session(clients=clients, clusters=MAIN_K,
-                                      sketch_dim=MAIN_D, seed=0,
-                                      device="cuda")
-    for clock, ids, chunk in sorted(log, key=lambda w: w[0]):
-        if clock > served.clock:
-            break
-        replay.ingest(sketches=chunk, client_ids=ids)
-        check(replay.clock == clock, f"serving C={clients}: replay clock "
-              f"{replay.clock} != {clock}")
-    replay.refinalize()
-    rep = replay.served_round
-    check(rep.clock == served.clock and rep.n_clusters == served.n_clusters
-          and np.array_equal(rep.out[1], served.out[1])
-          and np.array_equal(rep.first_idx, served.first_idx)
-          and torch.equal(rep.centers, served.centers)
-          and rep.finalized_d2 == served.finalized_d2,
-          f"serving C={clients}: the round refinalized in the background "
-          "differs from the serialized replay")
+    check(same_round(replay_log(log, served.clock, clients, "cuda"),
+                     served), f"serving C={clients}: the round refinalized "
+          "in the background differs from the serialized replay")
     for kernel in ("kmeans_assign", "pairwise_sqdist"):
         check(launches[kernel] > 0, f"serving C={clients}: launched no "
               f"{kernel} kernel")
@@ -4403,6 +4440,9 @@ FP32_SUM_ATOL = 2.0 ** -20
 # 7b's main run serves on rank 0: closed loops of 16 callers, per
 # request and batched, a second each
 MESH_QPS_CALLERS, MESH_QPS_SECONDS = 16, 1.0
+# 7e: phase 4d's ingest row on the meshed session, through rank 0's
+# server; a follower's stop waits this long for rank 0's close
+MESH_FOLLOW_TIMEOUT = 300.0
 
 
 def mesh_runs(main_c: int, convex_c: int) -> dict:
@@ -4874,6 +4914,76 @@ def lm_round_worst(rank: int, per: int, labels, state, want) -> float:
     return worst
 
 
+# ---- 7e: the route server under ingest on the mesh
+
+def mesh_serving(session, rows, rank: int, what: str) -> dict:
+    """7e on one rank of a meshed session: rank 0 runs phase 4d's ingest
+    row through ``loadgen.run_row`` (16 batched callers for
+    SERVING_SECONDS, keyed waves of 256 every 0.2 s, one background warm
+    refinalize midway), then routes SERVING_PROBES probes through a
+    fresh server against one batch route; every other rank follows both
+    servers.  Returns the row (rank 0), the log and the rank's
+    ``mesh.broadcast`` / ``serving.log`` figures over the row."""
+    from repro_torch import obs
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.server import RouteServer
+
+    if rank != 0:
+        obs.reset()
+        RouteServer(session, **SERVER_KW).start().stop(
+            timeout=MESH_FOLLOW_TIMEOUT)
+        snap = obs.snapshot()
+        RouteServer(session, **SERVER_KW).start().stop(
+            timeout=MESH_FOLLOW_TIMEOUT)
+        return {"row": None, "log": None, **log_figures(snap)}
+    log: list = []
+    row = loadgen.run_row(session, rows, mode="closed", batched=True,
+                          callers=max(SERVING_CALLERS), ingest=True,
+                          ingest_log=log, duration_s=SERVING_SECONDS,
+                          queue_depth=1024, **SERVER_KW)
+    snap = obs.snapshot()
+    check_rows(what, [row])
+    check_ingest_row(what, row, session)
+    check_probes(what, session, rows, MESH_FOLLOW_TIMEOUT)
+    return {"row": row, "log": log, **log_figures(snap)}
+
+
+def log_figures(snap: dict) -> dict:
+    """A rank's log and broadcast figures from an obs snapshot (on a
+    follower the broadcast span includes the wait for rank 0's next
+    entry)."""
+    c, h = snap["counters"], snap["histograms"].get("mesh.broadcast.ms", {})
+    return {"log_entries": int(c.get("serving.log.entries", 0)),
+            "log_bytes": int(c.get("serving.log.bytes", 0)),
+            "broadcast_bytes": int(c.get("mesh.broadcast.bytes", 0)),
+            "broadcasts": int(h.get("count", 0)),
+            "broadcast_ms": h.get("sum", 0.0)}
+
+
+def serving_line(res: dict, seconds: float, ranks: int, backend: str,
+                 per_rank: list, card: str) -> dict:
+    """7e's part of the ``client_mesh`` line."""
+    row = res["row"]
+    waves = row["ingest_waves"]
+    return {
+        "backend": backend, "ranks": ranks, "seconds": seconds, "card": card,
+        "callers": row["callers"], "qps": row["qps"],
+        "route_p50_ms": row["route_p50_ms"],
+        "route_p99_ms": row["route_p99_ms"],
+        "refinalize_under_load_ms": row["refinalize_under_load_ms"],
+        "route_p99_ms_during_refinalize":
+            row.get("route_p99_ms_during_refinalize"),
+        "n_requests_during_refinalize":
+            row.get("n_requests_during_refinalize"),
+        "staleness_at_serve_p95": row["staleness_at_serve_p95"],
+        "ingest_waves": waves,
+        "log_per_rank": [{k: r[k] for k in (
+            "log_entries", "log_bytes", "broadcast_bytes", "broadcasts",
+            "broadcast_ms")} for r in per_rank],
+        "rank0_broadcast_ms_per_wave": per_rank[0]["broadcast_ms"]
+        / max(waves, 1)}
+
+
 def mesh_child(rank: int, port: int, out_dir: str, base: dict,
                sizes: dict) -> None:
     """One rank of phase 7b-d: every run with the mesh, each held to the
@@ -4958,6 +5068,7 @@ def mesh_child(rank: int, port: int, out_dir: str, base: dict,
             "phases": got["phases"], "spans": got["spans"],
             "qps_server": qps}
         del summary
+    rec["serving"] = mesh_serving_child(rank, mesh, dev, sizes["main_c"])
     # the unmeshed LM models arrived through CUDA IPC: popped from the
     # shared dict, so the last reference goes with this frame's and the
     # parent's storage is released before the process ends
@@ -5002,6 +5113,59 @@ def mesh_child(rank: int, port: int, out_dir: str, base: dict,
         json.dump(rec, f)
 
 
+def mesh_serving_child(rank: int, mesh, dev: str, clients: int) -> dict:
+    """7e in a rank of the gloo world: the session (``loadgen``'s
+    fixture on the mesh), the row through rank 0's server, then the
+    gates: every rank at rank 0's clock with its served round; each
+    rank's round equal to the serialized replay of rank 0's log on the
+    mesh, bit for bit; rank 0's labels equal to the unmeshed replay's."""
+    import torch.distributed as dist
+    from repro_torch.serving import loadgen
+
+    what = f"7e (rank {rank})"
+    t0 = time.perf_counter()
+    session, rows = loadgen.build_session(clients=clients, clusters=MAIN_K,
+                                          sketch_dim=MAIN_D, seed=0,
+                                          device=dev, mesh=mesh)
+    build_s = time.perf_counter() - t0
+    res = mesh_serving(session, rows, rank, what)
+    served = session.served_round
+    ends = [None] * MESH_RANKS
+    dist.all_gather_object(ends, (session.clock, served.clock, served.out[1],
+                                  served.centers.cpu().numpy()))
+    for r, (clock, sclock, labels, centers) in enumerate(ends):
+        check(clock == ends[0][0] and sclock == ends[0][1],
+              f"{what}: rank {r} ends at clock {clock} (round {sclock}), "
+              f"rank 0 at {ends[0][0]} (round {ends[0][1]})")
+        check(np.array_equal(labels, ends[0][2])
+              and np.array_equal(centers.view(np.int32),
+                                 ends[0][3].view(np.int32)),
+              f"{what}: rank {r}'s served round differs from rank 0's")
+    box = [None if res["log"] is None else
+           [w for w in res["log"] if w[0] <= served.clock]]
+    dist.broadcast_object_list(box, src=0)
+    t1 = time.perf_counter()
+    rep = replay_log(box[0], served.clock, clients, dev, mesh)
+    check(same_round(rep, served), f"{what}: the served round differs "
+          "from the serialized replay of rank 0's log on the mesh")
+    if rank == 0:
+        flat = replay_log(box[0], served.clock, clients, dev)
+        check(np.array_equal(flat.out[1], served.out[1]),
+              f"{what}: labels differ from the unmeshed replay on "
+              f"{int((flat.out[1] != served.out[1]).sum())} clients")
+        del flat
+    dist.barrier()
+    del rep, session
+    gc.collect()
+    out = {k: v for k, v in res.items() if k != "log"}
+    out.update(build_session_s=build_s,
+               replay_s=time.perf_counter() - t1,
+               seconds=time.perf_counter() - t0,
+               waves_replayed=len(box[0]), clock=ends[0][0],
+               served_clock=ends[0][1])
+    return out
+
+
 def free_port() -> int:
     import socket
 
@@ -5021,7 +5185,10 @@ def phase_client_mesh(card: str, device: str = "cuda",
     the card, each held to the unmeshed run, the main one serving on
     rank 0.  7c: the LM round at C = 8 in the same processes, held to
     the unmeshed round.  7d: phase 4h's two training runs in the same
-    processes, held to 4h's records in ``lm_keep``.  (``device``, the
+    processes, held to 4h's records in ``lm_keep``.  7e: phase 4d's
+    ingest row through rank 0's ``RouteServer`` over the meshed session
+    in the same processes (the others follow its log), and at the one
+    rank of 7a, held to serialized replays of the log.  (``device``, the
     sizes and ``lm_argv``, extra ``launch.train`` flags, let the phase be
     rehearsed on the CPU; without ``lm_keep`` the records are made here
     first.)"""
@@ -5032,6 +5199,7 @@ def phase_client_mesh(card: str, device: str = "cuda",
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import client_mesh
     from repro_torch.launch.simulate import simulate
+    from repro_torch.serving import loadgen
     from repro_torch.utils import tree_map
 
     t_all = time.perf_counter()
@@ -5052,7 +5220,24 @@ def phase_client_mesh(card: str, device: str = "cuda",
     ops.reset_launch_counts()
     got = mesh_round(simulate(mesh=mesh, device=device, **runs["main"]))
     launches = read_counts(ops) if device == "cuda" else None
+    seconds_7a = time.perf_counter() - t0
+    # ---- 7e at the one rank: the control group is gloo beside the mesh's
+    t0 = time.perf_counter()
+    session, rows = loadgen.build_session(clients=main_c, clusters=MAIN_K,
+                                          sketch_dim=MAIN_D, seed=0,
+                                          device=device, mesh=mesh)
+    res = mesh_serving(session, rows, 0, "7e (1 rank)")
+    served = session.served_round
+    check(same_round(replay_log(res["log"], served.clock, main_c, device),
+                     served), "7e (1 rank): the served round differs from "
+          "the unmeshed serialized replay of its log")
+    del session, rows
+    out["subphases"]["7e 1 rank"] = serving_line(
+        res, time.perf_counter() - t0, 1, single_backend, [res], card)
     dist.destroy_process_group()
+    print(f"[chip_smoke] 7e {single_backend} 1 rank: "
+          f"{json.dumps(out['subphases']['7e 1 rank'])}  ({card})",
+          flush=True)
     want = base["main"]
     check(np.array_equal(got["labels"], want["labels"]),
           "7a: labels differ from the unmeshed run")
@@ -5064,7 +5249,7 @@ def phase_client_mesh(card: str, device: str = "cuda",
     check(got["purity"] == 1.0, f"7a: purity {got['purity']}")
     out["subphases"]["7a"] = {
         "backend": single_backend, "ranks": 1, "rows_per_rank": main_c,
-        "seconds": time.perf_counter() - t0,
+        "seconds": seconds_7a,
         "unmeshed_seconds": seconds["unmeshed main"], "launches": launches,
         "purity": got["purity"], "n_iter": got["n_iter"],
         "phases": got["phases"], "spans": got["spans"],
@@ -5186,6 +5371,21 @@ def phase_client_mesh(card: str, device: str = "cuda",
               f"{out['subphases'][f'7b {name}']['seconds']:.1f}s (rank 0: "
               f"ERM {ph['local_erm_s']:.2f}s, ingest {ph['ingest_s']:.2f}s, "
               f"round {ph['aggregate_s']:.2f}s)  ({card})", flush=True)
+    sv = [r["serving"] for r in recs]
+    sub = serving_line(sv[0], max(r["seconds"] for r in sv), MESH_RANKS,
+                       "gloo", sv, card)
+    sub.update(rows_per_rank=main_c // MESH_RANKS,
+               build_session_s=[r["build_session_s"] for r in sv],
+               replay_s=[r["replay_s"] for r in sv],
+               waves_replayed=sv[0]["waves_replayed"], clock=sv[0]["clock"],
+               served_clock=sv[0]["served_clock"])
+    out["subphases"]["7e"] = sub
+    print(f"[chip_smoke] 7e route server under ingest, gloo {MESH_RANKS} "
+          f"ranks, {main_c // MESH_RANKS} rows a rank: {sub['seconds']:.1f}s, "
+          f"{sub['qps']:.0f} qps, refinalize under load "
+          f"{sub['refinalize_under_load_ms']:.1f} ms, {sub['ingest_waves']} "
+          f"waves, rank 0 broadcast {sub['rank0_broadcast_ms_per_wave']:.3f}"
+          f" ms a wave  ({card})", flush=True)
     if recs[0].get("lm") is not None:
         lm = [r["lm"] for r in recs]
         out["subphases"]["7c lm"] = {

@@ -26,6 +26,7 @@ client on every rank.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -59,7 +60,8 @@ def weighted_reps(labels, kk: int, params, weights, shard, then=None):
                             1e-12)[:, None]
 
     def rep(leaf):
-        flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+        flat = leaf.reshape(leaf.shape[0], math.prod(leaf.shape[1:])).to(
+            torch.float32)
         means = shard.all_reduce(weighted.T @ flat) / denom
         out = means.reshape((kk,) + tuple(leaf.shape[1:])).to(leaf.dtype)
         return out if then is None else then(out)
@@ -110,7 +112,7 @@ def _mean_work(out, labels, centers, params, *_):
     is this rank's rows."""
     leaves = tree_leaves(params)
     c, kk = leaves[0].shape[0], centers.shape[0]
-    n = sum(l.numel() // c for l in leaves)
+    n = sum(math.prod(l.shape[1:]) for l in leaves)
     nbytes = sum(2 * l.numel() * l.element_size() for l in leaves)
     return nbytes + 4.0 * c * kk, 4.0 * c * kk * n
 
@@ -118,7 +120,7 @@ def _mean_work(out, labels, centers, params, *_):
 def _gather_work(out, buf, rows):
     """The live rows of every leaf read and written, and their indices
     read (int64); no arithmetic."""
-    moved = sum(2 * rows.numel() * (l.numel() // l.shape[0])
+    moved = sum(2 * rows.numel() * math.prod(l.shape[1:])
                 * l.element_size() for l in tree_leaves(buf))
     return moved + 8.0 * rows.numel(), 0.0
 
@@ -136,7 +138,7 @@ def _round_work(out, params):
     the one-hot mean (:func:`_mean_work`)."""
     _, res, sketches = out
     c, s = sketches.shape
-    n = sum(l.numel() // c for l in tree_leaves(params))
+    n = sum(math.prod(l.shape[1:]) for l in tree_leaves(params))
     mean_bytes, mean_flops = _mean_work(None, None, res.centers, params)
     return (4.0 * (c * n + n * s + c * s) + mean_bytes,
             2.0 * c * n * s + mean_flops)

@@ -34,6 +34,7 @@ collective is the identity.
 """
 from __future__ import annotations
 
+import math
 import dataclasses
 from typing import Any, Optional
 
@@ -223,7 +224,9 @@ def cluster_reduce_tree(params, labels, onehot, counts, aggregator,
     k = onehot.shape[1]
 
     def rep(leaf):
-        flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+        # (a rank may hold no row of the leaf: the width is explicit)
+        flat = leaf.reshape(leaf.shape[0], math.prod(leaf.shape[1:])).to(
+            torch.float32)
         out = agg(flat, labels, onehot, counts, shard=shard).reshape(
             (k,) + tuple(leaf.shape[1:])).to(leaf.dtype)
         return out if then is None else then(out)

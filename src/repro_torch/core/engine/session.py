@@ -623,25 +623,9 @@ class AggregationSession:
         on the calling thread's current stream.  Returns ``(out,
         served)`` for ``install_round``.  The warm-start cache is shared
         state: concurrent calls are serialized by the caller."""
-        if engine not in ("auto", "host", "device"):
-            raise ValueError(f"engine must be auto|host|device, got "
-                             f"{engine!r}")
         kwargs = dict(algorithm=algorithm, k=k, algo_options=algo_options,
                       engine=engine, aggregator=aggregator)
-        if engine == "host":
-            # explicit device names downgrade to their host base (or raise
-            # for device-only families)
-            algorithm, algo_options = resolve_host_request(algorithm,
-                                                           algo_options)
-        else:
-            algorithm, algo_options = resolve_device_request(
-                algorithm, algo_options, strict=engine == "device")
-        algo = get_algorithm(algorithm)
-        dev = algo if is_device_algorithm(algo) else device_twin(algo)
-        use_device = engine != "host" and dev is not None
-        if use_device:
-            algo = dev                   # "convex" runs as "convex-device"
-        k_eff = k if algo.requires_k else None
+        algo, k_eff, algo_options, use_device = self.resolve_round(**kwargs)
         self._adopt(snap)
         with obs.span("session.refinalize" if warm else "session.finalize",
                       count=snap.count,
@@ -655,6 +639,37 @@ class AggregationSession:
                     algo, k_eff, algo_options, snap, aggregator)
         self._finalize_kwargs = kwargs
         return out, served
+
+    def resolve_round(self, *, algorithm="kmeans-device",
+                      k: Optional[int] = None,
+                      algo_options: Optional[dict] = None,
+                      engine: str = "device", aggregator=None) -> tuple:
+        """A round's arguments as ``compute_round`` runs them: ``(algo,
+        k or None, algo_options, on the device)``.  Raises ``ValueError``
+        for an unknown engine or algorithm and for a missing ``k``, before
+        any work: a meshed ``RouteServer`` checks a round here before it
+        sends it to the other ranks.  ``aggregator`` is taken and not
+        checked (a sketch-only round never reads it)."""
+        if engine not in ("auto", "host", "device"):
+            raise ValueError(f"engine must be auto|host|device, got "
+                             f"{engine!r}")
+        if engine == "host":
+            # explicit device names downgrade to their host base (or raise
+            # for device-only families)
+            algorithm, algo_options = resolve_host_request(algorithm,
+                                                           algo_options)
+        else:
+            algorithm, algo_options = resolve_device_request(
+                algorithm, algo_options, strict=engine == "device")
+        algo = get_algorithm(algorithm)
+        dev = algo if is_device_algorithm(algo) else device_twin(algo)
+        use_device = engine != "host" and dev is not None
+        if use_device:
+            algo = dev                   # "convex" runs as "convex-device"
+        if algo.requires_k and k is None:
+            raise ValueError(f"{getattr(algo, 'name', algo)!r} requires k")
+        return algo, (k if algo.requires_k else None), algo_options, \
+            use_device
 
     def _finalize_device(self, algo, k, algo_options, snap, aggregator,
                          warm):

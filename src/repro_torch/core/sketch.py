@@ -85,7 +85,7 @@ def _param_slices(leaves, n: int, lead: bool):
     cast to fp32 on its own."""
     if lead:
         c = leaves[0].shape[0]
-        flat = [l.reshape(c, -1) for l in leaves]
+        flat = [l.reshape(c, math.prod(l.shape[1:])) for l in leaves]
     else:
         flat = [l.reshape(-1) for l in leaves]
     bounds, acc = [], 0

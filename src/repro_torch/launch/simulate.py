@@ -564,7 +564,7 @@ def _qps(session, gen, optima, *, clusters, samples, callers,
     """The ``RouteServer`` over the finalized session: ``callers``
     closed-loop threads per request, then batched across callers, then
     every probe through the server against one batch route.  Under a
-    mesh rank 0 serves and the others wait at a barrier (``None``)."""
+    mesh rank 0 serves and the others follow its server (``None``)."""
     from repro_torch.serving.loadgen import closed_loop, warm_route_buckets
     from repro_torch.serving.server import RouteServer
 
@@ -573,24 +573,21 @@ def _qps(session, gen, optima, *, clusters, samples, callers,
         gen, optima, torch.arange(n_probe, device=optima.device) % clusters,
         n=samples, task=task)
     probes = session.sketch_params({"theta": theta_q}).cpu().numpy()
+    server = RouteServer(session, max_batch=64, max_wait_ms=0.5)
+    server.start()
     if axis.rank != 0:
-        axis.barrier()
+        server.stop()
         return None
     try:
         warm_route_buckets(session, probes[0], 64)
-        server = RouteServer(session, max_batch=64, max_wait_ms=0.5)
-        server.start()
-        try:
-            direct = closed_loop(server, probes, callers=callers,
-                                 duration_s=duration_s, batched=False)
-            batched = closed_loop(server, probes, callers=callers,
-                                  duration_s=duration_s, batched=True)
-            futures = [server.submit(p, timeout=60.0) for p in probes]
-            served = np.asarray([f.result(60.0) for f in futures])
-        finally:
-            server.stop()
+        direct = closed_loop(server, probes, callers=callers,
+                             duration_s=duration_s, batched=False)
+        batched = closed_loop(server, probes, callers=callers,
+                              duration_s=duration_s, batched=True)
+        futures = [server.submit(p, timeout=60.0) for p in probes]
+        served = np.asarray([f.result(60.0) for f in futures])
     finally:
-        axis.barrier()          # the other ranks go on, whatever happened
+        server.stop()           # the other ranks go on, whatever happened
     return {
         "callers": int(callers), "duration_s": float(duration_s),
         "direct_qps": direct["qps"], "batched_qps": batched["qps"],

@@ -69,16 +69,17 @@ def make_population(*, clients: int, clusters: int, sketch_dim: int,
 
 def build_session(*, clients: int, clusters: int, sketch_dim: int,
                   seed: int = 0, wave: int = 1024,
-                  capacity: Optional[int] = None, device=None):
+                  capacity: Optional[int] = None, mesh=None, device=None):
     """Ingest the mixture in keyed waves and finalize ``kmeans-device``:
     the serving fixture every loadgen mode starts from.  Returns
     ``(session, rows)`` (the rows are the route probes and the re-upload
     pool of the ingest-while-serving row).  Runs on CUDA unless
-    ``device="cpu"``."""
+    ``device="cpu"``.  With ``mesh=`` every rank calls it, and serves as
+    ``RouteServer`` says: rank 0 drives, the others follow."""
     rows, _, _ = make_population(clients=clients, clusters=clusters,
                                  sketch_dim=sketch_dim, seed=seed)
     session = AggregationSession(capacity or clients, sketch_dim=sketch_dim,
-                                 seed=seed, device=device)
+                                 seed=seed, mesh=mesh, device=device)
     for lo in range(0, clients, wave):
         chunk = rows[lo:lo + wave]
         session.ingest(sketches=chunk,

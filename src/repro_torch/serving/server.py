@@ -38,10 +38,22 @@ The ``stream`` variant of ``kmeans_assign`` keeps its scratch per
 finalize lock), and the batcher's flushes of at most 256 rows take the
 ``small`` variant, which has no scratch.
 
-Under a client mesh (a session built with ``mesh=``) the server routes:
-the served centers are replicated, so a route is one rank's own work and
-sends no collective.  Ingest and rounds through the server are refused
-there: each would need every rank inside the call (ROADMAP.md, queue A).
+Under a client mesh (a session built with ``mesh=``) every rank opens a
+server over its session.  Rank 0's is the controller, as the reference's
+single controller is: callers ingest and run rounds through it alone,
+and it applies each call first and then sends it, under the ingest lock,
+to the other ranks' servers (``serving/oplog.py``): an ingest with its
+wave, a round with its arguments right after its snapshot, and on
+``stop`` a close.  The others follow from ``start`` to ``stop``: a thread
+applies the entries in rank 0's order, snapshots where rank 0 did (at
+rank 0's clock, checked) and runs each round on a worker thread on the
+round stream, so it goes on taking entries while a round all-reduces
+with rank 0's.  Their ``ingest`` and round calls raise.  Routes are
+legal on every rank: the served centers are replicated.  A round's
+arguments are checked on rank 0 before it is sent; an entry that fails
+on a follower is a divergence, which that rank's ``stop`` (and every
+later ``submit``) raises.  Rank 0's ``stop`` waits until every rank has
+applied the close and checks that they agree on the clock.
 
 Example, serving while uploading::
 
@@ -68,6 +80,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core.federated import FederatedState
 from repro_torch.device import resolve_device
 from repro_torch.serving.batching import (
     BackpressureError,
@@ -78,6 +91,8 @@ from repro_torch.serving.batching import (
     ServingError,
     _Request,
 )
+from repro_torch.serving.oplog import OpLog, encode
+from repro_torch.sharding.clients import client_axis_of
 from repro_torch.utils import tree_map
 
 __all__ = [
@@ -106,6 +121,8 @@ class RouteServer:
       session: the session to serve (finalized or not: routes fail with
         the session's own ``ValueError`` until a round exists).  Its
         device is where the server runs; a CUDA session needs a GPU.
+        Over a meshed session, rank 0's server is the controller and
+        every other rank's follows it (see the module docstring).
       max_batch: largest number of requests fused into one route.
       max_wait_ms: micro-batching window past a flush's head request.
       queue_depth: bound of the request queue (backpressure when full).
@@ -138,6 +155,16 @@ class RouteServer:
         self._snapped: Optional[torch.cuda.Event] = None
         self._batcher: Optional[threading.Thread] = None
         self._closed = False
+        # under a mesh: the ordered log, rank 0 sending, the others
+        # following on a thread of their own
+        mesh = getattr(session, "mesh", None)
+        self._log = (None if mesh is None else OpLog(
+            client_axis_of(mesh, session.client_axis)))
+        self._follower = self._log is not None and self._log.axis.rank != 0
+        self._log_closed = False
+        self._following: Optional[threading.Thread] = None
+        self._ended = threading.Event()     # a follower's close, or failure
+        self._diverged: Optional[BaseException] = None
 
     # ---------------------------------------------------------- lifecycle
 
@@ -150,6 +177,10 @@ class RouteServer:
                 target=self._batcher_loop, name="repro-route-batcher",
                 daemon=True)
             self._batcher.start()
+        if self._follower and self._following is None:
+            self._following = threading.Thread(
+                target=self._follow, name="repro-log-follower", daemon=True)
+            self._following.start()
         return self
 
     def stop(self, *, drain: bool = True,
@@ -157,8 +188,10 @@ class RouteServer:
         """Stop taking requests and shut the batcher down: ``drain=True``
         flushes the queued backlog first, ``drain=False`` fails it with
         ``ServerClosed``.  Waits for an in-flight background finalize;
-        with ``timeout`` each of the two waits raises ``ServingError``
-        after that many seconds instead of waiting on."""
+        with ``timeout`` each wait raises ``ServingError`` after that many
+        seconds instead of waiting on.  Under a mesh rank 0 then sends the
+        close and waits for every rank to apply it; a follower waits for
+        the close (and raises its divergence, if it had one)."""
         self._closed = True
         dropped = self._queue.stop(drop=not drain)
         for req in dropped:
@@ -170,10 +203,44 @@ class RouteServer:
                 raise ServingError(f"the batcher did not stop within "
                                    f"{timeout}s")
             self._batcher = None
+        if self._follower:
+            self._await_close(timeout)
+            return
         if not self._finalize_lock.acquire(
                 timeout=-1 if timeout is None else timeout):
             raise ServingError(f"a finalize did not end within {timeout}s")
-        self._finalize_lock.release()
+        try:
+            if self._log is not None and not self._log_closed:
+                with self._ingest_lock:
+                    self._log_closed = True
+                    self._close_log(timeout)
+        finally:
+            self._finalize_lock.release()
+
+    def _close_log(self, timeout) -> None:
+        """Rank 0: the close, and every rank's acknowledgement of it."""
+        clock = self.session.clock
+        try:
+            lo, hi = self._log.close(encode({"kind": "close",
+                                             "clock": clock}), clock, timeout)
+        except (TimeoutError, RuntimeError) as exc:
+            raise ServingError(f"a follower did not acknowledge the close "
+                               f"within {timeout}s: {exc}") from exc
+        if lo != hi:
+            raise ServingError(f"the ranks ended at clocks {lo}..{hi}: a "
+                               "follower diverged from rank 0's log")
+
+    def _await_close(self, timeout) -> None:
+        if self._following is None:
+            raise ServingError("a follower follows rank 0's log from "
+                               "start() to stop(): this one never started")
+        if not self._ended.wait(timeout):
+            raise ServingError(f"rank 0's close did not come within "
+                               f"{timeout}s")
+        if self._diverged is not None:
+            raise ServingError(
+                f"rank {self._log.axis.rank} diverged from rank 0's log: "
+                f"{self._diverged!r}") from self._diverged
 
     def __enter__(self) -> "RouteServer":
         return self.start()
@@ -192,6 +259,9 @@ class RouteServer:
         backpressure wait and the request's serving deadline."""
         if self._closed:
             raise ServerClosed("server already stopped")
+        if self._diverged is not None:
+            raise ServingError("this rank diverged from rank 0's log") \
+                from self._diverged
         if (sketch is None) == (params is None):
             raise ValueError("pass exactly one of sketch or params=")
         if params is not None:
@@ -226,27 +296,45 @@ class RouteServer:
 
     # ------------------------------------------------------------- ingest
 
-    def _refuse_meshed(self, what: str) -> None:
-        if self.session.mesh is not None:
-            raise ValueError(
-                f"{what} through a RouteServer over a client-sharded "
-                "session is not ported: every rank would have to enter "
-                "the call (ROADMAP.md, queue A); call the session's own "
-                f"{what} on every rank, and route through the server")
+    def _controls(self, what: str) -> None:
+        if self._follower:
+            raise ServingError(
+                f"{what} goes through rank 0's server, the controller of "
+                f"the mesh; rank {self._log.axis.rank}'s follows its log")
+
+    def _open_log(self) -> None:
+        """Under the ingest lock: the log takes no entry after the close."""
+        if self._log_closed:
+            raise ServerClosed("server already stopped: its log is closed")
 
     def ingest(self, wave=None, *, sketches=None, client_ids=None):
         """Thread-safe ingest; returns ``(rows_or_offset, clock)`` with
         ``clock`` the session clock right after this wave (the replay key
         of the serialized-equivalence contract)."""
-        self._refuse_meshed("ingest")
+        self._controls("ingest")
+        if client_ids is not None:
+            client_ids = list(client_ids)
         with self._ingest_lock:
-            if self._snapped is not None:
-                # the last snapshot's copy reads the rows this may overwrite
-                torch.cuda.current_stream(self.device).wait_event(
-                    self._snapped)
-            result = self.session.ingest(wave, sketches=sketches,
-                                         client_ids=client_ids)
+            body = None
+            if self._log is not None:
+                self._open_log()
+                if isinstance(wave, FederatedState):
+                    wave = wave.params
+                body = encode({"kind": "ingest", "wave": wave,
+                               "sketches": sketches,
+                               "client_ids": client_ids,
+                               "clock": self.session.clock + 1})
+            result = self._ingest_locked(wave, sketches, client_ids)
+            if body is not None:
+                self._log.send(body)
             return result, self.session.clock
+
+    def _ingest_locked(self, wave, sketches, client_ids):
+        if self._snapped is not None:
+            # the last snapshot's copy reads the rows this may overwrite
+            torch.cuda.current_stream(self.device).wait_event(self._snapped)
+        return self.session.ingest(wave, sketches=sketches,
+                                   client_ids=client_ids)
 
     # ----------------------------------------------------------- finalize
 
@@ -254,11 +342,13 @@ class RouteServer:
         """Snapshot and finalize: synchronous by default (returns the
         round tuple); ``background=True`` computes on a worker thread
         while ingest and routes go on and returns a ``RouteFuture``."""
+        self._controls("finalize")
         return self._start_round(warm=False, kwargs=kwargs,
                                  background=background)
 
     def refinalize(self, *, background: bool = False):
         """Replay the last finalize configuration warm-started."""
+        self._controls("refinalize")
         cfg = self.session.finalize_config
         if cfg is None:
             raise ValueError("refinalize() needs a prior finalize()")
@@ -268,7 +358,9 @@ class RouteServer:
     def maybe_refinalize(self, threshold: float = 1.5, *,
                          background: bool = True):
         """Drift-triggered warm re-finalize; ``None`` when drift is at or
-        below ``threshold``, unmeasured, or a finalize is in flight."""
+        below ``threshold``, unmeasured, or a finalize is in flight.
+        Under a mesh rank 0's drift and lock decide."""
+        self._controls("maybe_refinalize")
         d = self.session.drift
         if d is None or d <= threshold:
             return None
@@ -281,17 +373,20 @@ class RouteServer:
 
     def _start_round(self, *, warm: bool, kwargs: dict, background: bool,
                      non_blocking: bool = False):
-        self._refuse_meshed("refinalize" if warm else "finalize")
+        if self._log is not None:
+            # a bad algorithm or k raises here, before anything is sent
+            self.session.resolve_round(**kwargs)
         if not self._finalize_lock.acquire(blocking=not non_blocking):
             return None
         try:
             with self._ingest_lock:
-                snap = self.session.snapshot()
-                if self._round_stream is not None:
-                    self._snapped = torch.cuda.Event()
-                    self._snapped.record(
-                        torch.cuda.current_stream(self.device))
-                copied = self._snapped
+                if self._log is not None:
+                    self._open_log()
+                snap, copied = self._snapshot_locked()
+                if self._log is not None:
+                    self._log.send(encode({"kind": "round", "warm": warm,
+                                           "kwargs": kwargs,
+                                           "clock": snap.clock}))
         except BaseException:
             self._finalize_lock.release()
             raise
@@ -307,6 +402,15 @@ class RouteServer:
             name="repro-finalize-worker", daemon=True)
         worker.start()
         return future
+
+    def _snapshot_locked(self):
+        """Under the ingest lock: the snapshot, and on a CUDA session the
+        event recorded behind its copy."""
+        snap = self.session.snapshot()
+        if self._round_stream is not None:
+            self._snapped = torch.cuda.Event()
+            self._snapped.record(torch.cuda.current_stream(self.device))
+        return snap, self._snapped
 
     def _round_worker(self, snap, copied, warm, kwargs, future):
         try:
@@ -336,6 +440,83 @@ class RouteServer:
                 else "serving.finalize_under_load.ms")
         obs.observe(name, (time.perf_counter() - t0) * 1e3)
         return out
+
+    # ----------------------------------------------------------- follower
+
+    def _follow(self) -> None:
+        """A follower's thread: apply rank 0's entries in order until its
+        close, then acknowledge it.  After a divergence the entries are
+        taken and dropped, so that the close is still acknowledged (with
+        clock -1, which rank 0's ``stop`` raises on)."""
+        try:
+            while True:
+                entry = self._log.receive()
+                if entry["kind"] == "close":
+                    break
+                if self._diverged is None:
+                    try:
+                        self._apply(entry)
+                    except BaseException as exc:  # noqa: BLE001 (raised by stop)
+                        self._diverge(exc)
+            # the last round ends before the close is acknowledged
+            with self._finalize_lock:
+                pass
+            if self._diverged is None:
+                try:
+                    self._check_clock("close", entry["clock"],
+                                      self.session.clock)
+                except ServingError as exc:
+                    self._diverge(exc)
+            self._log.acknowledge(-1 if self._diverged is not None
+                                  else self.session.clock)
+        except BaseException as exc:       # noqa: BLE001 (raised by stop)
+            self._diverge(exc)
+        finally:
+            self._ended.set()
+
+    def _apply(self, entry: dict) -> None:
+        if entry["kind"] == "ingest":
+            with self._ingest_lock:
+                self._ingest_locked(entry["wave"], entry["sketches"],
+                                    entry["client_ids"])
+            self._check_clock("ingest", entry["clock"], self.session.clock)
+        else:
+            self._follow_round(entry)
+
+    def _check_clock(self, what: str, want: int, got: int) -> None:
+        if got != want:
+            raise ServingError(f"{what} at clock {got}, rank 0's at {want}")
+
+    def _follow_round(self, entry: dict) -> None:
+        """Snapshot where rank 0 did, then compute on a worker thread (one
+        round at a time, in log order) while the entries go on."""
+        self._finalize_lock.acquire()
+        try:
+            if self._diverged is not None:     # the last round failed
+                raise self._diverged
+            with self._ingest_lock:
+                snap, copied = self._snapshot_locked()
+            self._check_clock("snapshot", entry["clock"], snap.clock)
+        except BaseException:
+            self._finalize_lock.release()
+            raise
+        threading.Thread(
+            target=self._follower_round_worker,
+            args=(snap, copied, entry["warm"], entry["kwargs"]),
+            name="repro-finalize-worker", daemon=True).start()
+
+    def _follower_round_worker(self, snap, copied, warm, kwargs):
+        try:
+            self._run_round(snap, copied, warm, kwargs)
+        except BaseException as exc:       # noqa: BLE001 (raised by stop)
+            self._diverge(exc)
+        finally:
+            self._finalize_lock.release()
+
+    def _diverge(self, exc: BaseException) -> None:
+        if self._diverged is None:
+            self._diverged = exc
+        self._ended.set()
 
     # ------------------------------------------------------------ batcher
 

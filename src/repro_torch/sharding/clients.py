@@ -41,12 +41,22 @@ losses for the caller (``gather_clients``).
 
 The backend decides once, here, where a collective's buffer lives: gloo
 reduces on the host, so a tensor on the card goes through a host copy;
-NCCL takes it on the card.  Every all-reduce and gather is counted in
-bytes (``mesh.all_reduce.bytes``, ``mesh.gather.bytes``) and timed under
-the ``mesh.all_reduce`` / ``mesh.gather`` spans.
+NCCL takes it on the card.  Every all-reduce, gather and broadcast is
+counted in bytes (``mesh.all_reduce.bytes``, ``mesh.gather.bytes``,
+``mesh.broadcast.bytes``) and timed under the ``mesh.all_reduce`` /
+``mesh.gather`` / ``mesh.broadcast`` spans.
+
+Each mesh dim also has a control group: a gloo group over the same
+ranks, made the first time a ``ClientAxis`` of that dim is built (every
+rank builds it at the same point of the program) and cached.  It carries
+what must not pair with a round's collectives: the route server's
+ordered log (``broadcast``, from a thread that runs while a round
+all-reduces on the dim's own group) and its close (``control_max``).
 """
 from __future__ import annotations
 
+import datetime
+import time
 from typing import Optional, Sequence
 
 import torch
@@ -55,6 +65,49 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import obs
 from repro_torch.utils import tree_leaves, tree_map
+
+
+# a follower of the route server's log waits on the control group for as
+# long as rank 0 serves
+CONTROL_TIMEOUT = datetime.timedelta(days=30)
+# mesh dim group name -> (the world it was made in, its control group)
+_CONTROL: dict = {}
+
+
+def control_group(mesh, dim: int, group):
+    """The gloo group over the ranks of ``group`` (the mesh's ``dim``),
+    made on the first call in a world and cached: ``dist.new_group`` is
+    collective over the world, so every rank makes one group for each
+    slice of the dim, in the same order."""
+    world = dist.group.WORLD
+    hit = _CONTROL.get(group.group_name)
+    if hit is None or hit[0] is not world:
+        layout = mesh.mesh.movedim(dim, -1).reshape(
+            -1, mesh.mesh.shape[dim]).tolist()
+        mine, _ = dist.new_subgroups_by_enumeration(
+            layout, timeout=CONTROL_TIMEOUT, backend="gloo")
+        hit = _CONTROL[group.group_name] = (world, mine)
+    return hit[1]
+
+
+def wait(works: Sequence, timeout: Optional[float] = None) -> None:
+    """Wait for posted collectives.  With ``timeout`` (seconds, for all
+    of them) raise ``TimeoutError`` when one has not ended by then; it
+    stays posted, and ends when the ranks it waits for join."""
+    deadline = None if timeout is None else time.monotonic() + timeout
+    for work in works:
+        if deadline is None:
+            work.wait()
+            continue
+        # (a zero timedelta would mean no timeout at all)
+        left = max(deadline - time.monotonic(), 1e-3)
+        try:
+            work.wait(datetime.timedelta(seconds=left))
+        except RuntimeError as exc:
+            if work.is_completed():      # failed, not late
+                raise
+            raise TimeoutError(f"a collective did not end within "
+                               f"{timeout}s: {exc}") from exc
 
 
 def chunk_sizes(total: int, ranks: int) -> list:
@@ -83,6 +136,9 @@ class ClientAxis:
         self.backend = str(dist.get_backend(self.group))
         # gloo's collectives run on host memory
         self.host_staged = self.backend == "gloo"
+        # a traced mesh (the dry run's fake group) sends nothing
+        self.control = (None if self.backend == "fake" else control_group(
+            mesh, names.index(client_axis), self.group))
 
     # ------------------------------------------------------------ layout
 
@@ -162,6 +218,25 @@ class ClientAxis:
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
+
+    def broadcast(self, t: torch.Tensor, *, async_op: bool = False):
+        """Rank 0's host tensor ``t`` on every rank, in place, over the
+        control group; returns ``t``, or with ``async_op`` the posted
+        collective's work (``wait``)."""
+        nbytes = t.numel() * t.element_size()
+        obs.count("mesh.broadcast.bytes", nbytes)
+        with obs.span("mesh.broadcast", bytes=nbytes):
+            work = dist.broadcast(t, group=self.control, group_src=0,
+                                  async_op=async_op)
+        return work if async_op else t
+
+    def control_max(self, t: torch.Tensor, *, async_op: bool = False):
+        """The elementwise largest of a host tensor over the ranks, in
+        place, on the control group; returns ``t``, or with ``async_op``
+        the posted collective's work (``wait``)."""
+        work = dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.control,
+                               async_op=async_op)
+        return work if async_op else t
 
     def gather_clients(self, local: torch.Tensor, total: int) -> torch.Tensor:
         """A per-client (C,) vector (a step's losses, labels) on every

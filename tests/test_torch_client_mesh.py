@@ -647,10 +647,10 @@ def test_every_mesh_function_has_a_port_that_takes_the_mesh(key):
 
 # ------------------------------------------------ the refusals under a mesh
 
-# The port's own refusals under a mesh, each listed in ROADMAP.md's queue
-# A: ingest and rounds submitted through a RouteServer over a sharded
-# session would need every rank inside the call.
-MESH_REFUSALS = {("serving/server.py", "RouteServer._refuse_meshed")}
+# The port's own refusals under a mesh: none.  A RouteServer over a
+# sharded session ingests and runs rounds on rank 0, the controller, and
+# the other ranks follow its log (``tests/test_torch_mesh_route_server.py``).
+MESH_REFUSALS: set = set()
 
 
 def _mesh_refusals(root: Path) -> dict:
@@ -703,11 +703,3 @@ def test_no_port_function_refuses_a_mesh_the_reference_takes():
     extra = sorted(key for key in port if key not in MESH_REFUSALS
                    and as_ref.get(key, key) not in ref)
     assert not extra, f"refused under a mesh, not in the reference: {extra}"
-
-
-@pytest.mark.parametrize("key", sorted(MESH_REFUSALS), ids="::".join)
-def test_the_ports_own_mesh_refusals_name_the_roadmap(key):
-    raises = _mesh_refusals(REPO / "src" / "repro_torch").get(key)
-    assert raises, f"{key} no longer refuses under a mesh: drop it from " \
-                   "MESH_REFUSALS and ROADMAP.md's queue A"
-    assert all("ROADMAP.md, queue A" in r for r in raises)

@@ -291,33 +291,46 @@ def case_no_collective(mesh, extra):
 
 
 def case_route_server(mesh, extra):
-    """A RouteServer over a meshed session routes; its ingest and rounds
-    are refused."""
+    """A RouteServer over a meshed session: rank 0 ingests and runs a
+    round through it, the other ranks follow its log and refuse ingest
+    and rounds (naming rank 0, the controller); then every rank routes
+    through its own server."""
     from repro_torch.core.engine.session import AggregationSession
     from repro_torch.serving.server import RouteServer
+    from repro_torch.serving.batching import ServingError
 
     rng = np.random.default_rng(1)
     pts = (rng.normal(size=(64, 8)) + 6.0 * (np.arange(64) % 2)[:, None]
            ).astype(np.float32)
     sess = AggregationSession(64, sketch_dim=8, seed=0, mesh=mesh,
                               device="cpu")
-    sess.ingest(sketches=torch.from_numpy(pts))
+    sess.ingest(sketches=torch.from_numpy(pts[:32]),
+                client_ids=list(range(32)))
     sess.finalize(k=2)
     refused = {}
     with RouteServer(sess, max_batch=16, max_wait_ms=0.5) as srv:
+        if _axis(mesh).rank == 0:
+            srv.ingest(sketches=torch.from_numpy(pts[32:]),
+                       client_ids=list(range(32, 64)))
+            srv.finalize(k=2)
+        else:
+            for what, call in (
+                    ("ingest", lambda: srv.ingest(sketches=torch.from_numpy(
+                        pts[:4]))),
+                    ("finalize", lambda: srv.finalize(k=2)),
+                    ("refinalize", lambda: srv.refinalize()),
+                    ("maybe_refinalize", lambda: srv.maybe_refinalize())):
+                try:
+                    call()
+                    refused[what] = None
+                except ServingError as e:
+                    refused[what] = str(e)
+    with RouteServer(sess, max_batch=16, max_wait_ms=0.5) as srv:
         got = [srv.route(p, timeout=30.0) for p in pts[:8]]
-        for what, call in (
-                ("ingest", lambda: srv.ingest(sketches=torch.from_numpy(
-                    pts[:4]))),
-                ("finalize", lambda: srv.finalize(k=2)),
-                ("refinalize", lambda: srv.refinalize())):
-            try:
-                call()
-                refused[what] = None
-            except ValueError as e:
-                refused[what] = str(e)
     return {"routed": got, "batch": np.asarray(sess.route(pts[:8])).tolist(),
-            "refused": refused}
+            "refused": refused, "clock": sess.clock,
+            "labels": np.asarray(sess.served_round.out[1]),
+            "served_clock": sess.served_round.clock}
 
 
 def case_simulate_qps(mesh, extra):
@@ -663,11 +676,20 @@ def test_a_training_step_sends_no_collective(world):
 
 
 def test_meshed_route_server_routes_and_refuses_ingest_and_rounds(world):
+    """Rank 0's server ingests and runs the round, and every rank ends on
+    it; the followers refuse ingest and rounds, naming rank 0."""
     for r in range(RANKS):
         got = world["ranks"][r]["route_server"]
         assert got["routed"] == got["batch"]
+        assert got["clock"] == got["served_clock"] == 2
+        assert got["labels"].shape == (64,)
+        if r == 0:
+            assert got["refused"] == {}
+            continue
+        assert set(got["refused"]) == {"ingest", "finalize", "refinalize",
+                                       "maybe_refinalize"}
         for what, msg in got["refused"].items():
-            assert msg is not None and "ROADMAP.md, queue A" in msg, what
+            assert msg is not None and "rank 0's server" in msg, what
 
 
 def test_simulate_serves_qps_on_rank_0_under_the_mesh(world):
