@@ -206,6 +206,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     seeding with keys 0..63 recovers it for at least 40 of them (0.84 a
     key in both packages on the CPU), each with the oracle's mse; each
     method's nmse, comm rounds, ms and launches printed;
+ 4j. the package surface: examples/quickstart.py's calls through
+    ``from repro_torch.core import ...`` (n = 200: ODCL over kmeans++ and
+    over clusterpath, oracle averaging, local-only, global ERM) on the
+    card and on the CPU, every partition card == CPU (kmeans++ from the
+    CPU call's seed rows on both: each device's generator draws its own)
+    and nmse within 1e-4 relative; ODCL-clusterpath the true partition
+    at the oracle's mse; one round through
+    ``repro_torch.core.engine.AggregationSession`` card == CPU;
+    pairwise_sqdist, kmeans_assign and group_ball_proj launched; its
+    seconds printed;
+ 4k. the one-layer decode API (``models.attention.decode_attention``):
+    qwen2-0.5b's attention at full width, bf16, batch 4, a ring of 4096;
+    16 steps from a ring carried over at position 4090 card == CPU
+    within 2^-6 of the largest magnitude; 64 steps from an empty ring
+    against the windowed causal ``attention`` (the flash kernel) within
+    2^-4 of each position's max |out|; every step under
+    ``torch.cuda.set_sync_debug_mode("error")``; its seconds printed;
  4h. Algorithm 1 at LM scale through ``launch.train``: qwen2-0.5b at
     full width (24 layers, bf16 parameters, fp32 AdamW moments, random
     init from seed 0), 8 clients in 2 clusters, batch 4, seq 64, sketch
@@ -235,8 +252,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     largest magnitude (losses rtol 1e-5), every router top-k margin on
     the CPU above 1e-4; the one-shot round of a planted 4-client MoE
     federation through one projection (the planted partition on both,
-    means within rtol 1e-5); ``launch.train`` of a MoE federation on the
-    card (finite losses, K' = 2, kmeans_assign and pairwise_sqdist);
+    means within rtol 1e-5), and the same federation through
+    ``hierarchical_one_shot_aggregate(state, cfg, shards=2)`` with the
+    projection of the router-invariant values alone (each shard session
+    sketches only those leaves; the planted partition, card == CPU ==
+    the flat round within rtol 1e-5; its seconds printed);
+    ``launch.train`` of a MoE federation on the card (finite losses,
+    K' = 2, kmeans_assign and pairwise_sqdist);
  4i. the model families at full width, bf16, random weights from seed 0,
     each freed before the next: deepseek-moe-16b (28 layers, 16.9 B
     parameters), hymba-1.5b and xlstm-125m through ``serve.generate`` at
@@ -2891,6 +2913,334 @@ def phase_paper_methods(ops, card: str) -> tuple:
         "paper lloyd": sum(p["kmeans_assign"] for p in odcl)}
 
 
+# ------------------------------------------------------------ phase 4j
+
+# examples/quickstart.py's federation: the paper's Section 5 at n = 200
+QUICKSTART_N = 200
+QUICKSTART_NMSE_RTOL = 1e-4
+QUICKSTART_SKETCH = 32
+
+
+def quickstart_methods(fed, device):
+    """examples/quickstart.py's five methods, built from the port's
+    package surface, on ``device`` (the quickstart passes none: CUDA)."""
+    from repro_torch.core import (
+        ODCL, GlobalERM, LocalOnly, OracleAveraging)
+
+    kw = {} if device == "cuda" else {"device": device}
+    return [("odcl-kmeans++", ODCL(algorithm="kmeans++", k=10, **kw)),
+            ("odcl-clusterpath", ODCL(algorithm="clusterpath",
+                                      options=dict(n_lambdas=8, iters=200),
+                                      **kw)),
+            ("oracle-averaging", OracleAveraging(true_labels=fed.true_labels)),
+            ("local-only", LocalOnly()),
+            ("global-erm", GlobalERM())]
+
+
+def quickstart_session(local: torch.Tensor, truth, device: str) -> tuple:
+    """One small round through ``repro_torch.core.engine``'s
+    ``AggregationSession`` over the quickstart's local models: one
+    projection drawn on the CPU for both devices, Lloyd warm-started
+    from the first client of each true cluster.  Returns (labels, the
+    per-client models, route labels of the models themselves)."""
+    from repro_torch.core.engine import AggregationSession
+    from repro_torch.core.sketch import jl_projection
+
+    proj = jl_projection(local.shape[1], QUICKSTART_SKETCH, seed=0,
+                         device="cpu")
+    sess = AggregationSession(local.shape[0], sketch_dim=QUICKSTART_SKETCH,
+                              projection=proj, device=device)
+    sess.ingest({"theta": local.to(device)})
+    firsts = [int(np.flatnonzero(truth == c)[0]) for c in np.unique(truth)]
+    state, labels, _ = sess.finalize(
+        k=len(firsts), algo_options={"init": "warm",
+                                     "init_centers": sess.sketches[firsts]})
+    routed = sess.route(sess.sketch_params({"theta": local.to(device)}))
+    return labels, state.params["theta"].cpu(), np.asarray(routed)
+
+
+def phase_public_surface(ops, card: str) -> tuple:
+    """Phase 4j: examples/quickstart.py's calls through the port's package
+    surface (``from repro_torch.core import ODCL, OracleAveraging,
+    LocalOnly, GlobalERM, batched_ridge_erm, list_algorithms``) on the
+    card, and the same calls on the CPU with key 0: the paper's
+    federation at n = 200, ODCL over kmeans++ (k = 10) and over
+    clusterpath (8 rungs of 200 AMA iterations), and the three reference
+    methods.  Every method's partition on the card is the CPU's (up to a
+    renaming) and its nmse the CPU's within QUICKSTART_NMSE_RTOL, but
+    one: ODCL-kmeans++ draws its seeding from each device's own
+    generator, so key 0 seeds other rows on the card than on the CPU.
+    That method is held card == CPU from each device's seeding instead
+    (its key-0 kmeans++ rows, handed to ``kmeans-device`` with
+    ``init="warm"``): Lloyd from the CPU's seeds on the card is the CPU
+    call, and the card's own key-0 call is the CPU's Lloyd from the
+    card's seeds; on each device, Lloyd from its own seeds is its call.
+    No gate asks the card's seeding to recover the partition (4g: 0.16
+    of the keys land in a local optimum).
+    ODCL-clusterpath recovers the true partition with the oracle's mse
+    (within 1e-5 relative).  Then one round through
+    ``repro_torch.core.engine.AggregationSession`` on both devices: the
+    true partition, card == CPU (labels, route labels, models within
+    rtol 1e-5).  The card's work launches ``pairwise_sqdist``,
+    ``kmeans_assign`` and the unbatched ``group_ball_proj``.  Returns
+    those launches."""
+    import repro_torch.core as tcore
+    from repro_torch.core import ODCL, batched_ridge_erm, list_algorithms
+    from repro_torch.core.clustering.kmeans import kmeans_plus_plus_init
+    from repro_torch.core.sketch import make_generator
+    from repro_torch.data import make_linear_regression_federation
+
+    t0 = time.perf_counter()
+    missing = [n for n in tcore.__all__ if not hasattr(tcore, n)]
+    check(not missing, f"4j: repro_torch.core lacks {missing}")
+    check("clusterpath" in list_algorithms() and "kmeans++"
+          in list_algorithms(), "4j: the registry lacks the quickstart's "
+          "algorithms")
+    fed = make_linear_regression_federation(seed=0, n=QUICKSTART_N)
+
+    def ridge_solver(xs, ys, dev):
+        return batched_ridge_erm(torch.as_tensor(xs, device=dev),
+                                 torch.as_tensor(ys, device=dev), 1e-8)
+
+    local = ridge_solver(fed.xs, fed.ys, "cpu")
+    # each device's key-0 kmeans++ seeding, as ODCL.fit draws it (key 0 ->
+    # that device's generator, over that device's local models)
+    seeds = {dev: kmeans_plus_plus_init(make_generator(0, dev), ridge_solver(
+        fed.xs, fed.ys, dev), 10) for dev in ("cpu", "cuda")}
+    res, seeded, sess = {}, {}, {}
+    ops.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        def erm(xs, ys, dev=dev):
+            return ridge_solver(xs, ys, dev)
+
+        res[dev] = {name: method.fit(0, fed.xs, fed.ys, erm)
+                    for name, method in quickstart_methods(fed, dev)}
+        # Lloyd from either device's seeding, on this device
+        seeded[dev] = {
+            by: ODCL(algorithm="kmeans-device", k=10, device=dev,
+                     options={"init": "warm",
+                              "init_centers": seeds[by].to(dev)}).fit(
+                0, fed.xs, fed.ys, erm) for by in ("cpu", "cuda")}
+        sess[dev] = quickstart_session(local, fed.true_labels, dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counts(ops)
+    rows = []
+    compared = {name: (res["cuda"][name], want)
+                for name, want in res["cpu"].items()}
+    compared["odcl-kmeans++"] = (seeded["cuda"]["cpu"], seeded["cpu"]["cpu"])
+    # the card's own key-0 call against the CPU's Lloyd from its seeds
+    compared["odcl-kmeans++ card seeding"] = (res["cuda"]["odcl-kmeans++"],
+                                              seeded["cpu"]["cuda"])
+    for dev in ("cpu", "cuda"):
+        check(same_partition(seeded[dev][dev].labels,
+                             res[dev]["odcl-kmeans++"].labels),
+              f"4j odcl-kmeans++: Lloyd from the {dev} call's seeds is not "
+              f"its partition")
+    for name, (got, want) in compared.items():
+        nmse = (got.nmse(fed.optima, fed.true_labels),
+                want.nmse(fed.optima, fed.true_labels))
+        check(same_partition(got.labels, want.labels),
+              f"4j {name}: the card's partition is not the CPU's")
+        check(abs(nmse[0] - nmse[1]) <= QUICKSTART_NMSE_RTOL * abs(nmse[1]),
+              f"4j {name}: nmse {nmse[0]} on the card, {nmse[1]} on the CPU")
+        rows.append({"method": name, "nmse": nmse[0], "nmse_cpu": nmse[1],
+                     "n_clusters": got.n_clusters,
+                     "comm_rounds": int(got.comm_rounds),
+                     "true_partition": bool(same_partition(
+                         got.labels, fed.true_labels))})
+    rows[0]["cpu_key0_call_true_partition"] = bool(same_partition(
+        res["cpu"]["odcl-kmeans++"].labels, fed.true_labels))
+    cp = res["cuda"]["odcl-clusterpath"]
+    oracle = res["cuda"]["oracle-averaging"].mse(fed.optima, fed.true_labels)
+    check(same_partition(cp.labels, fed.true_labels),
+          "4j odcl-clusterpath: not the true partition")
+    mse = cp.mse(fed.optima, fed.true_labels)
+    check(abs(mse - oracle) <= 1e-5 * oracle,
+          f"4j odcl-clusterpath: mse {mse} != oracle averaging's {oracle}")
+    for kernel in ("pairwise_sqdist", "kmeans_assign", "group_ball_proj"):
+        check(launches[kernel] > 0, f"4j: launched no {kernel}")
+    (gl, gp, gr), (cl, cp_, cr) = sess["cuda"], sess["cpu"]
+    check(same_partition(gl, fed.true_labels),
+          "4j session: not the true partition")
+    check(np.array_equal(gl, cl) and np.array_equal(gr, cr),
+          "4j session: labels or route labels differ card vs CPU")
+    check(np.array_equal(gr, gl), "4j session: a client routes to another "
+          "cluster than its own")
+    scale = float(cp_.abs().max())
+    check(bool(torch.allclose(gp, cp_, rtol=1e-5, atol=1e-5 * scale)),
+          "4j session: models differ card vs CPU")
+    secs = time.perf_counter() - t0
+    print(json.dumps({"public_surface": {
+        "federation": {"m": fed.m, "K": fed.K, "n": fed.n},
+        "rows": rows, "oracle_mse": oracle,
+        "session": {"clients": len(gl), "sketch_dim": QUICKSTART_SKETCH,
+                    "true_partition": True},
+        "launches": by_variant(launches), "seconds": secs,
+        "card": card}}), flush=True)
+    print(f"[chip_smoke] 4j public surface (quickstart through "
+          f"repro_torch.core, one AggregationSession round): card == CPU "
+          f"in {secs:.1f}s", flush=True)
+    return launches
+
+
+# ------------------------------------------------------------ phase 4k
+
+# one attention layer of qwen2-0.5b at full width, bf16, batch 4, a ring
+# of capacity 4096 (serve_window 4096): DECODE_WRAP_STEPS steps from a
+# carried-over ring at DECODE_WRAP_POS (past the wrap), and
+# DECODE_FORCED_STEPS steps from an empty ring against teacher forcing
+DECODE_B, DECODE_CAPACITY = 4, 4096
+DECODE_WRAP_POS, DECODE_WRAP_STEPS, DECODE_FORCED_STEPS = 4090, 16, 64
+# card vs CPU, of the largest magnitude of each step's output and of the
+# ring: the two devices round the bf16 projections after summing in other
+# orders (one bf16 ulp is 2^-8 relative), and the attention output is
+# rounded to bf16 again before ``wo``
+DECODE_CARD_CPU_TOL = 2.0 ** -6
+
+
+def decode_layer(cfg, device):
+    """The layer's attention weights (wq, wk, wv, wo and the QKV bias) in
+    bf16: normal draws of std fan_in^-1/2 (bias std 0.02) from a CPU
+    generator of seed 0, then moved."""
+    gen = torch.Generator().manual_seed(0)
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    shapes = {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv), "wo": (hq, d),
+              "bq": (hq,), "bk": (hkv,), "bv": (hkv,)}
+    out = {}
+    for name, shape in shapes.items():
+        std = shape[0] ** -0.5 if len(shape) == 2 else 0.02
+        out[name] = (torch.randn(shape, generator=gen) * std).to(
+            device, torch.bfloat16)
+    return out
+
+
+def run_decode(params, xs, cache, cfg) -> tuple:
+    """``decode_attention`` over xs (b, steps, D), one token a step:
+    (outputs (b, steps, D), the final cache)."""
+    from repro_torch.models.attention import decode_attention
+
+    outs = []
+    for t in range(xs.shape[1]):
+        out, cache = decode_attention(params, xs[:, t:t + 1], cache, cfg)
+        outs.append(out)
+    return torch.cat(outs, dim=1), cache
+
+
+def phase_decode_api(card: str) -> dict:
+    """Phase 4k: the reference's one-layer decode API
+    (``models.attention.KVCache`` / ``init_kv_cache`` /
+    ``decode_attention``) on one attention layer of qwen2-0.5b at full
+    width (D 896, 14 heads over 2 KV heads of 64, serve_window 4096),
+    bf16, batch 4, a ring of capacity 4096, random weights of seed 0.
+    Card == CPU: DECODE_WRAP_STEPS steps from a random ring carried over
+    at position DECODE_WRAP_POS (``interop.kv_cache_from_numpy``), which
+    pass the wrap, every output and the rings within DECODE_CARD_CPU_TOL
+    of their largest magnitude.  Decode == teacher forcing:
+    DECODE_FORCED_STEPS steps from an empty ring against the port's
+    windowed causal ``attention`` (the flash kernel) over the same K and
+    V, within SERVE_BF16_REL_TOL of each position's max |out|.  Both runs
+    on the card go under ``torch.cuda.set_sync_debug_mode("error")``: a
+    step that reads the position on the host fails (and a host read of
+    the final position, made on purpose under the mode, must raise)."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.interop import kv_cache_from_numpy
+    from repro_torch.models import attention as attn
+    from repro_torch.models.attention import init_kv_cache
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="bfloat16")
+    hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator().manual_seed(1)
+    ring = [(torch.randn((DECODE_B, hkv, DECODE_CAPACITY, dh), generator=gen)
+             .to(torch.bfloat16)) for _ in range(2)]
+    xs = (torch.randn((DECODE_B, DECODE_WRAP_STEPS + DECODE_FORCED_STEPS,
+                       cfg.d_model), generator=gen)).to(torch.bfloat16)
+    wrap_x, forced_x = (xs[:, :DECODE_WRAP_STEPS],
+                        xs[:, DECODE_WRAP_STEPS:])
+    params = {dev: decode_layer(cfg, dev) for dev in ("cuda", "cpu")}
+    # float32 copies hold the bf16 values exactly
+    k_np, v_np = (r.float().numpy() for r in ring)
+    wrap = {}
+    for dev in ("cpu", "cuda"):
+        cache = kv_cache_from_numpy(k_np, v_np, DECODE_WRAP_POS, device=dev)
+        cache = cache._replace(k=cache.k.to(torch.bfloat16),
+                               v=cache.v.to(torch.bfloat16))
+        x = wrap_x.to(dev)
+        if dev == "cuda":
+            # RoPE's angle table reaches the card once, outside the check
+            attn.decode_attention(params[dev], x[:, :1], init_kv_cache(
+                DECODE_B, hkv, 8, dh, device=dev), cfg)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            wrap[dev] = run_decode(params[dev], x, cache, cfg)
+        finally:
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+    (g_out, g_cache), (c_out, c_cache) = wrap["cuda"], wrap["cpu"]
+    check(int(g_cache.pos) == DECODE_WRAP_POS + DECODE_WRAP_STEPS
+          == int(c_cache.pos), "4k: the position after the wrap steps")
+    wrap_err = {name: rel_close(f"4k card vs CPU {name}", g, c,
+                                DECODE_CARD_CPU_TOL)
+                for name, g, c in (("out", g_out, c_out),
+                                   ("k ring", g_cache.k, c_cache.k),
+                                   ("v ring", g_cache.v, c_cache.v))}
+    del wrap, g_cache, c_cache
+    cache = init_kv_cache(DECODE_B, hkv, DECODE_CAPACITY, dh, device="cuda")
+    x = forced_x.to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dec, cache = run_decode(params["cuda"], x, cache, cfg)
+        # the mode has teeth: reading the position on the host raises
+        try:
+            int(cache.pos)
+            detects = False
+        except RuntimeError:
+            detects = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(detects, "4k: the sync debug mode let a host read of pos pass")
+    view = SimpleNamespace(**params["cuda"])
+    q, k, v = attn.qkv_proj(view, x, cfg)
+    pos = torch.arange(DECODE_FORCED_STEPS, device="cuda")[None].expand(
+        DECODE_B, -1)
+    q = attn.rope_transpose(q, pos, cfg.rope_theta)
+    k = attn.rope_transpose(k, pos, cfg.rope_theta)
+    forced = attn.out_proj(view, attn.attention(q, k, v, causal=True,
+                                                window=cfg.serve_window))
+    check(bool(torch.isfinite(dec).all()), "4k: decode is not finite")
+    rel = rel_err(dec.float(), forced.float())                   # (b, G)
+    worst = float(rel.max())
+    check(worst <= SERVE_BF16_REL_TOL, f"4k: decode and teacher forcing "
+          f"differ by {worst} of the position's max |out|")
+    secs = time.perf_counter() - t0
+    out = {"arch": SERVE_ARCH, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": hkv, "head_dim": dh,
+           "serve_window": cfg.serve_window, "batch": DECODE_B,
+           "capacity": DECODE_CAPACITY, "dtype": "bfloat16",
+           "wrap": {"from_pos": DECODE_WRAP_POS, "steps": DECODE_WRAP_STEPS,
+                    "card_vs_cpu_rel_err": wrap_err,
+                    "tolerance": DECODE_CARD_CPU_TOL},
+           "teacher_forced": {"steps": DECODE_FORCED_STEPS,
+                              "rel_err_max": worst,
+                              "rel_err_p50": float(rel.median()),
+                              "tolerance": SERVE_BF16_REL_TOL},
+           "sync_debug_mode": "error", "host_read_detected": detects,
+           "seconds": secs, "card": card}
+    print(json.dumps({"decode_api": out}), flush=True)
+    print(f"[chip_smoke] 4k decode API (qwen2-0.5b attention, bf16, batch "
+          f"{DECODE_B}, ring {DECODE_CAPACITY}): card == CPU past the wrap, "
+          f"decode == teacher forcing, no host sync, in {secs:.1f}s",
+          flush=True)
+    return out
+
+
 # ------------------------------------------------------------ phase 4h
 
 # the reference driver's LM federation at full width: qwen2-0.5b, bf16
@@ -3373,6 +3723,55 @@ def planted_moe_state(cfg, device):
     return FederatedState(params, None, 4)
 
 
+def moe_hierarchical_round(ops, cfg, proj, flat_means) -> dict:
+    """Phase 3g's planted MoE round through the two-level round,
+    ``hierarchical_one_shot_aggregate(state, cfg, shards=2)``, on the card
+    and on the CPU, with the projection of the router-invariant values
+    alone: each shard session gets ``cfg`` and so sketches only those
+    leaves (a shard that sketched every leaf would refuse the
+    projection).  Gates: the planted partition on both devices, the
+    means card == CPU and equal to the flat round's (``flat_means``, the
+    card's) within rtol 1e-5, kmeans_assign and pairwise_sqdist
+    launched.  Prints its seconds."""
+    from repro_torch.core.engine import hierarchical_one_shot_aggregate
+    from repro_torch.utils import tree_leaves
+
+    t0 = time.perf_counter()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cuda":
+            ops.reset_launch_counts()
+        new, labels, info = hierarchical_one_shot_aggregate(
+            planted_moe_state(cfg, dev), cfg, shards=2, k=2,
+            sketch_dim=FAM_ROUND_SKETCH, projection=proj.to(dev),
+            device=dev)
+        out[dev] = (np.asarray(labels), new.params, info)
+        if dev == "cuda":
+            launches = read_counts(ops)
+    for dev, (labels, _, info) in out.items():
+        check(info["shards"] == 2 and same_partition(labels, [0, 0, 1, 1]),
+              f"3g hierarchical MoE round on {dev}: partition {labels} "
+              f"over {info['shards']} shards is not the planted one")
+    card_cpu = max(rel_close("3g hierarchical MoE round means", g, w, 1e-5)
+                   for g, w in zip(tree_leaves(out["cuda"][1]),
+                                   tree_leaves(out["cpu"][1])))
+    vs_flat = max(rel_close("3g hierarchical vs flat MoE round", g,
+                            w.cpu(), 1e-5)
+                  for g, w in zip(tree_leaves(out["cuda"][1]),
+                                  tree_leaves(flat_means)))
+    for kernel in ("kmeans_assign", "pairwise_sqdist"):
+        check(launches[kernel] > 0, f"3g hierarchical MoE round: no {kernel}")
+    secs = time.perf_counter() - t0
+    print(f"[chip_smoke] 3g hierarchical MoE round (shards 2, the "
+          f"router-invariant sketch): card == CPU == the flat round in "
+          f"{secs:.1f}s", flush=True)
+    return {"shards": 2, "partition": out["cuda"][0].tolist(),
+            "per_shard_clusters": out["cuda"][2]["per_shard_clusters"],
+            "means_max_rel_err": card_cpu,
+            "vs_flat_max_rel_err": vs_flat,
+            "launches": by_variant(launches), "seconds": secs}
+
+
 def phase_families_card_vs_cpu(ops) -> dict:
     """Phase 3g: every new family on the card against the same model on
     the CPU (fp32, tolerance FP32_REL_TOL of the largest magnitude for
@@ -3418,6 +3817,8 @@ def phase_families_card_vs_cpu(ops) -> dict:
                          FAM_ROUND_SKETCH, "partition": parts["cuda"][0]
                          .tolist(), "means_max_rel_err": round_err,
                          "launches": by_variant(round_launches)}
+    rows["moe hierarchical round"] = moe_hierarchical_round(
+        ops, cfg, proj, parts["cuda"][1])
     ops.reset_launch_counts()
     out = ttrain.train(FAM_TRAIN)
     launches = read_counts(ops)
@@ -5553,6 +5954,8 @@ def main() -> None:
     paper, launches = phase_paper_methods(ops, card)
     by_path.update(paper)
     shape_launches.update(launches)
+    by_path["4j quickstart"] = phase_public_surface(ops, card)
+    phase_decode_api(card)
     # 4h's records for 7d, on the host (files beside the script)
     lm_keep = tempfile.TemporaryDirectory(
         dir=Path(__file__).resolve().parent)

@@ -11,13 +11,16 @@ admissibility margin of each:
   * the convex family: ``convex-device``, ``clusterpath-device`` and their
     host twins ``convex``, ``clusterpath``.
 
-``resolve_device_request`` / ``resolve_host_request`` map a request onto
-the engine that runs it, as in the reference.
+Every registered algorithm is a ``ClusteringAlgorithm``; the device
+families are ``DeviceClusteringAlgorithm`` too.  The registry takes any
+object with those members.  ``resolve_device_request`` /
+``resolve_host_request`` map a request onto the engine that runs it, as
+in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -102,6 +105,31 @@ def meta_to_host(meta: dict) -> dict:
         else:
             out[name] = float(x)
     return out
+
+
+@runtime_checkable
+class ClusteringAlgorithm(Protocol):
+    """An admissible algorithm of C (server step 2 of Algorithm 1): a
+    ``torch.Generator`` and (m, d) points in, a ``ClusteringResult`` out,
+    and the Lemma-1/2 margin ``admissibility_alpha``."""
+    name: str
+    requires_k: bool
+
+    def __call__(self, generator, points, *, k: Optional[int] = None,
+                 **options: Any) -> ClusteringResult: ...
+
+    def admissibility_alpha(self, m: int, c_min: int) -> float: ...
+
+
+@runtime_checkable
+class DeviceClusteringAlgorithm(ClusteringAlgorithm, Protocol):
+    """The device-capable variant (the aggregation engine): ``device_call``
+    takes an (m, d) float32 tensor and returns a ``DeviceClusteringResult``
+    whose fields stay on the points' device.  It keeps the host
+    ``__call__``, so every host consumer of the registry can use it."""
+
+    def device_call(self, generator, points, *, k: Optional[int] = None,
+                    **options: Any) -> DeviceClusteringResult: ...
 
 
 def is_device_algorithm(algo) -> bool:
@@ -426,8 +454,9 @@ class Clusterpath:
 _REGISTRY: dict = {}
 
 
-def register_algorithm(algo, *, name: Optional[str] = None,
-                       overwrite: bool = False):
+def register_algorithm(algo: ClusteringAlgorithm, *,
+                       name: Optional[str] = None,
+                       overwrite: bool = False) -> ClusteringAlgorithm:
     key = name if name is not None else algo.name
     if key in _REGISTRY and not overwrite:
         raise ValueError(f"algorithm {key!r} already registered "

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import math
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Protocol, runtime_checkable
 
 import torch
 
@@ -46,6 +46,20 @@ from repro_torch.utils import tree_map
 # a gathered column block: at most this many bytes, rows x columns x 4
 # (64 MiB: 16 columns of C = 1 048 576 clients)
 GATHER_BYTES = 1 << 26
+
+
+@runtime_checkable
+class Aggregator(Protocol):
+    """A per-cluster reduction (the module's contract above): ``name``,
+    the ``breakdown`` point, and ``__call__(flat, labels, onehot, counts,
+    shard=None) -> (K, n) float32``.  The registry also takes any object
+    with these members."""
+    name: str
+    breakdown: float = 0.0
+
+    def __call__(self, flat: torch.Tensor, labels: torch.Tensor,
+                 onehot: torch.Tensor, counts: torch.Tensor,
+                 shard=None) -> torch.Tensor: ...
 
 
 # ------------------------------------------------- segment order statistics
@@ -113,7 +127,8 @@ class TrimmedMeanAggregator:
                              f"got {self.beta}")
 
     def __call__(self, flat, labels, onehot, counts, shard=None):
-        return _by_column_blocks(self._columns, flat, labels, counts, shard)
+        return _by_column_blocks(self._columns, flat, labels, onehot, counts,
+                                 shard)
 
     def _columns(self, flat, labels, onehot, counts):
         cnt = counts.to(torch.long)
@@ -174,7 +189,8 @@ class MedianAggregator:
     breakdown = 0.5
 
     def __call__(self, flat, labels, onehot, counts, shard=None):
-        return _by_column_blocks(self._columns, flat, labels, counts, shard)
+        return _by_column_blocks(self._columns, flat, labels, onehot, counts,
+                                 shard)
 
     def _columns(self, flat, labels, onehot, counts):
         c = flat.shape[0]
@@ -191,17 +207,19 @@ class MedianAggregator:
 
 
 def _onehot(labels, k: int):
-    return torch.nn.functional.one_hot(labels.long(), k).to(torch.float32)
+    """(C, k) float32 indicator; a label outside [0, k) gets a zero row, as
+    ``jax.nn.one_hot`` gives it."""
+    return (labels.long()[:, None]
+            == torch.arange(k, device=labels.device)).to(torch.float32)
 
 
-def _by_column_blocks(columns, flat, labels, counts, shard):
+def _by_column_blocks(columns, flat, labels, onehot, counts, shard):
     """A coordinate-wise aggregator over rows spread as ``shard``: the
-    labels and each block of columns gathered (every rank then holds the
-    block's whole columns, at most ``GATHER_BYTES``) and reduced by
-    ``columns(flat, labels, onehot, counts)``."""
+    labels, the one-hot and each block of columns gathered (every rank
+    then holds the block's whole columns, at most ``GATHER_BYTES``) and
+    reduced by ``columns(flat, labels, onehot, counts)``."""
     shard = shard_of(flat, shard)
-    labels = shard.gather(labels)
-    onehot = _onehot(labels, counts.shape[0])
+    labels, onehot = shard.gather(labels), shard.gather(onehot)
     cols = max(1, GATHER_BYTES // (4 * max(labels.shape[0], 1)))
     blocks = [columns(shard.gather(flat[:, j:j + cols].contiguous()),
                       labels, onehot, counts)
@@ -210,6 +228,15 @@ def _by_column_blocks(columns, flat, labels, counts, shard):
 
 
 # --------------------------------------------------------- tree wrappers
+
+def _leaf_reps(agg, leaf, labels, onehot, counts, shard=None):
+    """One leaf's (K, ...) float32 representatives."""
+    # (a rank may hold no row of the leaf: the width is explicit)
+    flat = leaf.reshape(leaf.shape[0], math.prod(leaf.shape[1:])).to(
+        torch.float32)
+    return agg(flat, labels, onehot, counts, shard=shard).reshape(
+        (onehot.shape[1],) + tuple(leaf.shape[1:]))
+
 
 def cluster_reduce_tree(params, labels, onehot, counts, aggregator,
                         shard=None, then=None):
@@ -221,14 +248,10 @@ def cluster_reduce_tree(params, labels, onehot, counts, aggregator,
     representatives as soon as they exist (so they need not all be held
     either).  The one body of every per-cluster mean of the port."""
     agg = get_aggregator(aggregator)
-    k = onehot.shape[1]
 
     def rep(leaf):
-        # (a rank may hold no row of the leaf: the width is explicit)
-        flat = leaf.reshape(leaf.shape[0], math.prod(leaf.shape[1:])).to(
-            torch.float32)
-        out = agg(flat, labels, onehot, counts, shard=shard).reshape(
-            (k,) + tuple(leaf.shape[1:])).to(leaf.dtype)
+        out = _leaf_reps(agg, leaf, labels, onehot, counts, shard).to(
+            leaf.dtype)
         return out if then is None else then(out)
 
     return tree_map(rep, params)
@@ -246,11 +269,19 @@ def cluster_reps(labels, kk: int, params, aggregator, shard=None,
 
 def cluster_aggregate_tree(params, labels, onehot, counts, aggregator):
     """Steps 3-4: per-cluster reduction of every leaf, gathered back per
-    client (row i gets its cluster's aggregate; the gather equals the
-    reference's ``onehot @ reduced`` exactly)."""
-    idx = labels.long()
-    return cluster_reduce_tree(params, labels, onehot, counts, aggregator,
-                               then=lambda reps: reps[idx])
+    client as the reference computes it, ``onehot @ reduced`` in float32
+    and then cast: a row with an all-zero one-hot gets zeros, whatever its
+    label, a soft row the product, and a one-hot row its cluster's
+    representative exactly (1 * y plus exact zeros; TF32 is off)."""
+    agg = get_aggregator(aggregator)
+    weights = onehot.to(torch.float32)
+
+    def back(leaf):
+        reps = _leaf_reps(agg, leaf, labels, onehot, counts)
+        return (weights @ reps.reshape(reps.shape[0], -1)).reshape(
+            leaf.shape).to(leaf.dtype)
+
+    return tree_map(back, params)
 
 
 # ------------------------------------------------------------- registry
@@ -258,8 +289,8 @@ def cluster_aggregate_tree(params, labels, onehot, counts, aggregator):
 _AGGREGATORS: dict = {}
 
 
-def register_aggregator(agg, *, name: Optional[str] = None,
-                        overwrite: bool = False):
+def register_aggregator(agg: Aggregator, *, name: Optional[str] = None,
+                        overwrite: bool = False) -> Aggregator:
     key = name if name is not None else agg.name
     if not key:
         raise ValueError("aggregator needs a non-empty name")

@@ -30,7 +30,7 @@ sort the points identically.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Protocol, runtime_checkable
 
 import torch
 
@@ -49,6 +49,16 @@ class Edges(NamedTuple):
     @property
     def n_edges(self) -> int:
         return int(self.i_idx.shape[0])
+
+
+@runtime_checkable
+class EdgeSet(Protocol):
+    """A registered fusion-graph builder: (m, d) points in, ``Edges`` on
+    their device out.  The registry takes any object with these
+    members."""
+    name: str
+
+    def __call__(self, points, **options: Any) -> Edges: ...
 
 
 # Above this many points the complete graph's index arrays alone (two
@@ -285,8 +295,8 @@ class ApproxKnnEdges:
 _EDGE_SETS: dict = {}
 
 
-def register_edge_set(builder, *, name: Optional[str] = None,
-                      overwrite: bool = False):
+def register_edge_set(builder: EdgeSet, *, name: Optional[str] = None,
+                      overwrite: bool = False) -> EdgeSet:
     """Add a fusion-graph builder.  Returns it."""
     key = name if name is not None else builder.name
     if not key:

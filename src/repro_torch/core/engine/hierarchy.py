@@ -69,16 +69,18 @@ class HierarchicalSession:
         (ceil(capacity / shards) a shard).
       shards: level-0 ``AggregationSession`` count; 1 delegates every call
         to the flat session (bit-exact).
-      sketch_dim / seed / cluster_seed / projection / sketch_transform /
-        device: forwarded to every shard session; all shards share
-        ``seed`` (or ``projection``), so their JL projections, and the
-        sketch space the top level clusters in, are identical.
+      sketch_dim / cfg / seed / cluster_seed / projection /
+        sketch_transform / device: forwarded to every shard session (an
+        MoE ``cfg`` sketches only the router-invariant leaves); all
+        shards share ``seed`` (or ``projection``), so their JL
+        projections, and the sketch space the top level clusters in, are
+        identical.
       mesh / client_axis: forwarded to every shard session and to the
         top session.
     """
 
     def __init__(self, capacity: int, *, shards: int = 1,
-                 sketch_dim: int = 256, seed: int = 0,
+                 sketch_dim: int = 256, cfg=None, seed: int = 0,
                  cluster_seed: Optional[int] = None, sketch_transform=None,
                  projection=None, mesh=None, client_axis: str = "data",
                  device=None):
@@ -99,7 +101,7 @@ class HierarchicalSession:
         self._axis = client_axis_of(mesh, client_axis)
         self._sessions = [
             AggregationSession(self.shard_capacity, sketch_dim=sketch_dim,
-                               seed=seed, cluster_seed=cluster_seed,
+                               cfg=cfg, seed=seed, cluster_seed=cluster_seed,
                                projection=projection,
                                sketch_transform=sketch_transform,
                                row_base=s * self.shard_capacity,
@@ -362,7 +364,8 @@ class HierarchicalSession:
         return self._sessions[0].drift if self.shards == 1 else None
 
 
-def hierarchical_one_shot_aggregate(state: FederatedState, *, shards: int,
+def hierarchical_one_shot_aggregate(state: FederatedState, cfg=None, *,
+                                    shards: int,
                                     algorithm="kmeans-device",
                                     k: Optional[int] = None,
                                     algo_options: Optional[dict] = None,
@@ -378,7 +381,7 @@ def hierarchical_one_shot_aggregate(state: FederatedState, *, shards: int,
     ``device="cpu"``.  Under a ``mesh`` every rank passes the whole
     state and keeps its rows of each shard."""
     sess = HierarchicalSession(state.n_clients, shards=shards,
-                               sketch_dim=sketch_dim, seed=seed,
+                               sketch_dim=sketch_dim, cfg=cfg, seed=seed,
                                cluster_seed=cluster_seed,
                                projection=projection, mesh=mesh,
                                client_axis=client_axis, device=device)

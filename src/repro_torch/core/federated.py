@@ -154,12 +154,12 @@ def cluster_mean_tree(params, onehot, counts):
 
 def cluster_average_tree(params, onehot, counts):
     """Steps 3-4: every leaf's per-cluster mean, gathered back per client
-    (``counts`` clamped >= 1 by the caller)."""
-    from repro_torch.core.engine.aggregators import cluster_reduce_tree
+    as the reference's ``onehot @ means`` (``counts`` clamped >= 1 by the
+    caller): a row whose one-hot sums to 0 gets zeros, a soft row the
+    product, a one-hot row its cluster's mean."""
+    from repro_torch.core.engine.aggregators import cluster_aggregate_tree
 
-    idx = torch.argmax(onehot, dim=1)
-    return cluster_reduce_tree(params, None, onehot, counts, "mean",
-                               then=lambda means: means[idx])
+    return cluster_aggregate_tree(params, None, onehot, counts, "mean")
 
 
 def one_shot_aggregate(state: FederatedState, cfg=None, *,

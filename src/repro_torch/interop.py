@@ -9,10 +9,10 @@ the ``random`` init and of every minibatch Lloyd iteration, the
 (n_tables, d) LSH directions of the approximate kNN fusion graph, a
 scenario's draws (its Bernoulli masks and Gaussian blocks), and a
 model's parameter tree (any family) and a federation of them with its
-AdamW state.  ``module_state_dict`` maps the reference's (and the port's
-checkpoint) keys onto the port's ``Transformer`` modules.  Both packages
-then compute the same thing.  Nothing here imports the
-reference.
+AdamW state, and a one-layer KV cache.  ``module_state_dict`` maps the
+reference's (and the port's checkpoint) keys onto the port's
+``Transformer`` modules.  Both packages then compute the same thing.
+Nothing here imports the reference.
 """
 from __future__ import annotations
 
@@ -186,6 +186,19 @@ def directions_from_numpy(directions, device=None) -> torch.Tensor:
         raise ValueError(f"directions must be (n_tables, d), got "
                          f"{tuple(dirs.shape)}")
     return dirs
+
+
+def kv_cache_from_numpy(k, v, pos, device=None):
+    """The reference's one-layer ``KVCache`` (k and v (b, hkv, capacity,
+    dh) numpy arrays, bfloat16 ones included, and its position) -> the
+    port's ``models.attention.KVCache`` on ``device``, in the arrays'
+    dtype, with ``pos`` a 0-d int32 tensor there."""
+    from repro_torch.models.attention import KVCache
+
+    dev = resolve_device(device)
+    return KVCache(k=tensor_from_numpy(k, dev), v=tensor_from_numpy(v, dev),
+                   pos=torch.as_tensor(int(np.asarray(pos)),
+                                       dtype=torch.int32).to(dev))
 
 
 def model_from_numpy(params, cfg, device=None):

@@ -4,6 +4,7 @@ and multimodal inputs); prefill through the hand-written flash-attention
 kernel, training through the differentiable attention."""
 from repro_torch.models.transformer import (
     DecodeCache,
+    abstract_params,
     decode_step,
     forward,
     init_decode_cache,
@@ -15,6 +16,7 @@ from repro_torch.models.transformer import (
 
 __all__ = [
     "DecodeCache",
+    "abstract_params",
     "decode_step",
     "forward",
     "init_decode_cache",

@@ -9,18 +9,24 @@ function.  The kernel has no backward, as the reference's Pallas kernel
 has none, so training runs ``train_attention``: the reference's two jnp
 paths in plain, differentiable PyTorch, with its dispatch rule.  The
 caller's path picks one (``transformer.train_loss`` the second), never a
-caught failure.  Decode reads the ring-buffer cache in
-``transformer._attn_decode``.  On a mesh (the dry run), ``split_heads``
+caught failure.  Decode reads a ring-buffer cache through
+``ring_attention``, from the model's step (``transformer._attn_decode``)
+and from ``decode_attention``, the reference's one-layer decode API over
+a ``KVCache`` ring of its own with no host read (the reference computes
+it in jnp, with no Pallas kernel).  On a mesh (the dry run), ``split_heads``
 and ``merge_heads`` handle head counts that do not divide the model
 axis, and ``train_attention`` runs per (row, head) shard.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from collections.abc import Mapping
+from types import SimpleNamespace
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
 from repro_torch.sharding.activations import (
@@ -31,6 +37,14 @@ from repro_torch.sharding.activations import (
 )
 
 NEG_INF = -1e30
+
+
+class KVCache(NamedTuple):
+    """One layer's ring-buffer cache for ``decode_attention``."""
+    k: torch.Tensor       # (b, hkv, capacity, dh) ring buffer
+    v: torch.Tensor       # (b, hkv, capacity, dh)
+    pos: torch.Tensor     # () int32 on the ring's device: the absolute
+    #                       position of the next token
 
 
 def rope_transpose(x: torch.Tensor, positions: torch.Tensor,
@@ -178,9 +192,80 @@ def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return heads_local(fn, q, k, v)
 
 
-def _ring_positions(pos: int, capacity: int,
-                    device=None) -> torch.Tensor:
-    """Absolute position stored in each ring slot after writing ``pos``."""
+# ----------------------------------------------------------------- caches
+
+def init_kv_cache(batch: int, n_kv_heads: int, capacity: int, head_dim: int,
+                  dtype=torch.bfloat16, pos=0, *, device=None) -> KVCache:
+    """A zero ring of ``capacity`` slots at position ``pos`` on ``device``
+    (CUDA unless "cpu")."""
+    dev = resolve_device(device)
+    shape = (batch, n_kv_heads, capacity, head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev),
+                   pos=torch.as_tensor(pos, dtype=torch.int32).to(dev))
+
+
+def decode_attention(params, x: torch.Tensor, cache: KVCache, cfg, *,
+                     rope_theta: Optional[float] = None) -> tuple:
+    """Single-token decode over a ring-buffer cache: x (b, 1, D) ->
+    (out (b, 1, D), new cache at pos + 1), the reference's numerics.
+
+    ``params``: the layer's attention weights (wq, wk, wv, wo; bq/bk/bv
+    with ``cfg.qkv_bias``) as a dict or attributes.  RoPE at ``pos``; this
+    token's K and V go to slot ``pos % capacity``; ``ring_attention``
+    over the ring, cast to x's dtype, then ``out_proj``.  ``pos`` stays on
+    the device (the write is an indexed copy at a device index), so a
+    step reads nothing on the host.
+
+    The returned cache shares ``k`` and ``v`` with the one passed in:
+    the write is in place, so the ring passed in holds the new token
+    too.  Its ``pos`` is a new tensor (the old cache's is unchanged).
+    Pass a copy to keep the old ring."""
+    if isinstance(params, Mapping):
+        params = SimpleNamespace(**params)
+    b, capacity = x.shape[0], cache.k.shape[2]
+    pos = cache.pos
+    theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    q, k, v = qkv_proj(params, x, cfg)                  # q (b, h, 1, dh)
+    posv = pos.to(torch.int64).expand(b, 1)
+    q = rope_transpose(q, posv, theta)
+    k = rope_transpose(k, posv, theta)
+    slot = torch.remainder(pos, capacity).to(torch.int64).reshape(1)
+    cache.k.index_copy_(2, slot, k.to(cache.k.dtype))
+    cache.v.index_copy_(2, slot, v.to(cache.v.dtype))
+    out = ring_attention(q, cache.k, cache.v, pos, cfg, x.dtype)
+    return (out_proj(params, out),
+            KVCache(k=cache.k, v=cache.v, pos=pos + 1))
+
+
+def ring_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                   pos, cfg, dtype) -> torch.Tensor:
+    """One query token (b, h, 1, dh) against a ring-buffer cache kc / vc
+    (b, hkv, capacity, dh) that already holds it at slot pos % capacity
+    (``pos`` an int or a 0-d tensor): a slot is valid where its absolute
+    position p has 0 <= p <= pos (and p > pos - serve_window with one);
+    query head g * rep + r reads KV head g, with no repeat of the cache;
+    fp32 scores and softmax with the invalid slots at NEG_INF.  Returns
+    (b, h, 1, dh) in ``dtype``.  The attention of ``decode_attention`` and
+    of the model's decode step (``transformer._attn_decode``)."""
+    b, dh = q.shape[0], cfg.resolved_head_dim
+    kpos = _ring_positions(pos, kc.shape[2], q.device)
+    valid = (kpos <= pos) & (kpos >= 0)
+    if cfg.serve_window is not None:
+        valid &= kpos > pos - cfg.serve_window
+    rep = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, cfg.n_kv_heads, rep, dh).float()
+    sc = torch.matmul(qg, kc.float().transpose(-1, -2)) * dh ** -0.5
+    p = torch.softmax(sc.masked_fill(~valid, NEG_INF), dim=-1)
+    out = torch.matmul(p, vc.float())
+    return out.reshape(b, cfg.n_heads, 1, dh).to(dtype)
+
+
+def _ring_positions(pos, capacity: int, device=None) -> torch.Tensor:
+    """Absolute position stored in each ring slot after writing ``pos``
+    (an int, or a 0-d tensor, whose device the result takes)."""
+    if isinstance(pos, torch.Tensor):
+        device = pos.device
     slots = torch.arange(capacity, device=device)
     cur = pos % capacity
     # slots <= cur hold positions pos - (cur - slot); slots > cur hold

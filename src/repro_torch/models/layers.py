@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import unset_fake_temporarily
 
+from repro_torch.device import resolve_device
 from repro_torch.sharding.activations import (
     chunk_last,
     constrain,
@@ -72,6 +73,19 @@ def mlp_forward(params, x: torch.Tensor,
     else:
         h = F.relu(h)
     return h @ params.w_out
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, variant: str,
+             dtype, *, device=None) -> dict:
+    """The reference's MLP weights: ``w_in`` (d_model, 2 d_ff) for swiglu
+    and geglu (gate|up packed), else (d_model, d_ff), then ``w_out``
+    (d_ff, d_model); each drawn from ``gen`` (in that order) with
+    ``_dense_init``'s std fan_in^-1/2, in ``dtype``, on ``device`` (CUDA
+    unless "cpu"; the draws are made on the generator's device)."""
+    dev = resolve_device(device)
+    in_cols = 2 * d_ff if variant in ("swiglu", "geglu") else d_ff
+    return {"w_in": _dense_init(gen, (d_model, in_cols), dtype).to(dev),
+            "w_out": _dense_init(gen, (d_ff, d_model), dtype).to(dev)}
 
 
 def _dense_init(gen: torch.Generator, shape, dtype,

@@ -57,6 +57,7 @@ from repro_torch.models.layers import (
     _dense_init,
     cross_entropy_loss,
     embed_init,
+    init_mlp,
     mlp_forward,
     rms_norm,
 )
@@ -194,10 +195,8 @@ def init_layer_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     if cfg.is_moe:
         p["moe"] = moe_lib.init_moe(gen, cfg, dtype)
     elif cfg.d_ff > 0:
-        in_cols = (2 * cfg.d_ff if cfg.mlp_variant in ("swiglu", "geglu")
-                   else cfg.d_ff)
-        p["mlp"] = {"w_in": dense((d, in_cols)),
-                    "w_out": dense((cfg.d_ff, d))}
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_variant, dtype,
+                            device=dev)
     return p
 
 
@@ -598,7 +597,6 @@ def _attn_decode(lp, x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     """One-token attention over the ring-buffer cache.  x (b,1,D).  Writes
     this token's K/V into slot pos % capacity of kc/vc in place."""
     b = x.shape[0]
-    dh = cfg.resolved_head_dim
     cap = kc.shape[2]
     posv = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     q, k, v = _qkv_rope(lp, x, cfg, posv)
@@ -614,10 +612,6 @@ def _attn_decode(lp, x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     else:
         kc[:, :, slot] = k[:, :, 0].to(kc.dtype)
         vc[:, :, slot] = v[:, :, 0].to(vc.dtype)
-    kpos = attn_lib._ring_positions(pos, cap, x.device)
-    valid = (kpos <= pos) & (kpos >= 0)
-    if cfg.serve_window is not None:
-        valid &= kpos > pos - cfg.serve_window
     # pin the cache reads: heads (or, split-K, the length) over model
     q = constrain(q, "batch", "heads", None, None)
     if cfg.splitk_decode:
@@ -626,18 +620,10 @@ def _attn_decode(lp, x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     else:
         kc = constrain(kc, "batch", "heads", None, None)
         vc = constrain(vc, "batch", "heads", None, None)
-    # grouped-head GQA reads the cache directly: query head g * rep + r
-    # scores against key/value head g, with no repeat of the cache
-    rep = cfg.n_heads // cfg.n_kv_heads
     if not model_divides(cfg.n_kv_heads):
         # the query heads' shards do not line up with the KV groups
         q = constrain(q, "batch", None, None, None)
-    qg = q.reshape(b, cfg.n_kv_heads, rep, dh).float()
-    sc = torch.matmul(qg, kc.float().transpose(-1, -2)) * dh ** -0.5
-    sc = sc.masked_fill(~valid, attn_lib.NEG_INF)
-    p = torch.softmax(sc, dim=-1)
-    o = torch.matmul(p, vc.float())
-    o = o.reshape(b, cfg.n_heads, 1, dh).to(x.dtype)
+    o = attn_lib.ring_attention(q, kc, vc, pos, cfg, x.dtype)
     return constrain(attn_lib.out_proj(lp, o), "batch", None, None), kc, vc
 
 

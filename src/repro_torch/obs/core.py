@@ -1,7 +1,7 @@
 """Dependency-free telemetry core: spans, counters, gauges, histograms.
 
-The port's copy of ``repro/obs/core.py`` (``Registry.merge`` comes with
-the hierarchy), so its spans and counters keep the reference's names.
+The port's copy of ``repro/obs/core.py``, so its spans and counters keep
+the reference's names.
 Everything here is plain stdlib (no torch, no numpy), so the
 instrumented hot paths (``core/engine/session.py``,
 ``core/engine/aggregate.py``) pay a dict update and a ``perf_counter``
@@ -45,6 +45,10 @@ class Histogram:
 
     def observe(self, value: float) -> None:
         self.values.append(float(value))
+
+    def merge(self, other: "Histogram") -> None:
+        """Pool ``other``'s values into this series."""
+        self.values.extend(other.values)
 
     @property
     def count(self) -> int:
@@ -181,6 +185,24 @@ class Registry:
                 "histograms": {n: h.summary()
                                for n, h in self.histograms.items()},
             }
+
+    def merge(self, other: "Registry") -> None:
+        """Fold another registry's aggregates in: counters sum, gauges take
+        ``other``'s value (the last write), histogram values are pooled.
+        Counter sums and histogram value multisets do not depend on the
+        order of merges.  ``other`` is copied under its own lock first,
+        then folded in under this one's (never both at once)."""
+        with other._lock:
+            counters = dict(other.counters)
+            gauges = dict(other.gauges)
+            values = {n: list(h.values) for n, h in other.histograms.items()}
+        with self._lock:
+            for name, v in counters.items():
+                self.counters[name] = self.counters.get(name, 0.0) + v
+            self.gauges.update(gauges)
+            for name, vals in values.items():
+                self.histograms.setdefault(name, Histogram()).values.extend(
+                    vals)
 
     def reset(self) -> None:
         """Drop all aggregates; attached sinks stay attached."""

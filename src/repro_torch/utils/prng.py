@@ -9,6 +9,9 @@ of 32-bit words) computed in int64 tensor ops: every 32-bit product is
 split into two 16-bit halves so that no intermediate value leaves
 [0, 2^49), and the CPU and CUDA compute the same integers.
 
+``key_fold`` and ``split_like`` are the reference's two derivations
+(``repro/utils/prng.py``) over these keys.
+
 On top of them: ``uniform`` (24-bit floats in [0, 1)), ``bernoulli``
 (an integer threshold on the same 24 bits) and ``normal`` (Box-Muller in
 float64, then cast).  A draw keyed by a client's global index is the
@@ -26,6 +29,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 MASK32 = 0xFFFFFFFF
 _U24 = 1.0 / (1 << 24)
@@ -65,6 +70,21 @@ def fold_in(key_: int, data):
     """A key derived from ``key_`` and ``data`` (an int, or an integer
     tensor giving one key per element)."""
     return mix32(mix32(int(key_) ^ 0x9E3779B9) ^ _word(data))
+
+
+def key_fold(key_: int, *data: int) -> int:
+    """Fold a sequence of ints into a key, one ``fold_in`` each (a stable
+    derivation: the same ints give the same key)."""
+    for d in data:
+        key_ = fold_in(key_, d)
+    return key_
+
+
+def split_like(key_: int, tree):
+    """One key per leaf of ``tree`` (``fold_in(key_, i)`` for the i-th leaf
+    in ``tree_leaves`` order), returned in the tree's structure."""
+    keys = iter([fold_in(key_, i) for i in range(len(tree_leaves(tree)))])
+    return tree_map(lambda _: next(keys), tree)
 
 
 def bits(key_: int, idx: torch.Tensor) -> torch.Tensor:

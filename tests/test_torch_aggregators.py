@@ -177,6 +177,38 @@ def test_tree_wrappers_match_reference(name, wrapper):
         close(got[key].numpy(), want[key], float(np.abs(tree[key]).max()))
 
 
+@pytest.mark.parametrize("row", ["label -1", "soft row"])
+@pytest.mark.parametrize("name", ["mean", "trimmed_mean", "median",
+                                  "geometric_median"])
+def test_aggregate_tree_gathers_back_as_the_reference_off_one_hot(name, row):
+    """``onehot @ reduced``: a client with label -1 and an all-zero one-hot
+    row gets zeros (no raise), a soft row the product, both as the
+    reference computes them (its sort puts the -1 row first); the one-hot
+    rows get their cluster's representative bit for bit."""
+    tree, labels = tree_pair(12)
+    k = 4
+    onehot = np.eye(k, dtype=np.float32)[labels]
+    if row == "label -1":
+        labels[-1], onehot[-1] = -1, 0.0
+    else:
+        onehot[-1] = [0.5, 0.0, 0.25, 0.25]
+    counts = onehot.sum(0)
+    ttree = {key: torch.from_numpy(v) for key, v in tree.items()}
+    t = (torch.from_numpy(labels), torch.from_numpy(onehot),
+         torch.from_numpy(counts), name)
+    got = tagg.cluster_aggregate_tree(ttree, *t)
+    want = jagg.cluster_aggregate_tree(
+        jax.tree_util.tree_map(jnp.asarray, tree), jnp.asarray(labels),
+        jnp.asarray(onehot), jnp.asarray(counts), name)
+    reps = tagg.cluster_reduce_tree(ttree, *t)
+    for key in tree:
+        close(got[key].numpy(), want[key], float(np.abs(tree[key]).max()))
+        assert torch.equal(got[key][:-1],
+                           reps[key][torch.from_numpy(labels[:-1]).long()])
+        if row == "label -1":
+            assert not got[key][-1].any()
+
+
 def test_registry_and_make_aggregator_match_reference():
     assert tagg.list_aggregators() == jagg.list_aggregators()
     for name in tagg.list_aggregators():

@@ -275,6 +275,38 @@ def test_cluster_trees_and_evaluation_match_reference():
                                jevaluate(jstate, jcfg, jb), rtol=1e-5)
 
 
+# the one-hot rows of a 4-client, 3-cluster gather-back: the last row has
+# no cluster (all zero) or a soft one-hot (0.25 / 0.75)
+GATHER_ROWS = {"zero row": [0.0, 0.0, 0.0],
+               "soft row": [0.25, 0.0, 0.75]}
+
+
+@pytest.mark.parametrize("row", sorted(GATHER_ROWS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cluster_average_tree_matches_reference_off_one_hot(row, dtype):
+    """``onehot @ means`` on a row that is not one-hot: zeros where it sums
+    to 0, the product where it is soft; one-hot rows keep their mean."""
+    rng = np.random.default_rng(3)
+    onehot = np.eye(3, dtype=np.float32)[[0, 1, 2, 0]]
+    onehot[3] = GATHER_ROWS[row]
+    counts = np.maximum(onehot.sum(0), 1.0).astype(np.float32)
+    tree = {"w": np.arange(12, dtype=np.float32).reshape(4, 3),
+            "b": rng.normal(size=(4, 2, 5)).astype(np.float32)}
+    jtree = {k: jnp.asarray(v, dtype) for k, v in tree.items()}
+    want = jcluster_average(jtree, jnp.asarray(onehot), jnp.asarray(counts))
+    got = tfed.cluster_average_tree(
+        {k: torch.from_numpy(v).to(getattr(torch, dtype))
+         for k, v in tree.items()},
+        torch.from_numpy(onehot), torch.from_numpy(counts))
+    for key in tree:
+        w = np.asarray(want[key].astype(jnp.float32))
+        g = got[key].float().numpy()
+        assert got[key].dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+        if row == "zero row":
+            assert not g[3].any()
+
+
 def test_init_federation_stacks_one_or_several_inits():
     _, tcfg = tiny_cfgs()
     same = tfed.init_federation(0, tcfg, 3, device=CPU)

@@ -7,7 +7,9 @@ port's ``init="warm"``) the reference's labels.  At S = 2 and 4 on
 well-separated blobs each package recovers the planted partition, so
 the labels agree up to renaming and the models within rtol 1e-5 (atol
 1e-5 of the largest |theta|); the per-level byte counts are the
-reference's.  Then the guards, the convex family through the
+reference's.  An MoE federation (``cfg.is_moe``) sketches only
+its router-invariant leaves in every shard session, as the reference's
+does.  Then the guards, the convex family through the
 hierarchy, and a scenario's sketch hook at S > 1, whose rows equal the
 flat session's (the port keys shards by global row; the reference does
 not, ROADMAP queue C): for waves that straddle a shard edge too under
@@ -15,6 +17,8 @@ the spoof, which is keyed by row, while the DP noise, keyed by the
 offset of each wave piece a shard receives, equals the flat session's
 only when the flat session is fed the same pieces.
 """
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +28,7 @@ import torch
 from repro.core.clustering.kmeans import kmeans_plus_plus_init as jkmeanspp
 from repro.core.engine import HierarchicalSession as JHier
 from repro.core.engine import hierarchical_one_shot_aggregate as jhier_round
+from repro.core.federated import FederatedState as JState
 from repro_torch import runtime
 from repro_torch.core.engine.hierarchy import (
     HierarchicalSession,
@@ -36,11 +41,12 @@ from repro_torch.interop import (
     state_from_numpy,
 )
 from repro_torch.scenarios import ByzantineScenario, DPScenario
-from repro_torch.utils import prng
+from repro_torch.utils import prng, tree_leaves
 
 from conftest import same_partition
 from test_session import blob_state, make_blobs
 from test_torch_sketch import ref_projection
+from test_torch_train_step import assert_tree_close
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -146,6 +152,65 @@ def test_sharded_round_matches_reference(shards):
                                served[labels == c].shape)
         np.testing.assert_allclose(served[labels == c], want, rtol=1e-4,
                                    atol=1e-4)
+
+
+MOE_CFG = SimpleNamespace(is_moe=True)
+
+
+def moe_federation(seed, c=8):
+    """A planted MoE-shaped federation: the dense path and the router of
+    clients 0..c/2-1 near one model, of the others near another; the
+    per-expert ``moe/w_in`` and ``moe/w_out`` drawn for each client at
+    ten times the scale, so only the router-invariant sketch sees the
+    plant.  The clients are shuffled across the shards."""
+    rng = np.random.default_rng(seed)
+    shapes = {"attn": {"wq": (4, 6)}, "moe": {"router": (4, 3),
+                                            "w_in": (3, 4, 5),
+                                            "w_out": (3, 5, 4)}}
+    truth = rng.permutation(np.arange(c) % 2)
+
+    def leaf(shape, expert):
+        if expert:
+            return 10.0 * rng.normal(size=(c,) + shape)
+        centers = 3.0 * rng.normal(size=(2,) + shape)
+        return centers[truth] + 0.01 * rng.normal(size=(c,) + shape)
+
+    params = {g: {k: leaf(v, k.startswith("w_")).astype(np.float32)
+                  for k, v in d.items()} for g, d in shapes.items()}
+    n = 4 * 6 + 4 * 3                       # the router-invariant values
+    return params, truth, n
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_moe_round_sketches_router_invariant_leaves_as_reference(shards):
+    """``hierarchical_one_shot_aggregate(state, cfg, shards=)``: each shard
+    session gets the config, so the projection carried across (the
+    reference's for the router-invariant values alone; a session that
+    sketched every leaf would refuse it) gives the reference's partition,
+    the planted one, and its models; ``shards=1`` equals the flat
+    round with the config bit for bit."""
+    params, truth, n = moe_federation(shards)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    jstate = JState(params=jparams, opt_state=None, n_clients=len(truth))
+    jnew, jlabels, _ = jhier_round(jstate, MOE_CFG, shards=shards, k=2,
+                                   sketch_dim=8, seed=2)
+    projection = projection_from_numpy(ref_projection(2, n, 8), CPU)
+    state = state_from_numpy(params, CPU)
+    new, labels, info = hierarchical_one_shot_aggregate(
+        state, MOE_CFG, shards=shards, k=2, sketch_dim=8, seed=2,
+        projection=projection, device=CPU)
+    assert info["shards"] == shards
+    assert same_partition(labels, jlabels) and same_partition(labels, truth)
+    assert_tree_close(new.params, jnew.params)
+    if shards == 1:
+        flat = AggregationSession(len(truth), sketch_dim=8, seed=2,
+                                  cfg=MOE_CFG, projection=projection,
+                                  device=CPU)
+        flat.ingest(state.params)
+        want, want_labels, _ = flat.finalize(k=2)
+        np.testing.assert_array_equal(labels, want_labels)
+        for g, w in zip(tree_leaves(new.params), tree_leaves(want.params)):
+            assert torch.equal(g, w)
 
 
 def test_sharded_round_recovers_planted_clusters():

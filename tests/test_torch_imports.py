@@ -15,6 +15,7 @@
   attention is the port's own kernel.
 """
 import ast
+import importlib
 from pathlib import Path
 
 import pytest
@@ -22,7 +23,6 @@ import torch
 
 from repro_torch import runtime
 from repro_torch.core import federated as tfederated
-from repro_torch.core import odcl as todcl
 from repro_torch.core.clustering import api as tapi
 from repro_torch.core.engine.aggregate import one_shot_aggregate_device
 from repro_torch.core.engine.session import AggregationSession
@@ -39,6 +39,10 @@ from repro_torch.models import init_decode_cache, init_params
 from repro_torch.serving import RouteServer
 from repro_torch.serving import loadgen as tloadgen
 from repro_torch.utils import tree_leaves
+
+# the module: ``repro_torch.core.odcl`` is also the package's name for the
+# function, as in the reference
+todcl = importlib.import_module("repro_torch.core.odcl")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -242,6 +246,26 @@ def test_slice9_entry_points_raise_without_cuda(no_cuda, tmp_path):
         init_federation(0, cfg, 2)
     state = init_federation(0, cfg, 2, device="cpu")
     assert tree_leaves(state.params)[0].device == torch.device("cpu")
+
+
+def test_decode_api_entry_points_raise_without_cuda(no_cuda):
+    import numpy as np
+
+    from repro_torch.interop import kv_cache_from_numpy
+    from repro_torch.models.attention import init_kv_cache
+    from repro_torch.models.layers import init_mlp
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_kv_cache(1, 2, 8, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_mlp(torch.Generator(), 4, 8, "swiglu", torch.float32)
+    ring = np.zeros((1, 2, 8, 4), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kv_cache_from_numpy(ring, ring, 0)
+    assert init_kv_cache(1, 2, 8, 4, device="cpu").pos.device.type == "cpu"
+    assert kv_cache_from_numpy(ring, ring, 3, device="cpu").pos == 3
+    assert init_mlp(torch.Generator(), 4, 8, "swiglu", torch.float32,
+                    device="cpu")["w_in"].shape == (4, 16)
 
 
 def test_slice8_entry_points_raise_without_cuda(no_cuda):

@@ -1,8 +1,9 @@
 """The port's telemetry copy: histogram percentiles follow numpy's
 convention, spans land in ``"<name>.ms"``, counters/gauges sum and
 overwrite, spans carry their fields and nesting to the sinks as the
-reference's do, and ``simulate --trace`` writes the session's spans as
-JSON lines (no GPU)."""
+reference's do, ``Registry.merge`` folds registries in as the reference's
+does (in either order), and ``simulate --trace`` writes the session's
+spans as JSON lines (no GPU)."""
 import numpy as np
 import pytest
 
@@ -73,6 +74,83 @@ def test_span_fields_nesting_and_events_match_reference():
     assert events["port"][1] == {
         "event": "span", "name": "session.finalize.cluster", "engine": "host",
         "parent": "session.finalize", "depth": 1}
+
+
+def apply_op(reg, op):
+    kind, name, value = op
+    if kind == "count":
+        reg.count(name, value)
+    elif kind == "gauge":
+        reg.gauge(name, value)
+    else:
+        reg.observe(name, value)
+
+
+def merged(mod, *op_lists):
+    """A fresh registry of ``mod`` with one registry per op list merged in,
+    in the order given."""
+    out = mod.Registry()
+    for ops in op_lists:
+        reg = mod.Registry()
+        for op in ops:
+            apply_op(reg, op)
+        out.merge(reg)
+    return out.snapshot()
+
+
+MERGE_OPS = (
+    [("count", "a", 1.0), ("obs", "h", 3.0), ("gauge", "g", 2.0),
+     ("count", "b", 2.5), ("obs", "h", -1.0)],
+    [("count", "a", -4.0), ("obs", "h", 1.0), ("gauge", "g", 5.0),
+     ("obs", "k", 0.5), ("count", "c", 7.0)],
+)
+
+
+@pytest.mark.parametrize("order", [(0, 1), (1, 0)])
+def test_registry_merge_matches_reference(order):
+    """Counters sum, gauges keep the last merged write, histogram values
+    pool: the port's snapshot equals the reference's for the same ops,
+    merged in the same order; counters and histograms are the same in
+    either order."""
+    from repro import obs as jobs
+
+    lists = [MERGE_OPS[i] for i in order]
+    got, want = merged(obs, *lists), merged(jobs, *lists)
+    assert got == want
+    assert got["gauges"]["g"] == lists[-1][2][2]
+    other = merged(obs, *reversed(lists))
+    assert got["counters"] == other["counters"]
+    assert got["histograms"] == other["histograms"]
+    h = obs.Histogram([1.0])
+    h.merge(obs.Histogram([2.0, 3.0]))
+    assert h.values == [1.0, 2.0, 3.0]
+
+
+def test_merge_order_independent_property():
+    """The reference's hypothesis property (``tests/test_obs.py``) on the
+    port's registry."""
+    hypothesis = pytest.importorskip("hypothesis")
+    from hypothesis import given, settings, strategies as st
+
+    op = st.tuples(st.sampled_from(["count", "obs"]),
+                   st.sampled_from(["a", "b", "c"]),
+                   st.floats(-100, 100, allow_nan=False))
+
+    @settings(max_examples=50, deadline=None)
+    @given(st.lists(op, max_size=30), st.lists(op, max_size=30))
+    def check(ops1, ops2):
+        sa, sb = merged(obs, ops1, ops2), merged(obs, ops2, ops1)
+        assert set(sa["counters"]) == set(sb["counters"])
+        for k in sa["counters"]:
+            assert sa["counters"][k] == pytest.approx(sb["counters"][k],
+                                                      abs=1e-9)
+        for k in set(sa["histograms"]) | set(sb["histograms"]):
+            ha, hb = sa["histograms"][k], sb["histograms"][k]
+            assert ha["count"] == hb["count"]
+            for f in ("min", "max", "p50", "p95", "p99"):
+                assert ha[f] == pytest.approx(hb[f], abs=1e-9)
+
+    check()
 
 
 def test_sinks_attach_detach_and_close(tmp_path, capsys):
