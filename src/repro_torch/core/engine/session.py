@@ -338,68 +338,70 @@ class AggregationSession:
         return w
 
     def _alloc_rows(self, w: int, client_ids) -> tuple:
-        """Map a wave onto buffer rows without changing anything.
+        """Map a wave onto buffer rows without changing anything (the
+        ``session.ingest.assign`` span).
 
         Returning ids keep their row; new ids (and anonymous waves) take
         evicted rows from the end of the free list first, then extend the
-        written rows.  Returns ``(rows, n_from_free)``; raises on
+        written rows.  Returns ``(ids, rows, n_from_free)``, ``ids`` the
+        wave's ids as a list (``None`` for an anonymous wave); raises on
         duplicate ids or a full buffer."""
-        if client_ids is not None:
-            ids = list(client_ids)
-            if len(ids) != w:
-                raise ValueError(f"client_ids has {len(ids)} entries for a "
-                                 f"wave of {w}")
-            if len(set(ids)) != len(ids):
-                raise ValueError("duplicate client ids within one wave")
-            rows = np.fromiter((self._slots.get(cid, -1) for cid in ids),
-                               np.int64, w)
-        else:
-            rows = np.full(w, -1, np.int64)
-        new_at = np.flatnonzero(rows < 0)
-        n_new = new_at.size
-        n_free = len(self._free)
-        if n_new > n_free + (self.capacity - self._high):
-            raise ValueError(
-                f"session capacity exceeded: {self._count} live + "
-                f"{n_new} new clients > capacity {self.capacity}")
-        n_from_free = min(n_new, n_free)
-        # the reference pops the free list from its end, one new id at a time
-        rows[new_at[:n_from_free]] = self._free[::-1][:n_from_free]
-        rows[new_at[n_from_free:]] = np.arange(
-            self._high, self._high + n_new - n_from_free)
-        return rows, n_from_free
+        with obs.span("session.ingest.assign"):
+            ids = None
+            if client_ids is not None:
+                ids = list(client_ids)
+                if len(ids) != w:
+                    raise ValueError(f"client_ids has {len(ids)} entries "
+                                     f"for a wave of {w}")
+                if len(set(ids)) != len(ids):
+                    raise ValueError("duplicate client ids within one wave")
+                rows = np.fromiter((self._slots.get(cid, -1) for cid in ids),
+                                   np.int64, w)
+            else:
+                rows = np.full(w, -1, np.int64)
+            new_at = np.flatnonzero(rows < 0)
+            n_new = new_at.size
+            n_free = len(self._free)
+            if n_new > n_free + (self.capacity - self._high):
+                raise ValueError(
+                    f"session capacity exceeded: {self._count} live + "
+                    f"{n_new} new clients > capacity {self.capacity}")
+            n_from_free = min(n_new, n_free)
+            # the reference pops the free list from its end, one new id at
+            # a time
+            rows[new_at[:n_from_free]] = self._free[::-1][:n_from_free]
+            rows[new_at[n_from_free:]] = np.arange(
+                self._high, self._high + n_new - n_from_free)
+            return ids, rows, n_from_free
 
     def _commit_rows(self, rows: np.ndarray, n_from_free: int,
-                     client_ids) -> None:
-        """Post-write bookkeeping: slot table, free list, stamps, clock,
-        then the staleness policy's eviction."""
-        self._clock += 1
-        was_live = self._live[rows]
-        self._count += int(np.count_nonzero(~was_live))
-        old, n_old = np.unique(self._stamps[rows[was_live]],
-                               return_counts=True)
-        for stamp, n in zip(old.tolist(), n_old.tolist()):
-            left = self._stamp_counts[stamp] - n
-            if left:
-                self._stamp_counts[stamp] = left
-            else:
-                del self._stamp_counts[stamp]
-        self._stamp_counts[self._clock] = len(rows)
-        self._live[rows] = True
-        if n_from_free:
-            del self._free[len(self._free) - n_from_free:]
-        if client_ids is not None:
-            for row, cid in zip(rows.tolist(), client_ids):
-                self._slots[cid] = row
-                self._row_ids[row] = cid
-        self._high = max(self._high, int(rows.max()) + 1)
-        self._stamps[rows] = self._clock
+                     ids) -> None:
+        """Post-write bookkeeping (the ``session.ingest.commit`` span):
+        slot table, free list, stamps, clock; then the staleness policy's
+        eviction (``session.evict``, the commit span's sibling)."""
+        with obs.span("session.ingest.commit"):
+            self._clock += 1
+            was_live = self._live[rows]
+            self._count += int(np.count_nonzero(~was_live))
+            old, n_old = np.unique(self._stamps[rows[was_live]],
+                                   return_counts=True)
+            for stamp, n in zip(old.tolist(), n_old.tolist()):
+                left = self._stamp_counts[stamp] - n
+                if left:
+                    self._stamp_counts[stamp] = left
+                else:
+                    del self._stamp_counts[stamp]
+            self._stamp_counts[self._clock] = len(rows)
+            self._live[rows] = True
+            if n_from_free:
+                del self._free[len(self._free) - n_from_free:]
+            if ids is not None:
+                for row, cid in zip(rows.tolist(), ids):
+                    self._slots[cid] = row
+                    self._row_ids[row] = cid
+            self._high = max(self._high, int(rows.max()) + 1)
+            self._stamps[rows] = self._clock
         self.evict_stale()
-        self._gauge_slots()
-
-    def _gauge_slots(self) -> None:
-        obs.gauge("session.slots.live", float(self._count))
-        obs.gauge("session.slots.free", float(self.capacity - self._count))
 
     def _transform(self, sketches: torch.Tensor, rows: np.ndarray,
                    keep: np.ndarray):
@@ -430,13 +432,20 @@ class AggregationSession:
         ``FederatedState``) or ``sketches=`` (w, sketch_dim).  With
         ``client_ids=`` (w stable hashable ids) a returning id's row is
         replaced in place and a new id takes a free row.  Returns the row
-        assignment for keyed waves, the wave's offset otherwise."""
+        assignment for keyed waves, the wave's offset otherwise.
+
+        The ``session.ingest`` span covers the call; its children are
+        ``.assign`` (the wave's rows), ``.write`` (the sketch and the row
+        writes, ended by a stream synchronize), ``.commit`` (the slot
+        table's bookkeeping) and ``session.evict``."""
         if (wave is None) == (sketches is None):
             raise ValueError("pass exactly one of wave= or sketches=")
-        if client_ids is not None:
-            client_ids = list(client_ids)
-        if sketches is not None:
-            return self._ingest_sketches(sketches, client_ids)
+        with obs.span("session.ingest") as span:
+            if sketches is not None:
+                return self._ingest_sketches(span, sketches, client_ids)
+            return self._ingest_params(span, wave, client_ids)
+
+    def _ingest_params(self, span: dict, wave, client_ids):
         if isinstance(wave, FederatedState):
             wave = wave.params
         if self._mode == "sketches":
@@ -447,7 +456,7 @@ class AggregationSession:
         wave = self._to_device(wave)
         leaves = tree_leaves(wave)
         w = self._validate_params_wave(wave, leaves)
-        rows, n_from_free = self._alloc_rows(w, client_ids)
+        ids, rows, n_from_free = self._alloc_rows(w, client_ids)
         self._ensure_projection(self._width(wave))   # a mismatch raises
         self._mode = "params"      # only after validation
         if self._params is None:
@@ -458,8 +467,8 @@ class AggregationSession:
                 wave)
         offset = int(rows[0])
         keep, held = self._owned(rows)
-        with obs.span("session.ingest", wave=w, offset=offset,
-                      mode="params"):
+        span.update(wave=w, offset=offset, mode="params")
+        with obs.span("session.ingest.write"):
             if held.size:
                 part = self._take(wave, keep)
                 self._write_rows(self._sketches, held, self._transform(
@@ -468,13 +477,12 @@ class AggregationSession:
                                   tree_leaves(part)):
                     self._write_rows(buf, held, l)
             self._sync()
-        obs.count("session.ingest.clients", w)
         obs.count("session.ingest.bytes",
                   sum(l.numel() * l.element_size() for l in leaves))
-        self._commit_rows(rows, n_from_free, client_ids)
-        return rows if client_ids is not None else offset
+        self._commit_rows(rows, n_from_free, ids)
+        return rows if ids is not None else offset
 
-    def _ingest_sketches(self, sketches, client_ids=None):
+    def _ingest_sketches(self, span: dict, sketches, client_ids):
         if self._mode == "params":
             raise ValueError("session already holds parameter waves; "
                              "cannot mix in sketch-only waves")
@@ -485,21 +493,20 @@ class AggregationSession:
         w = int(sketches.shape[0])
         if w < 1:
             raise ValueError("empty wave")
-        rows, n_from_free = self._alloc_rows(w, client_ids)
+        ids, rows, n_from_free = self._alloc_rows(w, client_ids)
         self._mode = "sketches"    # only after validation
         offset = int(rows[0])
         keep, held = self._owned(rows)
-        with obs.span("session.ingest", wave=w, offset=offset,
-                      mode="sketches"):
+        span.update(wave=w, offset=offset, mode="sketches")
+        with obs.span("session.ingest.write"):
             if held.size:
                 self._write_rows(self._sketches, held, self._transform(
                     self._take(sketches, keep), rows, keep))
             self._sync()
-        obs.count("session.ingest.clients", w)
         obs.count("session.ingest.bytes",
                   sketches.numel() * sketches.element_size())
-        self._commit_rows(rows, n_from_free, client_ids)
-        return rows if client_ids is not None else offset
+        self._commit_rows(rows, n_from_free, ids)
+        return rows if ids is not None else offset
 
     # --------------------------------------------------------- staleness
 
@@ -507,7 +514,14 @@ class AggregationSession:
         """Apply the staleness policy's eviction mask to the live rows:
         evicted rows go to the free list and out of every later finalize.
         Returns the evicted client ids (``None`` for anonymous rows).
-        Runs after every ingest and before every finalize."""
+        Runs after every ingest and before every finalize, in a
+        ``session.evict`` span whose ``evicted`` field counts them."""
+        with obs.span("session.evict") as span:
+            out = self._evict()
+            span["evicted"] = len(out)
+        return out
+
+    def _evict(self) -> list:
         if not self._stamp_counts:
             return []
         stamps = np.fromiter(self._stamp_counts, np.int64,
@@ -530,7 +544,6 @@ class AggregationSession:
         self._free.extend(evicted.tolist())
         self._count -= len(out)
         obs.count("session.evictions", len(out))
-        self._gauge_slots()
         return out
 
     def _live_weights(self):

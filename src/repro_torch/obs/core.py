@@ -19,6 +19,11 @@ call and nothing else.
     ``JsonlSink`` appends events as JSON lines (``simulate --trace``).
   * ``Registry.snapshot()``: the aggregates as one dict, which
     ``launch/simulate.py`` returns in its summary.
+  * a host-range hook (``set_host_range``): where torch is present,
+    ``obs/bridge.py`` installs one, and every span then also opens a
+    host range of its name while a ``torch.profiler`` records, so the
+    trace's host timeline is named by the program's spans.  Without a
+    recording profiler a span pays one flag read more.
 
 A process-global registry backs the module-level functions (``span`` /
 ``count`` / ``gauge`` / ``observe`` / ``event`` / ``snapshot`` /
@@ -30,7 +35,7 @@ import contextlib
 import math
 import threading
 import time
-from typing import Any, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional
 
 
 class Histogram:
@@ -132,11 +137,14 @@ class Registry:
             info["parent"] = stack[-1]
         info["depth"] = len(stack)
         stack.append(name)
+        host_range = _host_range(name) if _host_range is not None else None
         t0 = time.perf_counter()
         try:
             yield info
         finally:
             ms = (time.perf_counter() - t0) * 1e3
+            if host_range is not None:
+                host_range.__exit__(None, None, None)
             stack.pop()
             info["ms"] = ms
             self.observe(f"{name}.ms", ms)
@@ -210,6 +218,20 @@ class Registry:
             self.counters.clear()
             self.gauges.clear()
             self.histograms.clear()
+
+
+# ------------------------------------------------------ host-range hook
+
+# ``hook(name)`` opens a host range named ``name`` and returns it (it is
+# closed with ``__exit__``), or returns ``None``; ``None`` where no hook
+# is installed
+_host_range: Optional[Callable[[str], Any]] = None
+
+
+def set_host_range(hook: Optional[Callable[[str], Any]]) -> None:
+    """Install the hook every span calls as it opens (``None``: none)."""
+    global _host_range
+    _host_range = hook
 
 
 # ------------------------------------------------- process-global registry

@@ -3,9 +3,13 @@ convention, spans land in ``"<name>.ms"``, counters/gauges sum and
 overwrite, spans carry their fields and nesting to the sinks as the
 reference's do, ``Registry.merge`` folds registries in as the reference's
 does (in either order), and ``simulate --trace`` writes the session's
-spans as JSON lines (no GPU)."""
+spans as JSON lines (no GPU).  The session's ingest splits into the
+slot table's assign, the device write, the commit and the eviction, and
+every span reaches a recording ``torch.profiler`` as a host range on its
+thread (``obs/bridge.py``), while ``obs/core.py`` stays stdlib-only."""
 import numpy as np
 import pytest
+import torch
 
 from repro_torch import obs, runtime
 
@@ -200,3 +204,186 @@ def test_simulate_trace_holds_the_session_spans(tmp_path):
     assert out["obs"]["histograms"]["session.finalize.ms"]["count"] == 1
     # the sink is detached after the run
     assert obs.GLOBAL._sinks == []
+
+
+# ------------------------------------------------ the session's ingest spans
+
+INGEST_CHILDREN = {"session.ingest.assign", "session.ingest.write",
+                   "session.ingest.commit", "session.evict"}
+
+
+def keyed_waves(session, sketch_only, steps=5, w=16, joiners=4):
+    """A keyed federation under a window of 2 waves: a first wave, then
+    per step a re-upload of half the ids and a few never-seen joiners,
+    so that every later ingest evicts."""
+    gen = torch.Generator().manual_seed(7)
+
+    def upload(ids):
+        if sketch_only:
+            session.ingest(sketches=torch.randn(len(ids), 4, generator=gen),
+                           client_ids=ids)
+        else:
+            session.ingest({"theta": torch.randn(len(ids), 6,
+                                                 generator=gen)},
+                           client_ids=iter(ids))
+
+    upload(list(range(w)))
+    nxt = w
+    for step in range(steps):
+        upload([i + (step % 2) * w // 2 for i in range(w // 2)])
+        upload(list(range(nxt, nxt + joiners)))
+        nxt += joiners
+
+
+@pytest.mark.parametrize("sketch_only", [False, True])
+def test_session_ingest_spans_nest_and_split_the_call(sketch_only):
+    """``session.ingest`` is a root span over the whole call, with the
+    slot table's assign, the device write, the commit and the eviction as
+    its children, whose times it holds; every ``session.evict`` carries
+    the evictions it counted."""
+    from repro_torch.core.engine.session import AggregationSession
+
+    obs.reset()
+    sink = obs.add_sink(obs.ListSink())
+    try:
+        session = AggregationSession(64, sketch_dim=4, staleness="max_age=2",
+                                     device="cpu")
+        counted = []
+        orig = session.evict_stale
+
+        def evict_stale():
+            before = obs.snapshot()["counters"].get("session.evictions", 0)
+            out = orig()
+            counted.append(obs.snapshot()["counters"].get(
+                "session.evictions", 0) - before)
+            return out
+
+        session.evict_stale = evict_stale
+        keyed_waves(session, sketch_only)
+        session.snapshot()
+    finally:
+        obs.remove_sink(sink)
+    spans = [e for e in sink.events if e["event"] == "span"]
+    roots = [i for i, e in enumerate(spans) if e["name"] == "session.ingest"]
+    assert len(roots) == 11
+    mode = "sketches" if sketch_only else "params"
+    start = 0
+    for i in roots:
+        root = spans[i]
+        assert root["depth"] == 0 and "parent" not in root
+        assert root["mode"] == mode and root["wave"] in (16, 8, 4)
+        kids = spans[start:i]
+        assert [e["name"] for e in kids] == ["session.ingest.assign",
+                                             "session.ingest.write",
+                                             "session.ingest.commit",
+                                             "session.evict"]
+        assert all(e["depth"] == 1 and e["parent"] == "session.ingest"
+                   for e in kids)
+        assert sum(e["ms"] for e in kids) <= root["ms"]
+        start = i + 1
+    # the snapshot's eviction runs outside any ingest
+    (last,) = [e for e in spans[start:] if e["name"] == "session.evict"]
+    assert last["depth"] == 0
+    evicts = [e for e in spans if e["name"] == "session.evict"]
+    assert [e["evicted"] for e in evicts] == counted
+    assert sum(counted) > 0 and min(counted) == 0
+    snap = obs.snapshot()
+    assert sum(counted) == snap["counters"]["session.evictions"]
+    for name in INGEST_CHILDREN | {"session.ingest"}:
+        assert snap["histograms"][f"{name}.ms"]["count"] == len(
+            [e for e in spans if e["name"] == name])
+
+
+def test_session_drops_the_slot_gauges_and_the_client_counter():
+    from repro_torch.core.engine.session import AggregationSession
+
+    obs.reset()
+    session = AggregationSession(64, sketch_dim=4, staleness="max_age=2",
+                                 device="cpu")
+    keyed_waves(session, sketch_only=True, steps=2)
+    snap = obs.snapshot()
+    assert not [g for g in snap["gauges"] if g.startswith("session.slots")]
+    assert "session.ingest.clients" not in snap["counters"]
+    assert snap["counters"]["session.ingest.bytes"] > 0
+
+
+def test_rejected_keyed_wave_keeps_the_session_and_closes_its_spans():
+    from repro_torch.core.engine.session import AggregationSession
+
+    session = AggregationSession(8, sketch_dim=4, device="cpu")
+    session.ingest(sketches=torch.zeros(4, 4), client_ids=range(4))
+    obs.reset()
+    with pytest.raises(ValueError, match="duplicate"):
+        session.ingest(sketches=torch.zeros(2, 4), client_ids=[9, 9])
+    assert session.count == 4 and session.clock == 1
+    hists = obs.snapshot()["histograms"]
+    assert set(hists) == {"session.ingest.ms", "session.ingest.assign.ms"}
+    assert obs.GLOBAL._stack() == []
+
+
+# ------------------------------------------------------- the profiler bridge
+
+def test_core_imports_no_torch():
+    import ast
+    import inspect
+
+    from repro_torch.obs import core
+
+    tree = ast.parse(inspect.getsource(core))
+    names = {a.name.split(".")[0] for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names}
+    names |= {node.module.split(".")[0] for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module}
+    assert names <= {"__future__", "contextlib", "math", "threading", "time",
+                     "typing"}, names
+
+
+def test_bridge_is_installed_and_opens_no_range_without_a_profiler():
+    from repro_torch.obs import bridge, core
+
+    assert core._host_range is bridge.host_range
+    assert bridge.host_range("session.ingest") is None
+
+
+def _host_events(prof):
+    """``(name, start_ns, end_ns, thread)`` of the trace's host events."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
+             e.start_thread_id())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CPU]
+
+
+def test_spans_reach_the_profiler_as_nested_host_events_on_their_thread():
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core.engine.session import AggregationSession
+
+    session = AggregationSession(64, sketch_dim=4, staleness="max_age=2",
+                                 device="cpu")
+    keyed_waves(session, sketch_only=False, steps=1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("test.main"):
+            session.ingest({"theta": torch.zeros(4, 6)},
+                           client_ids=range(100, 104))
+    events = _host_events(prof)
+    (main,) = [e for e in events if e[0] == "test.main"]
+    by_name = {e[0]: e for e in events if e[0].startswith("session.")}
+    assert set(by_name) == INGEST_CHILDREN | {"session.ingest"}
+    assert all(e[3] == main[3] for e in by_name.values())
+    root = by_name["session.ingest"]
+    assert main[1] <= root[1] and root[2] <= main[2]
+    kids = sorted((by_name[n] for n in INGEST_CHILDREN), key=lambda e: e[1])
+    assert [e[0] for e in kids] == ["session.ingest.assign",
+                                    "session.ingest.write",
+                                    "session.ingest.commit", "session.evict"]
+    for a, b in zip(kids, kids[1:]):
+        assert a[2] <= b[1]
+    assert root[1] <= kids[0][1] and kids[-1][2] <= root[2]
+    # the write's tensor work nests inside the write's range
+    write = by_name["session.ingest.write"]
+    ops = [e for e in events if e[0].startswith("aten::")
+           and root[1] <= e[1] <= root[2]]
+    assert any(write[1] <= e[1] and e[2] <= write[2] for e in ops)
+
