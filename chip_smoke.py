@@ -37,6 +37,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
       d in {1, 16, 32, 200}, b in {1, 3}, with zero rows, rows on the
       sphere and inert (r = 0) slots, within rtol 1e-6 / atol
       1e-7 * ||v||; e = 0 must not launch;
+    * the AMA iteration's two passes at the same duals, on the edge sets
+      that make them (the kNN graph at C = 16 384, k = 8, one rung and
+      the ladder's ten; the complete graph at C = 4096): the fused step
+      (``group_ball_proj_batched`` given the step's operands, in place)
+      bit for bit against the plain kernel fed PyTorch's gradient step,
+      its ``moved`` against PyTorch's max |new - nu|, and against
+      ``ama_step_ref`` on the card within the prox's tolerance above;
+      ``ama_gather_back`` bit for bit against ``ama_gather_back_ref`` on
+      the CPU; each launched twice, the repeat bit-identical;
     * ``flash_attention`` at the serving shape (4, 14, 8192, 64) x
       (4, 2, 8192, 64), bf16 (the tensor-core kernel), causal, window
       4096, on batch row 0 (the plain version's fp32 logits stay near
@@ -296,7 +305,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
     (8, 128) x (2, 128) of both kernels with phase 4h's launches; the
     three dual
     shapes of the batched group prox, ``torch.renorm`` beside the one
-    with one radius a rung at L = 1) the card's own time for one call
+    with one radius a rung at L = 1; the AMA's fused step and gather-back
+    at the same duals, ``ama_step_ref`` and ``ama_gather_back_ref`` their
+    plain versions, ``index_add_`` (atomics) the gather-back's library
+    call) the card's own time for one call
     (``ms``: the durations of the device work that 20 calls launched,
     traced by torch.profiler, over 20), the caller's time (``call_ms``:
     CUDA events around the same 20 calls, host dispatch included), the
@@ -435,6 +447,9 @@ FINALIZES = 11                     # the first, then 10 warm repeats
 # flag: one radius per rung, broadcast over the edges (uniform weights)
 PROX_MAIN = [(1, 131_072, 32, False), (10, 131_072, 32, False),
              (1, 8_386_560, 32, True)]
+# the AMA iteration's two passes at the same duals, on the edge sets that
+# make them: (edge set, clients, rungs)
+AMA_MAIN = [("knn", 16_384, 1), ("knn", 16_384, 10), ("complete", 4096, 1)]
 HOST_M = 1024
 PAIRWISE_CONVEX = [(1024, 16_384, 32), (4096, 4096, 32), (HOST_M, HOST_M, 32)]
 HOST_E = HOST_M * (HOST_M - 1) // 2
@@ -756,7 +771,8 @@ def phase_kernels(pairwise_l2, kmeans_assign, ops) -> dict:
         av = kmeans_assign.assign_plan(m, k, d).variant
         # two launches each (the comparison and its repeat), all of the
         # variant the plan names
-        check(ops.variant_counts() == {
+        check({name: by for name, by in ops.variant_counts().items()
+               if name in ("pairwise_sqdist", "kmeans_assign")} == {
             "pairwise_sqdist": {**dict.fromkeys(("stream", "tiled", "batched"), 0),
                                 pv: 2},
             "kmeans_assign": {**dict.fromkeys(("small", "stream"), 0), av: 2}},
@@ -779,7 +795,9 @@ def phase_kernels(pairwise_l2, kmeans_assign, ops) -> dict:
                                "pairwise_sqdist.tiled": 0,
                                "pairwise_sqdist.batched": 0,
                                "kmeans_assign.small": 1,
-                               "kmeans_assign.stream": 0},
+                               "kmeans_assign.stream": 0,
+                               "group_ball_proj_batched.plain": 0,
+                               "group_ball_proj_batched.ama_step": 0},
           f"a single route launched {read_counts(ops)}")
     # pairwise_sqdist alone at the convex paths' other shapes: the kNN
     # tiles at C = 16 384, the complete graph's fusion at C = 4096 and the
@@ -921,6 +939,115 @@ def phase_prox_kernels(group_prox, pairwise_l2, ops) -> dict:
           "batched pairwise_sqdist is not repeatable")
     print(f"[chip_smoke] batched pairwise_sqdist at (256,64,32)x(256,192,32):"
           f" max abs err {float((got - want).abs().max()):.3g}", flush=True)
+    return errs
+
+
+def ama_operands(kind: str, m: int, L: int, seed: int) -> dict:
+    """One AMA iteration's operands on the card, as ``_ama_fixed_point``
+    makes them, at ``m`` clients of sketch 32 on the edge set ``kind``
+    (k = 8): the dual nu (L, E, 32), eta, both segment plans, the int32
+    edge ends, u gathered back, and the radius (the edges' weights times
+    one lambda a rung, the complete graph's broadcast over the edges).
+    The lambdas put the radius at 0.8 to 1.25 times the median norm of
+    the stepped rows, so some rows are projected and some are not."""
+    from repro_torch.core.engine.edges import get_edge_set
+    from repro_torch.core.engine.segment import segment_plan
+    from repro_torch.kernels import group_prox
+
+    (a,) = draw(seed, (m, 32))
+    edges = get_edge_set(kind)(a, knn_k=8)
+    (nu,) = draw(seed + 1, (L, edges.n_edges, 32))
+    nu *= 0.01
+    o = {"a": a, "nu": nu,
+         "eta": torch.as_tensor(1.0 / edges.inv_eta, dtype=torch.float32,
+                                device="cuda"),
+         "heads": segment_plan(edges.i_idx, m),
+         "tails": segment_plan(edges.j_idx, m),
+         "i_idx": edges.i_idx, "j_idx": edges.j_idx,
+         "i32": edges.i_idx.to(torch.int32),
+         "j32": edges.j_idx.to(torch.int32),
+         "u": torch.empty((L, m, 32), device="cuda")}
+    u = group_prox.ama_gather_back(a, nu, o["heads"], o["tails"], o["u"])
+    v = nu - o["eta"] * (u[:, edges.i_idx] - u[:, edges.j_idx])
+    med = torch.median(torch.sqrt((v * v).sum(-1)))
+    del v
+    w = edges.weights[:1] if edges.weights.stride(0) == 0 else edges.weights
+    spread = (torch.linspace(0.8, 1.25, L, device="cuda") if L > 1
+              else torch.ones(1, device="cuda"))
+    o["radius"] = (med / torch.max(w) * spread)[:, None] * w[None, :]
+    return o
+
+
+def ama_step(group_prox, o: dict, nu: torch.Tensor,
+             moved: torch.Tensor) -> torch.Tensor:
+    """The fused step on ``nu``, in place."""
+    return group_prox.group_ball_proj_batched(
+        nu, o["radius"], u=o["u"], i_idx=o["i32"], j_idx=o["j32"],
+        eta=o["eta"], moved=moved)
+
+
+def phase_ama_kernels(group_prox, ops) -> dict:
+    """Phase 2 for the AMA iteration's two passes (``AMA_MAIN``)."""
+    from repro_torch.core.engine.segment import segment_plan
+
+    errs = {"group_ball_proj_batched.ama_step": 0.0, "ama_gather_back": 0.0}
+    for i, (kind, m, L) in enumerate(AMA_MAIN):
+        ops.reset_launch_counts()
+        o = ama_operands(kind, m, L, 240 + i)
+        nu, u, e = o["nu"], o["u"], o["nu"].shape[1]
+        at = f"{kind} C={m} ({L},{e},32)"
+        # the gather-back: repeatable, and the CPU's segment sums bit for
+        # bit (segment_reduce adds a run in order)
+        again = torch.empty_like(u)
+        group_prox.ama_gather_back(o["a"], nu, o["heads"], o["tails"], again)
+        cpu = group_prox.ama_gather_back_ref(
+            o["a"].cpu(), nu.cpu(), segment_plan(o["i_idx"].cpu(), m),
+            segment_plan(o["j_idx"].cpu(), m), torch.empty(u.shape))
+        check(torch.equal(again, u), f"ama_gather_back at {at} is not "
+              "repeatable")
+        check(torch.equal(u.cpu(), cpu), f"ama_gather_back at {at} differs "
+              f"from the CPU's segment sums by "
+              f"{float((u.cpu() - cpu).abs().max())}")
+        del again, cpu
+        # the fused step, in place, twice from the same dual
+        v = nu - o["eta"] * (u[:, o["i_idx"]] - u[:, o["j_idx"]])
+        want = group_prox.group_ball_proj_batched(v, o["radius"])
+        v_norm = torch.sqrt((v * v).sum(-1, keepdim=True))
+        del v
+        want_moved = torch.max(torch.abs(want - nu))
+        got, twice = nu.clone(), nu.clone()
+        moved, moved2 = (torch.full((), -1.0, device="cuda")
+                         for _ in range(2))
+        ama_step(group_prox, o, got, moved)
+        ama_step(group_prox, o, twice, moved2)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and torch.equal(moved, want_moved),
+              f"the fused AMA step at {at} is not the plain prox of the "
+              f"gradient step: max err {float((got - want).abs().max())}, "
+              f"moved {float(moved)} against {float(want_moved)}")
+        check(torch.equal(twice, got) and torch.equal(moved2, moved),
+              f"the fused AMA step at {at} is not repeatable")
+        del want, twice
+        # and the plain version, PyTorch's prox, within its tolerance
+        plain = group_prox.ama_step_ref(nu.clone(), o["radius"], u=u,
+                                        i_idx=o["i_idx"], j_idx=o["j_idx"],
+                                        eta=o["eta"], moved=moved2)
+        err = (got - plain).abs()
+        check(bool((err <= 1e-6 * plain.abs() + 1e-7 * v_norm).all()),
+              f"the fused AMA step at {at} disagrees with ama_step_ref: max "
+              f"err {float(err.max())}")
+        errs["group_ball_proj_batched.ama_step"] = max(
+            errs["group_ball_proj_batched.ama_step"], float(err.max()))
+        # u and its repeat; the fused step and its repeat
+        check(ops.variant_counts()["group_ball_proj_batched"]["ama_step"] == 2
+              and ops.launch_counts()["ama_gather_back"] == 2,
+              f"the AMA passes at {at} launched {read_counts(ops)}")
+        print(f"[chip_smoke] AMA passes at {at}: the gather-back equals the "
+              f"CPU's bit for bit, the fused step the plain prox of the "
+              f"gradient step (ama_step_ref within {float(err.max()):.3g}); "
+              "repeats bit-identical", flush=True)
+        del o, nu, u, got, plain, v_norm, err
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -1524,6 +1651,7 @@ def phase_convex_paths(simulate, ops, card: str) -> dict:
                            **kw)
         launches = read_counts(ops)
         check_path(name, summary, launches, ("group_ball_proj_batched",
+                                             "ama_gather_back",
                                              "pairwise_sqdist",
                                              "kmeans_assign"))
         counters = summary["obs"]["counters"]
@@ -2438,6 +2566,13 @@ def phase_convex_warm(ops, card: str) -> dict:
     check(purity == 1.0, f"convex warm: purity {purity}")
     for kernel in ("group_ball_proj_batched", "pairwise_sqdist"):
         check(launches[kernel] > 0, f"convex warm: launched no {kernel}")
+    # each AMA iteration is one fused step and one gather-back, and each
+    # solve one gather-back more for its result
+    check(launches["group_ball_proj_batched.ama_step"] == n0 + n1 and
+          launches["ama_gather_back"] == n0 + n1 + 2,
+          f"convex warm: {n0} + {n1} AMA iterations launched "
+          f"{launches['group_ball_proj_batched.ama_step']} fused steps and "
+          f"{launches['ama_gather_back']} gather-backs")
     print(json.dumps({"convex_warm_path": {
         "clients": clients, "edges": "knn", "knn_k": 8,
         "lam": options["lam"], "n_clusters": info1["n_clusters"],
@@ -4342,6 +4477,60 @@ def prox_kernel_rows(group_prox) -> list:
     return rows
 
 
+def ama_kernel_rows(group_prox) -> list:
+    """Phase 5 rows of the AMA iteration's two passes at ``AMA_MAIN``'s
+    duals (the row's own numbers at the complete graph's, the cell
+    ``cc-4k-round`` runs): the fused step (stepping one dual in place
+    call after call, as the loop does) against ``ama_step_ref``, the
+    gather-back against ``ama_gather_back_ref`` and ``index_add_``."""
+    from repro_torch.roofline import kernel_costs
+
+    steps, gathers = [], []
+    for i, (kind, m, L) in enumerate(AMA_MAIN):
+        o = ama_operands(kind, m, L, 250 + i)
+        nu, u, e = o["nu"], o["u"], o["nu"].shape[1]
+        shape = f"({L}, {e}, 32), {kind} C={m}"
+        moved = torch.zeros((), device="cuda")
+        b_ms, b_by = bound(kernel_costs.ama_step(
+            L, e, m, 32, kernel_costs.radius_elems(o["radius"])))
+        kern = device_time(lambda: ama_step(group_prox, o, nu, moved),
+                           kernel="group_ball_proj_kernel")
+        plain = device_time(lambda: group_prox.ama_step_ref(
+            nu, o["radius"], u=u, i_idx=o["i_idx"], j_idx=o["j_idx"],
+            eta=o["eta"], moved=moved))
+        steps.append({"shape": shape, "ms": kern["ms"],
+                      "call_ms": kern["call_ms"], "plain_ms": plain["ms"],
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                      "device_ops_per_call": kern["device_ops_per_call"],
+                      "traces": kern["traces"]})
+        b_ms, b_by = bound(kernel_costs.ama_gather_back(L, e, m, 32))
+        args = (o["a"], nu, o["heads"], o["tails"], u)
+        kern = device_time(lambda: group_prox.ama_gather_back(*args),
+                           kernel="ama_gather_back_kernel")
+        plain = device_time(lambda: group_prox.ama_gather_back_ref(*args))
+        lib = device_time(lambda: u.copy_(o["a"].expand_as(u))
+                          .index_add_(1, o["i_idx"], nu)
+                          .index_add_(1, o["j_idx"], nu, alpha=-1.0))
+        gathers.append({"shape": f"{shape} -> ({L}, {m}, 32)",
+                        "ms": kern["ms"], "call_ms": kern["call_ms"],
+                        "plain_ms": plain["ms"], "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib["ms"],
+                        "traces": kern["traces"]})
+        del o, nu, u, args
+        torch.cuda.empty_cache()
+    source = "src/repro_torch/kernels/csrc/group_prox.cu"
+    # neither replaces a TPU kernel: the reference leaves the loop body
+    # to XLA
+    return [{"name": "group_ball_proj_batched.ama_step", "route": "cuda",
+             "source": source, "replaces": None, "launches": None,
+             "max_abs_err": None, **steps[-1],
+             "library": None, "at_shapes": steps},
+            {"name": "ama_gather_back", "route": "cuda", "source": source,
+             "replaces": None, "launches": None, "max_abs_err": None,
+             **gathers[-1], "library": "index_add_ (atomics: not repeatable)",
+             "at_shapes": gathers}]
+
+
 def bound(cost: tuple, hw=None) -> tuple:
     """The least time the card could take for ``cost`` = ``(bytes,
     ops)`` (``roofline.kernel_costs``): the bytes at the HBM rate or the
@@ -4494,7 +4683,8 @@ def phase_timings(card: str) -> list:
 
     t0 = time.perf_counter()
     rows = (kernel_rows(pairwise_l2, kmeans_assign)
-            + prox_kernel_rows(group_prox) + [flash_kernel_row(flash, card)])
+            + prox_kernel_rows(group_prox) + ama_kernel_rows(group_prox)
+            + [flash_kernel_row(flash, card)])
     rows[-1]["at_shapes"] = family_flash_rows(flash)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -5907,6 +6097,7 @@ def main() -> None:
     errs = phase_kernels(pairwise_l2, kmeans_assign, ops)
     phase_flush_buckets(pairwise_l2, kmeans_assign, ops)
     errs.update(phase_prox_kernels(group_prox, pairwise_l2, ops))
+    errs.update(phase_ama_kernels(group_prox, ops))
     errs.update(phase_flash_kernel(flash))
     errs["flash_attention"] = max(errs["flash_attention"],
                                   phase_family_flash(flash))

@@ -3,13 +3,17 @@
 
   * ``_ama_fixed_point`` — the Chi & Lange (2015) AMA splitting over an
     edge list, batched over a leading lambda axis (the clusterpath ladder
-    advances its L solves together).  The dual prox is the group-prox
-    kernel (``kernels.ops.group_ball_proj_batched``); ``u`` is gathered
-    back from the dual by deterministic segment sums
-    (``engine/segment.py``).  The loop reads the dual step ``moved``
-    once per iteration on the host and stops at the reference's
-    condition, so it reports the reference's ``n_iter``
-    (counter ``convex.ama.iterations``).
+    advances its L solves together).  An iteration is two passes over
+    the (L, E, d) dual and writes no edge-sized temporary: ``u`` gathered
+    back from the dual by the deterministic segment kernel
+    (``kernels.ops.ama_gather_back``, over ``engine/segment.py``'s plans),
+    then the group-prox kernel's fused step
+    (``kernels.ops.group_ball_proj_batched`` with the step's operands:
+    the edge difference, the gradient step, the prox and the largest
+    dual step), which updates the one dual buffer in place.  The loop
+    reads the dual step ``moved`` once per iteration on the host and
+    stops at the reference's condition, so it reports the reference's
+    ``n_iter`` (counter ``convex.ama.iterations``).
   * the fusion graph is a registered edge set (``engine/edges.py``):
     ``"complete"``, ``"knn"`` or ``"knn-approx"``.
   * cluster extraction is min-label propagation over the fused pairs
@@ -39,10 +43,12 @@ from repro_torch.core.engine.edges import Edges, get_edge_set
 from repro_torch.core.engine.segment import segment_plan, segment_sum
 from repro_torch.kernels import ops as kops
 
-# shortlisted pairs that ``fused_adjacency`` decides at a time: the
-# shortlist holds up to m^2 pairs (2.7e8 at m = 16 384), too many to
-# gather at once
-_ADJ_CHUNK = 1 << 22
+# bytes of the two (pairs, d) fp32 gathers of a chunk of the shortlist
+# that ``fused_adjacency`` decides at a time: the shortlist holds up to
+# m^2 pairs, too many to gather at once; 256 MiB (1M pairs at d = 32)
+# lets the complete graph's round at C = 4096 hold its peak beside the
+# AMA's dual and the session's warm one (1.07 GB each)
+_ADJ_BYTES = 1 << 28
 
 
 class DeviceConvexResult(NamedTuple):
@@ -86,26 +92,30 @@ def _ama_fixed_point(a, lams, edges: Edges, *, iters: int, tol: float,
     thresh = float(tol * (1.0 + torch.max(torch.abs(a))))
     heads = segment_plan(edges.i_idx, m)
     tails = segment_plan(edges.j_idx, m)
-
-    def u_of(nu):
-        return a[None] + (segment_sum(nu, heads, axis=1)
-                          - segment_sum(nu, tails, axis=1))
-
+    # the edge ends as the fused step reads them, cast once a solve
+    i32, j32 = edges.i_idx.to(torch.int32), edges.j_idx.to(torch.int32)
+    # one dual, allocated once a solve and stepped in place (a second
+    # buffer to step into would be 1.07 GB more at the complete graph's
+    # C = 4096, beside the session's warm dual); a warm start is copied
+    # in, never written
     if nu0 is None:
         nu = a.new_zeros((L, e, d))
     else:
-        nu = torch.as_tensor(nu0).to(a.device, torch.float32).reshape(L, e, d)
+        nu = a.new_empty((L, e, d)).copy_(
+            torch.as_tensor(nu0).reshape(L, e, d))
+    u = a.new_empty((L, m, d))  # the primal, gathered back into it
+    step = a.new_zeros(())      # the last iteration's max |new_nu - nu|
     n_iter, moved = 0, float("inf")
     while n_iter < iters and moved > thresh:
-        u = u_of(nu)
-        grad = u[:, edges.i_idx] - u[:, edges.j_idx]         # (L, E, d)
-        new_nu = kops.group_ball_proj_batched(nu - eta * grad, radius)
+        kops.ama_gather_back(a, nu, heads, tails, u)
+        kops.group_ball_proj_batched(nu, radius, u=u, i_idx=i32, j_idx=j32,
+                                     eta=eta, moved=step)
         # max dual step, rescaled by 1/eta to the primal's units
-        moved = float(torch.max(torch.abs(new_nu - nu)) / eta)
-        nu = new_nu
+        moved = float(step / eta)
         n_iter += 1
     obs.count("convex.ama.iterations", n_iter)
-    return u_of(nu), nu, n_iter, moved, thresh
+    u = kops.ama_gather_back(a, nu, heads, tails, u)
+    return u, nu, n_iter, moved, thresh
 
 
 def fused_adjacency(u, merge_tol):
@@ -121,8 +131,8 @@ def fused_adjacency(u, merge_tol):
     2^-24 * (||u_i||^2 + ||u_j||^2): deterministic, and the reference's
     decision wherever its rounding does not decide. The kernel's
     distances shortlist the pairs within that bound plus the kernel's
-    own rounding, and the shortlist is decided ``_ADJ_CHUNK`` pairs at
-    a time."""
+    own rounding, and the shortlist is decided ``_ADJ_BYTES`` of
+    gathers at a time."""
     m, d = u.shape
     d2 = kops.pairwise_sqdist(u, u)
     sq = torch.sum(u * u, dim=1)
@@ -132,10 +142,12 @@ def fused_adjacency(u, merge_tol):
         as_tuple=True)
     del d2
     adj = torch.zeros((m, m), dtype=torch.bool, device=u.device)
-    for s in range(0, ii.numel(), _ADJ_CHUNK):
-        i, j = ii[s:s + _ADJ_CHUNK], jj[s:s + _ADJ_CHUNK]
-        diff = u[i] - u[j]
-        near = (torch.sum(diff * diff, dim=1)
+    chunk = max(1, _ADJ_BYTES // (2 * 4 * max(d, 1)))
+    for s in range(0, ii.numel(), chunk):
+        i, j = ii[s:s + chunk], jj[s:s + chunk]
+        diff = u[i]
+        diff -= u[j]
+        near = (torch.sum(diff.mul_(diff), dim=1)
                 <= tol2 + 2.0 ** -24 * (sq[i] + sq[j]))
         adj[i[near], j[near]] = True
     return adj

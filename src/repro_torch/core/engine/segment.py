@@ -17,19 +17,23 @@ import torch
 
 class SegmentPlan(NamedTuple):
     """Where each segment's slots lie once they are grouped."""
-    order: Optional[torch.Tensor]    # (n,) slot order; None: already grouped
+    order: Optional[torch.Tensor]    # (n,) int32 slot order; None: grouped
     lengths: torch.Tensor            # (segments,) int64 slots per segment
+    starts: torch.Tensor             # (segments + 1,) int64 run offsets
 
 
 def segment_plan(ids: torch.Tensor, segments: int) -> SegmentPlan:
     """Plan the sums of slots ``ids`` (n,) into ``segments`` segments.
     Ids that are already sorted (the complete graph's heads) skip the
-    gather."""
+    gather.  Segment s's slots are ``order[starts[s]:starts[s + 1]]``
+    (the AMA's gather-back kernel reads the runs so)."""
     ids = ids.long()
     lengths = torch.bincount(ids, minlength=segments)
+    starts = torch.nn.functional.pad(torch.cumsum(lengths, 0), (1, 0))
     if ids.numel() < 2 or bool((ids[1:] >= ids[:-1]).all()):
-        return SegmentPlan(order=None, lengths=lengths)
-    return SegmentPlan(order=torch.argsort(ids, stable=True), lengths=lengths)
+        return SegmentPlan(order=None, lengths=lengths, starts=starts)
+    order = torch.argsort(ids, stable=True).to(torch.int32)
+    return SegmentPlan(order=order, lengths=lengths, starts=starts)
 
 
 def segment_sum(values: torch.Tensor, plan: SegmentPlan,

@@ -57,6 +57,14 @@ _SIGNATURES = {
         # v, radius, out, b, e, d, radius strides (b, e), stream
         "group_ball_proj_batched_f32": [_VP, _VP, _VP, _LL, _LL, _INT, _LL,
                                         _LL, _VP],
+        # nu (stepped in place), radius, b, e, d, radius strides (b, e),
+        # u, m, i_idx, j_idx, eta, moved, stream
+        "ama_step_f32": [_VP, _VP, _LL, _LL, _INT, _LL, _LL, _VP, _LL, _VP,
+                         _VP, _VP, _VP, _VP],
+        # a, nu, head starts, head order, tail starts, tail order, u, b, m,
+        # e, d, stream
+        "ama_gather_back_f32": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL,
+                                _LL, _INT, _VP],
     },
     "flash_attention": {
         # q, k, v, o, strides[12], batch, h, hkv, sq, skv, dh, causal,

@@ -31,6 +31,7 @@ WRAPPERS = {"pairwise_sqdist": _pairwise.pairwise_sqdist,
             "kmeans_assign": _assign.kmeans_assign,
             "group_ball_proj": _prox.group_ball_proj,
             "group_ball_proj_batched": _prox.group_ball_proj_batched,
+            "ama_gather_back": _prox.ama_gather_back,
             "flash_attention": _flash.flash_attention}
 
 
@@ -73,18 +74,48 @@ def group_ball_proj(v: torch.Tensor, radius) -> torch.Tensor:
     raise ValueError(f"group_ball_proj: no kernel for device {v.device}")
 
 
-def group_ball_proj_batched(v: torch.Tensor, radius) -> torch.Tensor:
+def group_ball_proj_batched(v: torch.Tensor, radius, *, u=None, i_idx=None,
+                            j_idx=None, eta=None,
+                            moved=None) -> torch.Tensor:
     """Batched row-wise L2-ball projection of v (b,e,d); radius
-    broadcastable to (b,e)."""
-    _costs.charge(_costs.group_ball_proj(v.shape[0] * v.shape[1],
-                                         v.shape[2],
-                                         _costs.radius_elems(radius)))
+    broadcastable to (b,e).  Given the AMA step's operands (``u`` (b,m,d),
+    the int32 edge ends ``i_idx``, ``j_idx``, ``eta`` and the 0-d
+    ``moved``), v is the dual nu (fp32, contiguous) and the call is one
+    fused edge pass that steps it in place: nu = the prox of nu - eta
+    (u[:, i] - u[:, j]), ``moved`` = max |new - nu|
+    (``group_prox.ama_step_ref``); returns nu."""
+    rows, d = v.shape[0] * v.shape[1], v.shape[2]
+    r_elems = _costs.radius_elems(radius)
+    step = _prox.step_operands(u=u, i_idx=i_idx, j_idx=j_idx, eta=eta,
+                               moved=moved)
+    _costs.charge(_costs.group_ball_proj(rows, d, r_elems) if step is None
+                  else _costs.ama_step(v.shape[0], v.shape[1], u.shape[1], d,
+                                       r_elems))
     if v.device.type == "cuda":
+        if step is not None:      # in place: nu itself, never a copy
+            return _prox.group_ball_proj_batched(v, radius, **step)
         return _prox.group_ball_proj_batched(_fp32(v), radius)
     if v.device.type == "cpu":
-        return _prox.group_ball_proj_batched_ref(v, radius)
+        if step is None:
+            return _prox.group_ball_proj_batched_ref(v, radius)
+        return _prox.ama_step_ref(v, radius, **step)
     raise ValueError(f"group_ball_proj_batched: no kernel for device "
                      f"{v.device}")
+
+
+def ama_gather_back(a: torch.Tensor, nu: torch.Tensor, heads, tails,
+                    u: torch.Tensor) -> torch.Tensor:
+    """The AMA's primal from its dual: u (b,m,d) = a (m,d) + (segment sums
+    of nu (b,e,d) over the heads' ``SegmentPlan`` - over the tails'),
+    each run added in order (the plain version's bits on every run),
+    written into ``u`` (fp32, contiguous); returns u."""
+    _costs.charge(_costs.ama_gather_back(nu.shape[0], nu.shape[1],
+                                         a.shape[0], a.shape[1]))
+    if nu.device.type == "cuda":
+        return _prox.ama_gather_back(_fp32(a), _fp32(nu), heads, tails, u)
+    if nu.device.type == "cpu":
+        return _prox.ama_gather_back_ref(a, nu, heads, tails, u)
+    raise ValueError(f"ama_gather_back: no kernel for device {nu.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -108,8 +139,9 @@ def launch_counts() -> dict:
 
 def variant_counts() -> dict:
     """Launches per variant since the last reset, for the wrappers that
-    pick a kernel by shape (``kmeans_assign``: small / stream;
-    ``pairwise_sqdist``: stream / tiled / batched)."""
+    pick a kernel by shape or by their operands (``kmeans_assign``: small
+    / stream; ``pairwise_sqdist``: stream / tiled / batched;
+    ``group_ball_proj_batched``: plain / ama_step)."""
     with _counts.LOCK:
         return {name: dict(fn.by_variant) for name, fn in WRAPPERS.items()
                 if hasattr(fn, "by_variant")}

@@ -46,6 +46,25 @@ def group_ball_proj(rows: int, d: int, radius_elems: int) -> tuple:
             (3.0 * d + 3) * rows)
 
 
+def ama_step(b: int, e: int, m: int, d: int, radius_elems: int) -> tuple:
+    """One fused AMA edge pass over b rungs of e edges: the prox of the
+    (b, e, d) stepped dual, plus u (b, m, d) and the two int32 edge ends
+    read, the step's max written; 5d more ops a row (the edge difference,
+    the step, the subtraction, |new - nu| and its max)."""
+    nbytes, ops = group_ball_proj(b * e, d, radius_elems)
+    return (nbytes + F32 * (b * m * d + 2 * e + 1), ops + 5.0 * d * b * e)
+
+
+def ama_gather_back(b: int, e: int, m: int, d: int) -> tuple:
+    """u (b, m, d) = a (m, d) + head sums - tail sums of the (b, e, d)
+    dual: the dual and a read once, u written once; 2 adds a dual value
+    (into its head's sum and its tail's) and 2 ops a value of u.  The
+    kernel reads the dual twice (heads, then tails), so it can reach at
+    most half of this bound."""
+    return (F32 * (b * e * d + m * d + b * m * d),
+            2.0 * b * e * d + 2.0 * b * m * d)
+
+
 def radius_elems(radius) -> int:
     """Radii a prox call reads: one for a Python number, else the
     tensor's elements that are stored (a broadcast, stride-0 axis reads

@@ -116,7 +116,8 @@ def test_cpu_dispatch_counts_no_variant():
     ops.pairwise_sqdist(a, a[:3])
     assert ops.variant_counts() == {
         "pairwise_sqdist": {"stream": 0, "tiled": 0, "batched": 0},
-        "kmeans_assign": {"small": 0, "stream": 0}}
+        "kmeans_assign": {"small": 0, "stream": 0},
+        "group_ball_proj_batched": {"plain": 0, "ama_step": 0}}
 
 
 @pytest.mark.parametrize("m", [SMALL - 1, SMALL, SMALL + 1])

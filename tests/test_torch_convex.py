@@ -1,5 +1,7 @@
 """The port's convex family (ODCL-CC) against the JAX reference on the
-same numpy inputs: the deterministic segment sum, ``device_convex_cluster``
+same numpy inputs: the deterministic segment sum, the AMA iteration's
+two passes (bit for bit against the PyTorch composition they replaced),
+``device_convex_cluster``
 (complete and kNN graphs, lambda given and ``None``, ``warm_nu``),
 ``device_clusterpath`` (complete, kNN and the LSH kNN graph with the
 reference's directions carried across), the host ``convex_clustering``,
@@ -37,6 +39,8 @@ from repro_torch.core.clustering import convex as tconvex
 from repro_torch.core.engine import device_convex as tdc
 from repro_torch.core.engine import edges as tedges
 from repro_torch.interop import directions_from_numpy
+from repro_torch.kernels import group_prox as tprox
+from repro_torch.kernels import ops
 from repro_torch.core.engine.segment import segment_plan, segment_sum
 from repro_torch.core.engine.session import AggregationSession
 from repro_torch.launch import simulate as tsimulate
@@ -158,9 +162,9 @@ def test_ama_broadcasts_one_radius_per_rung_on_the_uniform_graph(
     seen = []
     prox = tdc.kops.group_ball_proj_batched
 
-    def spy(v, radius):
+    def spy(v, radius, **step):
         seen.append(tuple(radius.shape))
-        return prox(v, radius)
+        return prox(v, radius, **step)
 
     monkeypatch.setattr(tdc.kops, "group_ball_proj_batched", spy)
     u, _, n_iter, _, _ = tdc._ama_fixed_point(a, lams, es, iters=3, tol=1e-7)
@@ -172,6 +176,134 @@ def test_ama_broadcasts_one_radius_per_rung_on_the_uniform_graph(
         u_full = tdc._ama_fixed_point(a, lams, full, iters=3, tol=1e-7)[0]
         assert seen[3:] == [(2, es.n_edges)] * 3
         assert torch.equal(u, u_full)
+
+
+# ------------------------------- the AMA iteration's two passes
+#
+# The loop body used to be a PyTorch composition: u by two segment sums
+# (a stable int64 argsort gathered with index_select, then
+# segment_reduce), the edge gathers, the gradient step, the prox and the
+# max |new - nu|.  The kernels' plain versions must give its bits.
+
+def _edge_list(kind, m, seed):
+    """(i_idx, j_idx) int64: the complete graph (heads sorted, so their
+    plan has no order), the kNN graph of blobs, or random pairs that leave
+    some nodes in no edge (empty segments on both sides)."""
+    if kind == "complete":
+        es = tedges.CompleteEdges()(torch.zeros((m, 2)))
+        return es.i_idx, es.j_idx
+    if kind == "knn":
+        pts, _ = make_blobs(seed, k=3, per=m // 3)
+        es = tedges.get_edge_set("knn")(torch.from_numpy(pts), knn_k=4)
+        return es.i_idx, es.j_idx
+    rng = np.random.default_rng(seed)
+    i = rng.integers(0, m - 5, size=3 * m)
+    j = rng.integers(0, m - 5, size=3 * m)
+    keep = i != j
+    return (torch.from_numpy(np.minimum(i, j)[keep]),
+            torch.from_numpy(np.maximum(i, j)[keep]))
+
+
+def _old_segment_sum(values, ids, m):
+    ids = ids.long()
+    lengths = torch.bincount(ids, minlength=m).expand(
+        values.shape[0], -1).contiguous()
+    if ids.numel() > 1 and not bool((ids[1:] >= ids[:-1]).all()):
+        values = torch.index_select(values, 1,
+                                    torch.argsort(ids, stable=True))
+    return torch.segment_reduce(values, "sum", lengths=lengths, axis=1,
+                                unsafe=True)
+
+
+def _old_iteration(a, nu, radius, i_idx, j_idx, eta):
+    """The loop body the two passes replace: (u, new_nu, max|new - nu|)."""
+    m = a.shape[0]
+    u = a[None] + (_old_segment_sum(nu, i_idx, m)
+                   - _old_segment_sum(nu, j_idx, m))
+    grad = u[:, i_idx] - u[:, j_idx]
+    new = tprox.group_ball_proj_batched_ref(nu - eta * grad, radius)
+    return u, new, torch.max(torch.abs(new - nu))
+
+
+def _radius(layout, lams, e):
+    if layout == "scalar":
+        return torch.tensor(float(lams[0]))
+    if layout == "rung":
+        return lams[:, None] * torch.ones(1)
+    rng = np.random.default_rng(e)
+    w = torch.from_numpy(rng.uniform(0.0, 2.0, size=e).astype(np.float32))
+    w[::7] = 0.0                                        # inert slots
+    return lams[:, None] * w[None, :]
+
+
+@pytest.mark.parametrize("kind", ["complete", "knn", "unsorted"])
+@pytest.mark.parametrize("L", [1, 10])
+@pytest.mark.parametrize("layout", ["scalar", "rung", "edge"])
+def test_ama_passes_equal_the_old_composition_bit_for_bit(kind, L, layout):
+    m, d = 30, 5
+    i_idx, j_idx = _edge_list(kind, m, seed=L)
+    e = i_idx.numel()
+    rng = np.random.default_rng(e + L)
+    a = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32))
+    nu = torch.from_numpy(rng.normal(size=(L, e, d)).astype(np.float32))
+    lams = torch.from_numpy(rng.uniform(0.1, 2.0, size=L).astype(np.float32))
+    radius = _radius(layout, lams, e)
+    eta = torch.tensor(1.0 / (2 * m), dtype=torch.float32)
+    heads, tails = segment_plan(i_idx, m), segment_plan(j_idx, m)
+    assert (heads.order is None) == (kind == "complete")
+    want_u, want_nu, want_moved = _old_iteration(a, nu, radius, i_idx, j_idx,
+                                                 eta)
+    u = torch.full((L, m, d), float("nan"))
+    assert ops.ama_gather_back(a, nu, heads, tails, u) is u
+    assert torch.equal(u, want_u)
+    # empty segments: nodes without heads, without tails, in no edge
+    assert bool((heads.lengths == 0).any() and (tails.lengths == 0).any())
+    if kind == "unsorted":
+        idle = torch.bincount(torch.cat([i_idx, j_idx]), minlength=m) == 0
+        assert bool(idle.any())
+        assert torch.equal(u[:, idle], a[None, idle].expand(L, -1, -1))
+    # in place, as the loop steps its one dual
+    moved = torch.full((), -1.0)
+    got = ops.group_ball_proj_batched(
+        nu, radius, u=u, i_idx=i_idx.to(torch.int32),
+        j_idx=j_idx.to(torch.int32), eta=eta, moved=moved)
+    assert got is nu and torch.equal(nu, want_nu)
+    assert torch.equal(moved, want_moved)
+
+
+@pytest.mark.parametrize("edges,L", [("complete", 1), ("knn", 1),
+                                     ("complete", 3)])
+def test_ama_loop_equals_the_old_loop_bit_for_bit(edges, L):
+    pts, _ = make_blobs(4, k=3)
+    a = torch.from_numpy(pts)
+    es = tedges.get_edge_set(edges)(a, knn_k=4)
+    lams = torch.linspace(0.5, 1.5, L)
+    u, nu, n_iter, moved, _ = tdc._ama_fixed_point(a, lams, es, iters=12,
+                                                   tol=1e-7)
+    eta = torch.as_tensor(1.0 / es.inv_eta, dtype=torch.float32)
+    radius = lams[:, None] * es.weights[None, :]
+    want = a.new_zeros((L, es.n_edges, a.shape[1]))
+    for _ in range(12):
+        _, want, step = _old_iteration(a, want, radius, es.i_idx, es.j_idx,
+                                       eta)
+    m = a.shape[0]
+    want_u = a[None] + (_old_segment_sum(want, es.i_idx, m)
+                        - _old_segment_sum(want, es.j_idx, m))
+    assert n_iter == 12 and moved == float(step / eta)
+    assert torch.equal(nu, want) and torch.equal(u, want_u)
+
+
+def test_a_warm_dual_is_left_unchanged():
+    pts, true = make_blobs(3, k=3)
+    lam = interval_lambda(pts, true)
+    cold = tdc.device_convex_cluster(None, torch.from_numpy(pts), lam=lam,
+                                     iters=10)
+    warm_nu = cold.nu.clone()
+    warm = tdc.device_convex_cluster(None, torch.from_numpy(pts), lam=lam,
+                                     iters=10, warm_nu=warm_nu)
+    assert torch.equal(warm_nu, cold.nu)
+    assert warm.nu.data_ptr() != warm_nu.data_ptr()
+    assert not torch.equal(warm.nu, cold.nu)
 
 
 def test_device_convex_default_lambda_matches_reference():

@@ -17,7 +17,10 @@ order); flash attention within rtol/atol 1e-4 in float32 (the CUDA-core
 kernel) and, in bfloat16 (the tensor-core kernel), within one bf16 ulp
 of the plain version (2^-7 |want|: both round an fp32 result whose two
 summation orders differ by ~1e-6) plus 1e-4 max|v|; a repeat run
-bit-identical.
+bit-identical.  The AMA's two passes: the fused step equals the plain
+prox of PyTorch's gradient step bit for bit (its max |new - nu| too),
+and the gather-back equals the CPU's segment sums bit for bit and lies
+within 1e-6 of fp64's relative to the magnitudes added.
 """
 import numpy as np
 import pytest
@@ -209,7 +212,11 @@ def test_launch_counters_count_kernel_launches(cuda_device):
     assert ops.launch_counts() == {"pairwise_sqdist": 1, "kmeans_assign": 2,
                                    "group_ball_proj": 1,
                                    "group_ball_proj_batched": 1,
+                                   "ama_gather_back": 0,
                                    "flash_attention": 1}
+    # without the AMA step's operands the batched prox is the plain one
+    assert ops.variant_counts()["group_ball_proj_batched"] == {
+        "plain": 1, "ama_step": 0}
 
 
 @pytest.mark.parametrize("nb,m,k,d", [(256, 64, 192, 32), (3, 7, 21, 5),
@@ -481,6 +488,148 @@ def test_group_prox_at_the_paper_host_ama_shape(cuda_device):
     norm = torch.linalg.vector_norm(v, dim=1, keepdim=True)
     assert bool(((got - want).abs() <= 1e-6 * want.abs() + 1e-7 * norm).all())
     assert torch.equal(tprox.group_ball_proj(v, 0.75), got)
+
+
+# ------------------------------------------- the AMA iteration's passes
+
+AMA_D = [3, 20, 32, 64, 128]
+
+
+def _ama_edges(kind, m, device, seed=0):
+    """(i_idx, j_idx) int64 on the device: the complete graph (sorted
+    heads), or random pairs over the first m - 5 nodes (unsorted heads,
+    a ragged E, nodes in no edge)."""
+    if kind == "complete":
+        i, j = torch.triu_indices(m, m, 1)
+        return i.to(device), j.to(device)
+    rng = np.random.default_rng(seed)
+    i = rng.integers(0, m - 5, size=11 * m + 3)
+    j = rng.integers(0, m - 5, size=11 * m + 3)
+    keep = i != j
+    return (torch.from_numpy(np.minimum(i, j)[keep]).to(device),
+            torch.from_numpy(np.maximum(i, j)[keep]).to(device))
+
+
+def _ama_radius(layout, b, e, device, seed):
+    (r,) = _draw(seed, device, (b, e))
+    r = r.abs() * 3.0
+    r[:, 1::7] = 0.0                                     # inert slots
+    return {"scalar": 1.5, "rung": r[:, :1], "edge": r}[layout]
+
+
+@pytest.mark.parametrize("d", AMA_D)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("layout", ["scalar", "rung", "edge"])
+def test_ama_step_is_the_plain_prox_of_the_old_composition(cuda_device, d, b,
+                                                           layout):
+    """The fused edge pass equals the plain kernel fed PyTorch's gradient
+    step bit for bit, and its max |new - nu| is PyTorch's."""
+    m = 97
+    i_idx, j_idx = _ama_edges("random", m, cuda_device, seed=d)
+    e = i_idx.numel()
+    nu, u = _draw(d * 10 + b, cuda_device, (b, e, d), (b, m, d))
+    radius = _ama_radius(layout, b, e, cuda_device, seed=d + b)
+    eta = torch.tensor(1.0 / (2 * m), dtype=torch.float32,
+                       device=cuda_device)
+    ops.reset_launch_counts()
+    want = tprox.group_ball_proj_batched(
+        nu - eta * (u[:, i_idx] - u[:, j_idx]), radius)
+    # in place, as the AMA loop runs it, twice from the same dual
+    moved, again = (torch.full((), -1.0, device=cuda_device)
+                    for _ in range(2))
+    got, twice = nu.clone(), nu.clone()
+    for dual, into in ((got, moved), (twice, again)):
+        assert tprox.group_ball_proj_batched(
+            dual, radius, u=u, i_idx=i_idx.to(torch.int32),
+            j_idx=j_idx.to(torch.int32), eta=eta, moved=into) is dual
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(twice, want)
+    assert torch.equal(moved, torch.max(torch.abs(want - nu)))
+    assert torch.equal(again, moved)
+    assert ops.variant_counts()["group_ball_proj_batched"] == {
+        "plain": 1, "ama_step": 2}
+
+
+def test_ama_step_refuses_what_it_cannot_take(cuda_device):
+    nu, u = _draw(5, cuda_device, (1, 6, 4), (1, 4, 4))
+    i_idx = torch.tensor([0, 0, 0, 1, 1, 2], dtype=torch.int32,
+                         device=cuda_device)
+    j_idx = torch.tensor([1, 2, 3, 2, 3, 3], dtype=torch.int32,
+                         device=cuda_device)
+    eta = torch.tensor(0.1, device=cuda_device)
+    step = dict(u=u, i_idx=i_idx, j_idx=j_idx, eta=eta,
+                moved=torch.zeros((), device=cuda_device))
+    tprox.group_ball_proj_batched(nu, 1.0, **step)
+    with pytest.raises(ValueError, match="missing"):
+        tprox.group_ball_proj_batched(nu, 1.0, u=u)
+    # the dual is stepped in place: a strided view cannot be
+    with pytest.raises(ValueError, match="contiguous"):
+        tprox.group_ball_proj_batched(nu.transpose(1, 2).contiguous()
+                                      .transpose(1, 2), 1.0, **step)
+    with pytest.raises(ValueError, match="does not fit"):
+        tprox.group_ball_proj_batched(nu, 1.0, **{**step, "u": u[:, :, :3]
+                                                  .contiguous()})
+    with pytest.raises(ValueError, match="int32"):
+        tprox.group_ball_proj_batched(nu, 1.0,
+                                      **{**step, "i_idx": i_idx.long()})
+    with pytest.raises(ValueError, match="eta"):
+        tprox.group_ball_proj_batched(nu, 1.0, **{**step, "eta": eta.cpu()})
+
+
+@pytest.mark.parametrize("d", AMA_D)
+@pytest.mark.parametrize("kind,m", [("complete", 300), ("random", 97)])
+def test_ama_gather_back_is_the_plain_segment_sums_bit_for_bit(cuda_device,
+                                                               d, kind, m):
+    """u = a + head sums - tail sums: two runs bit-identical, the CPU's
+    plain version (segment_reduce, which adds a run in order) bit for bit,
+    and within 1e-6 of the fp64 sums relative to the sum of the magnitudes
+    added."""
+    from repro_torch.core.engine.segment import segment_plan
+
+    i_idx, j_idx = _ama_edges(kind, m, cuda_device, seed=d)
+    e, b = i_idx.numel(), 2
+    a, nu = _draw(d + m, cuda_device, (m, d), (b, e, d))
+    heads, tails = segment_plan(i_idx, m), segment_plan(j_idx, m)
+    assert (heads.order is None) == (kind == "complete")
+    ops.reset_launch_counts()
+    got, again = (torch.full((b, m, d), float("nan"), device=cuda_device)
+                  for _ in range(2))
+    assert tprox.ama_gather_back(a, nu, heads, tails, got) is got
+    tprox.ama_gather_back(a, nu, heads, tails, again)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert ops.launch_counts()["ama_gather_back"] == 2
+    cpu = tprox.ama_gather_back_ref(a.cpu(), nu.cpu(),
+                                    segment_plan(i_idx.cpu(), m),
+                                    segment_plan(j_idx.cpu(), m),
+                                    torch.empty((b, m, d)))
+    assert torch.equal(got.cpu(), cpu)
+
+    def sums(heads_sign, tails_sign):
+        out = torch.zeros((b, m, d), dtype=torch.float64, device=cuda_device)
+        out.index_add_(1, i_idx, heads_sign)
+        return out.index_add_(1, j_idx, tails_sign)
+
+    nu64 = nu.double()
+    want = a.double()[None] + sums(nu64, -nu64)
+    scale = a.double().abs()[None] + sums(nu64.abs(), nu64.abs())
+    assert bool(((got.double() - want).abs() <= 1e-6 * scale).all())
+
+
+def test_ama_loop_launches_one_fused_step_and_one_gather_back_an_iteration(
+        cuda_device):
+    from repro_torch.core.engine import device_convex as tdc
+
+    (pts,) = _draw(9, cuda_device, (64, 8))
+    # one lambda, and the ladder's ten rungs in one batched solve
+    for solve, kw in ((tdc.device_convex_cluster, {"lam": 0.05}),
+                      (tdc.device_clusterpath, {"n_lambdas": 10})):
+        ops.reset_launch_counts()
+        res = solve(None, pts, iters=7, tol=0.0, **kw)
+        assert res.n_iter == 7
+        assert ops.variant_counts()["group_ball_proj_batched"] == {
+            "plain": 0, "ama_step": 7}
+        assert ops.launch_counts()["ama_gather_back"] == 8
 
 
 def test_training_launches_no_flash_and_the_prefill_does(cuda_device):

@@ -101,6 +101,7 @@ def test_cpu_dispatch_launches_no_kernel():
     assert ops.launch_counts() == {"pairwise_sqdist": 0, "kmeans_assign": 0,
                                    "group_ball_proj": 0,
                                    "group_ball_proj_batched": 0,
+                                   "ama_gather_back": 0,
                                    "flash_attention": 0}
 
 
